@@ -1,0 +1,173 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+on the card.
+
+Every test here needs a Hopper card and skips without one. The file imports
+neither JAX nor the reference package, so it runs where the card is:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(--noconftest: tests/conftest.py sets up the JAX reference's virtual CPU
+mesh, which this file does not use.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from karpenter_tpu_torch.api.pods import PodSpec
+from karpenter_tpu_torch.api.provisioner import Constraints
+from karpenter_tpu_torch.cloudprovider import InstanceType, Offering
+from karpenter_tpu_torch.convert import fused_args_from_numpy
+from karpenter_tpu_torch.models import solver
+from karpenter_tpu_torch.ops import cuda_kernels, pack_kernel
+from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+# Card and CPU run the same fp32 arithmetic for the kernels (bit-identical),
+# but the LP's softmax and einsum sum in another order on each device.
+LP_OBJECTIVE_RTOL = 1e-4
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU build")
+    return torch.device("cuda")
+
+
+def _dominance_cases():
+    rng = np.random.default_rng(3)
+    yield np.zeros((1, 8), np.float32), np.array([1.5], np.float32)
+    ladder = np.arange(1, 9, dtype=np.float32)[:, None] * np.ones((1, 8), np.float32)
+    yield ladder, (0.1 * np.arange(1, 9)).astype(np.float32)
+    for num_types in (2, 39, 129, 512):
+        capacity = rng.integers(0, 6, (num_types, 8)).astype(np.float32)
+        prices = rng.choice([0.25, 0.5, 1.0], num_types).astype(np.float32)
+        invalid = rng.random(num_types) < 0.2
+        capacity[invalid] = 0.0
+        yield capacity, np.where(invalid, np.inf, prices).astype(np.float32)
+    yield np.zeros((5, 8), np.float32), np.full(5, np.inf, np.float32)
+
+
+DOMINANCE_CASES = list(_dominance_cases())
+
+
+@pytest.mark.parametrize("case", DOMINANCE_CASES, ids=[f"T{c[0].shape[0]}-{i}" for i, c in enumerate(DOMINANCE_CASES)])
+def test_dominance_kernel_equals_plain_version(case, cuda_device):
+    capacity, prices = (torch.from_numpy(a).to(cuda_device) for a in case)
+    before = cuda_kernels.dominance_prices.launches
+    got = cuda_kernels.dominance_prices(capacity, prices)
+    torch.cuda.synchronize()
+    assert cuda_kernels.dominance_prices.launches == before + 1
+    assert torch.equal(got, cuda_kernels._dominance_prices_ref(capacity, prices))
+
+
+def _pack_problem(seed, num_groups, num_types):
+    rng = np.random.default_rng(seed)
+    real_groups = int(rng.integers(1, num_groups + 1))
+    vectors = np.zeros((num_groups, 8), np.float32)
+    vectors[:real_groups, 0] = np.sort(rng.integers(1, 17, real_groups))[::-1] * 250
+    vectors[:real_groups, 1] = rng.integers(1, 33, real_groups) * 256
+    vectors[:real_groups, 2] = 1
+    if seed % 2:
+        vectors[0, 0] = 70_000  # fits no type: retired as unschedulable
+    counts = np.zeros(num_groups, np.int32)
+    counts[:real_groups] = rng.integers(1, 3000, real_groups)
+    real_types = int(rng.integers(1, num_types + 1))
+    cpu = np.sort(rng.integers(1, 65, real_types)) * 1000.0
+    capacity = np.zeros((num_types, 8), np.float32)
+    capacity[:real_types, 0] = cpu - 100
+    capacity[:real_types, 1] = cpu * rng.choice([2.0, 4.0, 8.0], real_types) - 600
+    capacity[:real_types, 2] = 110
+    valid = np.zeros(num_types, bool)
+    valid[:real_types] = True
+    prices = np.full(num_types, np.inf, np.float32)
+    prices[:real_types] = cpu / 1000 * rng.uniform(0.03, 0.05, real_types)
+    return vectors, counts, capacity, capacity.copy(), valid, prices
+
+
+# (32, 512) needs more than 48 KB of shared memory; (64, 1024) puts the fills
+# in global scratch.
+PACK_SHAPES = [(8, 8), (16, 64), (16, 512), (32, 512), (64, 1024)]
+
+
+@pytest.mark.parametrize("mode", ["ffd", "cost"])
+@pytest.mark.parametrize("shape", PACK_SHAPES, ids=lambda s: f"G{s[0]}xT{s[1]}")
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pack_kernel_equals_plain_version(seed, shape, mode, cuda_device):
+    args = fused_args_from_numpy(*_pack_problem(seed, *shape), device=cuda_device)
+    got = pack_kernel.pack_kernel(*args, mode=mode)
+    pair = pack_kernel.pack_kernel_pair(*args)[("ffd", "cost").index(mode)]
+    want = pack_kernel._pack_kernel_ref(*args, mode=mode)
+    torch.cuda.synchronize()
+    for field, a, b, c in zip(want._fields, got, pair, want):
+        assert torch.equal(a, c), field
+        assert torch.equal(b, c), field
+
+
+def test_pack_kernel_refuses_quirk(cuda_device):
+    args = fused_args_from_numpy(*_pack_problem(0, 8, 8), device=cuda_device)
+    with pytest.raises(ValueError):
+        pack_kernel.pack_kernel(*args, quirk=True)
+
+
+def _workload(num_pods=2000, num_types=40, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = [(int(rng.integers(1, 17)) * 250, int(rng.integers(1, 33)) * 256) for _ in range(16)]
+    weights = 1.0 / np.arange(1, 17)
+    counts = (weights / weights.sum() * num_pods).astype(int)
+    counts[0] += num_pods - counts.sum()
+    pods = [
+        PodSpec(name=f"pod-{k}-{i}", requests={"cpu": f"{cpu}m", "memory": f"{mem}Mi"})
+        for k, ((cpu, mem), count) in enumerate(zip(shapes, counts))
+        for i in range(count)
+    ]
+    catalog = []
+    for idx in range(num_types):
+        size = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)[(idx // 4) % 10]
+        mem_per_cpu, base = ((2.0, 0.17), (4.0, 0.192), (8.0, 0.252), (16.0, 0.333))[idx % 4]
+        cpu = 2 * size
+        offerings = []
+        for zone in ("z-1a", "z-1b", "z-1c"):
+            offerings.append(Offering(zone=zone, capacity_type="on-demand", price=base * size))
+            offerings.append(
+                Offering(zone=zone, capacity_type="spot", price=base * size * float(rng.uniform(0.25, 0.75)))
+            )
+        catalog.append(
+            InstanceType(
+                name=f"t{idx}.{size}x",
+                capacity={"cpu": cpu, "memory": f"{int(cpu * mem_per_cpu)}Gi", "pods": 110},
+                overhead={"cpu": "100m", "memory": "455Mi"},
+                offerings=offerings,
+            )
+        )
+    return pods, catalog
+
+
+def test_fused_body_on_card_equals_cpu(cuda_device):
+    pods, catalog = _workload()
+    groups = group_pods(pods)
+    fleet = build_fleet(catalog, Constraints(), pods)
+    padded = solver.pad_kernel_args(groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
+    card = solver._cost_fused_body(*fused_args_from_numpy(*padded, device=cuda_device), lp_steps=300)
+    cpu = solver._cost_fused_body(*fused_args_from_numpy(*padded, device="cpu"), lp_steps=300)
+    assert torch.equal(card[0].cpu(), cpu[0])  # compact payload, word for word
+    assert torch.equal(card[2].cpu(), cpu[2])  # dense spill
+    np.testing.assert_allclose(card[1].cpu().numpy(), cpu[1].numpy(), rtol=LP_OBJECTIVE_RTOL)
+
+
+def test_cost_solver_on_card_equals_cpu(cuda_device, monkeypatch):
+    monkeypatch.setenv("KARPENTER_HOST_SOLVE", "0")
+    pods, catalog = _workload(seed=1)
+    before = (cuda_kernels.dominance_prices.launches, pack_kernel.pack_kernel.launches)
+    got = solver.CostSolver(device="cuda").solve(pods, catalog, Constraints())
+    assert cuda_kernels.dominance_prices.launches == before[0] + 1
+    assert pack_kernel.pack_kernel.launches == before[1] + 1
+    want = solver.CostSolver(device="cpu").solve(pods, catalog, Constraints())
+    placed = [pod.uid for p in got.packings for node in p.pods_per_node for pod in node]
+    assert not got.unschedulable and sorted(placed) == sorted(pod.uid for pod in pods)
+    assert got.node_count == want.node_count
+    np.testing.assert_allclose(got.projected_cost(), want.projected_cost(), rtol=1e-4)

@@ -1,0 +1,85 @@
+"""Mirror test: the port's copies of host-only reference modules stay
+AST-equal to their references apart from import statements, so a later fix
+to the reference cannot silently miss the port.
+
+Verbatim copies are compared whole. Trimmed copies are compared definition
+by definition: every top-level function and class the port keeps must equal
+the reference's of the same name, except the few the port adapted, which are
+listed with the reason."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+VERBATIM = [
+    "api/__init__.py",
+    "api/resources.py",
+    "api/wellknown.py",
+    "api/requirements.py",
+    "api/taints.py",
+    "api/pods.py",
+    "api/provisioner.py",
+    "cloudprovider/__init__.py",
+    "utils/__init__.py",
+    "utils/logging.py",
+]
+# Trimmed copies: {module: {adapted definition: why}}.
+TRIMMED = {
+    "ops/ffd.py": {},
+    "ops/mix_pack.py": {},
+    "ops/encode.py": {"build_fleet": "no market hook: the port has no PriceBook yet"},
+    "ops/native.py": {
+        "_library_path": "the port builds csrc/host/ffd.cc into its own build directory",
+        "_build": "g++ directly, without the reference's Makefile",
+        "load": "loads the port's library path",
+    },
+}
+
+
+class _DropImports(ast.NodeTransformer):
+    def visit_Import(self, node):
+        return None
+
+    def visit_ImportFrom(self, node):
+        return None
+
+
+def _tree(path: Path) -> ast.Module:
+    return _DropImports().visit(ast.parse(path.read_text()))
+
+
+def _definitions(path: Path):
+    return {
+        node.name: ast.dump(node)
+        for node in _tree(path).body
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef))
+    }
+
+
+@pytest.mark.parametrize("relative", VERBATIM)
+def test_verbatim_copy_matches_reference(relative):
+    port = REPO / "karpenter_tpu_torch" / relative
+    reference = REPO / "karpenter_tpu" / relative
+    assert ast.dump(_tree(port)) == ast.dump(_tree(reference)), (
+        f"karpenter_tpu_torch/{relative} drifted from karpenter_tpu/{relative}; "
+        "carry the reference's change over (imports excepted)"
+    )
+
+
+@pytest.mark.parametrize("relative", sorted(TRIMMED))
+def test_trimmed_copy_matches_reference_per_definition(relative):
+    port = _definitions(REPO / "karpenter_tpu_torch" / relative)
+    reference = _definitions(REPO / "karpenter_tpu" / relative)
+    adapted = TRIMMED[relative]
+    assert set(adapted) <= set(port), f"stale adapted entries: {set(adapted) - set(port)}"
+    drifted = [
+        name for name in port if name not in adapted and port[name] != reference.get(name)
+    ]
+    assert drifted == [], (
+        f"karpenter_tpu_torch/{relative}: {drifted} differ from karpenter_tpu/{relative}"
+    )
