@@ -8,16 +8,24 @@ limit, and as the last line {"ok": true, "device": {...}}:
 
   1. card     the card, its power limit, torch and CUDA versions
   2. build    nvcc for every kernel source, all started together (timed)
-  3. kernels  each kernel against its plain PyTorch version on the card, bit
-              for bit: K1 dominance pricing on small edge cases and at
-              [512, 8]; K2 the pack round loop in both modes on random
-              problems and on the 50k-pod x 400-type encoded problem
+  3. kernels  each kernel against its plain PyTorch version on the card: K1
+              dominance pricing on small edge cases and at [512, 8] and K2
+              the pack round loop in both modes on random problems and on
+              the 50k-pod x 400-type encoded problem, bit for bit; K3 the LP
+              relaxation on non-degenerate LPs padded to [8, 16], [16, 512]
+              and [32, 512] (state in shared memory and in global scratch),
+              objective within rtol 1e-4 and assignment within 1e-3 pods,
+              and on the 50k problem, objective within rtol 1e-4
   4. solve    the main path: 50,000 pending pods over 400 instance types
               through CostSolver(device="cuda").solve with the host gate off
-              (KARPENTER_HOST_SOLVE=0); every pod placed exactly once, both
-              kernels launched; warm p50/p99 of solve_encoded over 10 runs
+              (KARPENTER_HOST_SOLVE=0); every pod placed exactly once, each
+              kernel launched exactly once; warm p50/p99 of solve_encoded
+              over 10 runs
   5. cpu      the same encoded problem through the plain versions on the CPU:
-              identical rounds and feasibility, $/hr within 1e-4 relative
+              identical rounds and feasibility, $/hr within 1e-4 relative, LP
+              objective within 1e-3 relative; the card's dispatch runs under
+              torch.cuda.set_sync_debug_mode("error") (no host sync) and
+              returns before the card is done
   6. batch    solve_encoded_many over 8 schedules (one fetch for the batch)
   7. timing   each kernel's time (CUDA events), its plain version's time and
               its bound at the main path's shapes
@@ -144,6 +152,77 @@ def dominance_cases():
     yield np.zeros((5, 8), np.float32), np.full(5, np.inf, np.float32)
 
 
+# K3 against its plain version: the CPU parity test's tolerances
+# (tests/test_torch_kernels.py): 300 float32 Adam steps whose sums are taken
+# in other orders drift apart by rounding.
+LP_OBJECTIVE_RTOL = 1e-4
+LP_ASSIGNMENT_ATOL = 1e-3
+LP_SEEDS = (0, 1, 3, 4, 6, 7, 8, 9)
+
+
+def lp_problem(seed: int):
+    """The non-degenerate LP family of tests/test_torch_kernels.py (same
+    draws, 8 groups x 16 types): every type has its own price per core."""
+    rng = np.random.default_rng(seed)
+    real_groups = int(rng.integers(2, 9))
+    real_types = int(rng.integers(3, 17))
+    vectors = np.zeros((8, 8), np.float32)
+    vectors[:real_groups, 0] = np.sort(rng.integers(1, 17, real_groups))[::-1] * 250
+    vectors[:real_groups, 1] = rng.integers(1, 33, real_groups) * 256
+    vectors[:real_groups, 2] = 1
+    counts = np.zeros(8, np.int32)
+    counts[:real_groups] = rng.integers(1, 60, real_groups)
+    cpu = np.sort(rng.integers(1, 17, real_types)) * 1000.0
+    capacity = np.zeros((16, 8), np.float32)
+    capacity[:real_types, 0] = cpu - 100
+    capacity[:real_types, 1] = cpu * rng.choice([2.0, 4.0, 8.0], real_types) - 600
+    capacity[:real_types, 2] = 110
+    valid = np.zeros(16, bool)
+    valid[:real_types] = True
+    prices = np.full(16, np.inf, np.float32)
+    prices[:real_types] = cpu / 1000 * rng.uniform(0.03, 0.06, real_types)
+    return vectors, counts, capacity, valid, prices
+
+
+def lp_inputs(seed: int, shape, device):
+    """lp_problem(seed) padded to shape = (G, T) with zero-count groups and
+    invalid types, as the bucket padding pads the main path, on the card:
+    (vectors, solvable counts, capacity, valid, effective prices)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import cuda_kernels, score_kernel
+
+    vectors, counts, capacity, valid, prices = lp_problem(seed)
+    num_groups, num_types = shape
+    vectors = np.pad(vectors, ((0, num_groups - 8), (0, 0)))
+    counts = np.pad(counts, (0, num_groups - 8))
+    capacity = np.pad(capacity, ((0, num_types - 16), (0, 0)))
+    valid = np.pad(valid, (0, num_types - 16))
+    prices = np.pad(prices, (0, num_types - 16), constant_values=np.inf)
+    vectors, counts, capacity, valid, prices = (
+        torch.from_numpy(a).to(device) for a in (vectors, counts, capacity, valid, prices)
+    )
+    effective = cuda_kernels._dominance_prices_ref(capacity, torch.where(valid, prices, torch.inf))
+    feasible_any = score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1)
+    return vectors, torch.where(feasible_any, counts, 0), capacity, valid, effective
+
+
+def lp_operations(groups: int, types: int, dims: int, steps: int) -> int:
+    """fp32 operations of the LP relaxation, counting exp, log, square root
+    and division as one each. Per step and cell (g, t): the masked softmax
+    (select, max, subtract, exp, add, divide: 6), x = c * S (1), its share of
+    D (2 per axis), dx and dS (2 per axis, 1), the row dot (2), the softmax
+    backward (2) and Adam (16); per type and axis: f, the scaled smooth max,
+    w and dD (9). The start takes about 4 per type plus 2 per axis and cell
+    for the mask; the result a softmax, x and D again plus the max and the
+    objective."""
+    cells = groups * types
+    per_step = cells * (6 + 1 + 2 * dims + 2 * dims + 1 + 2 + 2 + 16) + types * dims * 9
+    start = types * (dims + 4) + cells * (2 * dims + 6)
+    result = cells * (6 + 1 + 2 * dims) + types * (2 * dims + 2)
+    return steps * per_step + start + result
+
+
 def random_pack_problem(rng, num_groups: int, num_types: int):
     vectors = np.zeros((num_groups, 8), np.float32)
     real = int(rng.integers(1, num_groups + 1))
@@ -226,7 +305,7 @@ def layer_breakdown(groups, fleet, device, reps: int = 5) -> dict:
         ffd, cost = timed("k2_pack", lambda: pack_kernel.pack_kernel_pair(
             vectors, counts, capacity, total, valid, effective))
         feasible_any = score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1)
-        lp = timed("lp", lambda: score_kernel.lp_relax_body(
+        lp = timed("k3_lp", lambda: score_kernel.lp_relax(
             vectors, torch.where(feasible_any, counts, 0), capacity, valid, effective))
         compact = timed("compaction", lambda: pack_kernel.compact_plan(ffd, cost, feasible_any))
         handle = solver.FusedHandle(
@@ -287,7 +366,7 @@ def main() -> int:
     from karpenter_tpu_torch.api.provisioner import Constraints
     from karpenter_tpu_torch.convert import fused_args_from_numpy
     from karpenter_tpu_torch.models import solver
-    from karpenter_tpu_torch.ops import cuda_build, cuda_kernels, native, pack_kernel
+    from karpenter_tpu_torch.ops import cuda_build, cuda_kernels, native, pack_kernel, score_kernel
     from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
 
     # 1. the card
@@ -303,7 +382,7 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel source, started together; the host
     # library (g++) meanwhile.
-    libraries = [cuda_kernels.LIBRARY, pack_kernel.LIBRARY]
+    libraries = [cuda_kernels.LIBRARY, pack_kernel.LIBRARY, score_kernel.LIBRARY]
     build_s = cuda_build.build_all(libraries)
     for library in libraries:
         library.load()
@@ -324,7 +403,8 @@ def main() -> int:
     vectors, counts, capacity, total, valid, prices = main_args
     main_prices = cuda_kernels._dominance_prices_ref(capacity, torch.where(valid, prices, torch.inf))
 
-    # 3. every kernel against its plain version on the card, bit for bit.
+    # 3. every kernel against its plain version on the card: K1 and K2 bit
+    # for bit, K3 to the LP tolerances.
     k1_cases = 0
     k1_err = 0.0
     for cap_np, price_np in list(dominance_cases()) + [
@@ -358,13 +438,52 @@ def main() -> int:
             check(rounds_equal(from_pair, plain), f"K2 pair {mode} differs from its plain version")
             k2_err = max(k2_err, rounds_abs_err(from_pair, plain))
             k2_cases += 1
-    phase("kernels", k1_cases=k1_cases, k2_cases=k2_cases, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err)
+    # K3 on the non-degenerate LP family, padded out to each shape.
+    k3_cases = 0
+    k3_err = 0.0
+    k3_obj_err = 0.0
+    workspace = score_kernel.LIBRARY.load().ktt_lp_relax_workspace_bytes
+    k3_shapes = ((8, 16), (16, 512), (32, 512))
+    check(workspace(16, 512, 8) <= score_kernel._SHARED_STATE_LIMIT < workspace(32, 512, 8),
+          "the K3 shapes do not cover both storage paths")
+    for seed in LP_SEEDS:
+        for shape in k3_shapes:
+            lp_args = lp_inputs(seed, shape, device)
+            got = score_kernel.lp_relax(*lp_args, steps=300)
+            want = score_kernel.lp_relax_body(*lp_args, steps=300)
+            torch.cuda.synchronize()
+            obj_err = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
+            err = float((got.assignment - want.assignment).abs().max())
+            check(obj_err <= LP_OBJECTIVE_RTOL and err <= LP_ASSIGNMENT_ATOL,
+                  f"K3 differs from its plain version at seed {seed} shape {shape}: "
+                  f"objective {obj_err:.3e} relative, assignment {err:.3e}")
+            k3_err = max(k3_err, err)
+            k3_obj_err = max(k3_obj_err, obj_err)
+            k3_cases += 1
+    # The 50k problem: its prices tie per core within a family, so the LP is
+    # degenerate and only the objective is determined by the inputs (PERF.md).
+    main_solvable = torch.where(
+        score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1), counts, 0)
+    main_lp = (vectors, main_solvable, capacity, valid, main_prices)
+    got = score_kernel.lp_relax(*main_lp, steps=300)
+    want = score_kernel.lp_relax_body(*main_lp, steps=300)
+    torch.cuda.synchronize()
+    main_obj_err = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
+    main_assign_err = float((got.assignment - want.assignment).abs().max())
+    main_row_err = float((got.assignment.sum(dim=1) - main_solvable.float()).abs().max())
+    print(f"  K3 on the 50k problem: objective {main_obj_err:.3e} relative, assignment "
+          f"max abs {main_assign_err:.3e} pods (degenerate), row sums {main_row_err:.3e} pods off the counts")
+    check(main_obj_err <= LP_OBJECTIVE_RTOL, f"K3 objective differs on the 50k problem: {main_obj_err:.3e}")
+    phase("kernels", k1_cases=k1_cases, k2_cases=k2_cases, k3_cases=k3_cases, k1_max_abs_err=k1_err,
+          k2_max_abs_err=k2_err, k3_max_abs_err=k3_err, k3_objective_rel_err=f"{k3_obj_err:.3e}",
+          k3_main_objective_rel_err=f"{main_obj_err:.3e}")
 
     # 4. the main path, through the entry point a user calls.
     os.environ["KARPENTER_HOST_SOLVE"] = "0"
     cost_solver = solver.CostSolver(device="cuda")
     cuda_kernels.dominance_prices.launches = 0
     pack_kernel.pack_kernel.launches = 0
+    score_kernel.lp_relax.launches = 0
     torch.cuda.synchronize()
     start = time.perf_counter()
     result = cost_solver.solve(pods, catalog, Constraints())
@@ -372,8 +491,10 @@ def main() -> int:
     launches = {
         "dominance_prices": cuda_kernels.dominance_prices.launches,
         "pack_kernel": pack_kernel.pack_kernel.launches,
+        "lp_relax": score_kernel.lp_relax.launches,
     }
-    check(all(count > 0 for count in launches.values()), f"a kernel was not launched on the main path: {launches}")
+    check(all(count == 1 for count in launches.values()),
+          f"the main path's solve did not launch each kernel exactly once: {launches}")
     check(all_pods_placed_once(result, pods), "the main path did not place every pod exactly once")
     gpu_cost = result.projected_cost()
     check(np.isfinite(gpu_cost) and gpu_cost > 0, f"projected cost {gpu_cost} is not a finite price")
@@ -390,10 +511,23 @@ def main() -> int:
         launches=json.dumps(launches, separators=(",", ":")),
     )
 
-    # 5. the same encoded problem through the plain versions on the CPU.
-    gpu_plan = solver.fetch_plan(
-        solver.cost_solve_dispatch(groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices, device="cuda")
-    )
+    # 5. the same encoded problem through the plain versions on the CPU. The
+    # card's dispatch may not sync with the host, and returns before the card
+    # is done: the host overlap work starts while the card computes.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start = time.perf_counter()
+        handle = solver.cost_solve_dispatch(
+            groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices, device="cuda")
+        dispatch_ms = (time.perf_counter() - start) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    still_running = not torch.cuda.current_stream().query()
+    start = time.perf_counter()
+    gpu_plan = solver.fetch_plan(handle)
+    fetch_wait_ms = (time.perf_counter() - start) * 1e3
+    check(still_running, "cost_solve_dispatch returned after the card had finished")
     cpu_plan = solver.fetch_plan(
         solver.cost_solve_dispatch(groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices, device="cpu")
     )
@@ -407,8 +541,11 @@ def main() -> int:
     check(rel <= 1e-4, f"$/hr differs between the card ({gpu_cost}) and the CPU ({cpu_cost})")
     check(all_pods_placed_once(cpu_result, pods), "the CPU run did not place every pod exactly once")
     lp_rel = abs(gpu_plan.lp_objective - cpu_plan.lp_objective) / abs(cpu_plan.lp_objective)
+    check(lp_rel <= 1e-3, f"LP objective differs between the card and the CPU by {lp_rel:.3e} relative")
     phase("cpu", rounds="identical", cost_rel_diff=f"{rel:.3e}", lp_objective_rel_diff=f"{lp_rel:.3e}",
-          rounds_ffd=int(gpu_plan.rounds_ffd.num_rounds), rounds_cost=int(gpu_plan.rounds_cost.num_rounds))
+          rounds_ffd=int(gpu_plan.rounds_ffd.num_rounds), rounds_cost=int(gpu_plan.rounds_cost.num_rounds),
+          gpu_cost_per_hr=f"{gpu_cost:.6f}", cpu_cost_per_hr=f"{cpu_cost:.6f}",
+          dispatch_sync_free="yes", dispatch_ms=f"{dispatch_ms:.3f}", fetch_wait_ms=f"{fetch_wait_ms:.3f}")
 
     # 6. a batch of 8 schedules sharing one fetch.
     batch = [(pods[k::8], catalog, Constraints(), ()) for k in range(8)]
@@ -452,8 +589,17 @@ def main() -> int:
         op_ms = op_count / FP32_OPS_PER_S * 1e3
         return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
+    lp_steps = 300
+    k3_ms = time_cuda(lambda: score_kernel.lp_relax(*main_lp, steps=lp_steps), reps=20)
+    k3_plain_ms = time_cuda(lambda: score_kernel.lp_relax_body(*main_lp, steps=lp_steps), reps=5, warmup=1)
+    # Each input read once (the bias table included), each output written once.
+    k3_bytes = (4 * (num_groups * dims + num_groups + num_types * dims + num_types + 2 * lp_steps)
+                + num_types + 4 * (num_groups * num_types + num_types + 1))
+    k3_ops = lp_operations(num_groups, num_types, dims, lp_steps)
+
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    k3_bound, k3_by = bound(k3_bytes, k3_ops)
     kernels = [
         {
             "name": "dominance_prices", "route": "cuda",
@@ -470,6 +616,14 @@ def main() -> int:
             "launches": launches["pack_kernel"], "max_abs_err": k2_err,
             "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
             "bound_by": k2_by, "library_ms": None,
+        },
+        {
+            "name": "lp_relax", "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/lp_relax.cu",
+            "replaces": "karpenter_tpu/ops/score_kernel.py:77",
+            "launches": launches["lp_relax"], "max_abs_err": k3_err,
+            "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+            "bound_by": k3_by, "library_ms": None,
         },
     ]
     phase("timing", shapes=f"T={num_types},R={dims},G={num_groups}")

@@ -10,7 +10,7 @@ Layout (a module's counterpart in the reference has the same name):
   cloudprovider/  InstanceType / Offering
   ops/            encode, host FFD, native host kernels, the column-LP mix;
                   K1 dominance pricing (cuda_kernels), K2 the pack round loop
-                  and plan compaction (pack_kernel), the LP relaxation
+                  and plan compaction (pack_kernel), K3 the LP relaxation
                   (score_kernel); csrc/ holds the CUDA and host C++ sources
   models/         the solvers: CostSolver and the host FFD solvers
   device.py       the one device verdict: the card unless "cpu" is asked for

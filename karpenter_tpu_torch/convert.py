@@ -34,10 +34,13 @@ def fused_args_from_numpy(
         (valid, np.bool_),
         (prices, np.float32),
     )
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(array, dtype=dtype)).to(device)
-        for array, dtype in arrays
-    )
+    device = torch.device(device)
+    tensors = (torch.from_numpy(np.ascontiguousarray(array, dtype=dtype)) for array, dtype in arrays)
+    if device.type == "cuda":
+        # From pinned memory the copies queue on the current stream and the
+        # host goes on: no sync before the fused solve is enqueued.
+        return tuple(tensor.pin_memory().to(device, non_blocking=True) for tensor in tensors)
+    return tuple(tensor.to(device) for tensor in tensors)
 
 
 def fused_outputs_to_numpy(

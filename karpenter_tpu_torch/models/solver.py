@@ -49,14 +49,15 @@ from karpenter_tpu_torch.ops.pack_kernel import (
 )
 from karpenter_tpu_torch.ops.score_kernel import (
     feasibility_mask,
-    lp_relax_body,
+    lp_relax,
     round_assignment,
 )
 from karpenter_tpu_torch.utils import logging as klog
 
-# The LP's einsum must stay in full fp32 on the card, as the reference's does
-# on its device: TF32 would keep about three decimal digits. PyTorch's default
-# is already False; the solver states it rather than rely on it.
+# The plain LP's einsums (the CPU path, and what K3 is held against on the
+# card) must stay in full fp32: TF32 would keep about three decimal digits.
+# PyTorch's default is already False; the solver states it rather than rely
+# on it.
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
@@ -187,7 +188,8 @@ def _cost_fused_body(vectors, counts, capacity, total, valid, prices, *, lp_step
     ANY type whose capacity dominates t's, so the cost objective sees the
     dominating-type minimum price (K1, ops/cuda_kernels.dominance_prices).
     Both pack modes run as one launch of the round-loop kernel (K2,
-    ops/pack_kernel.pack_kernel_pair)."""
+    ops/pack_kernel.pack_kernel_pair), and the LP relaxation's every Adam
+    step as one launch of K3 (ops/score_kernel.lp_relax)."""
     valid_prices = torch.where(valid, prices, torch.inf)
     effective_prices = dominance_prices(capacity, valid_prices)
     rounds_ffd, rounds_cost = pack_kernel_pair(
@@ -195,9 +197,7 @@ def _cost_fused_body(vectors, counts, capacity, total, valid, prices, *, lp_step
     )
     feasible_any = feasibility_mask(vectors, capacity, valid).any(dim=1)
     solvable = torch.where(feasible_any, counts, 0)
-    lp = lp_relax_body(
-        vectors, solvable, capacity, valid, effective_prices, steps=lp_steps
-    )
+    lp = lp_relax(vectors, solvable, capacity, valid, effective_prices, steps=lp_steps)
     dense_ints = torch.cat(
         _rounds_ints(rounds_ffd)
         + _rounds_ints(rounds_cost)
@@ -777,8 +777,9 @@ def cost_solve_dispatch(
 ) -> FusedHandle:
     """Enqueue the fused solve on `device` (the card unless "cpu" is asked
     for); pair with a (batchable) fetch + cost_solve_finish. On the card the
-    work is asynchronous, so a batch of schedules shares one device->host
-    round trip."""
+    work is asynchronous and this returns before it finishes, with no host
+    sync: the host overlap work starts while the card computes, and a batch
+    of schedules shares one device->host round trip."""
     device = resolve_device(device)
     padded = pad_kernel_args(vectors, counts, capacity, total, prices)
     args = fused_args_from_numpy(*padded, device=device)

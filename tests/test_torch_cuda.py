@@ -14,21 +14,26 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from karpenter_tpu_torch.api.pods import PodSpec
 from karpenter_tpu_torch.api.provisioner import Constraints
 from karpenter_tpu_torch.cloudprovider import InstanceType, Offering
 from karpenter_tpu_torch.convert import fused_args_from_numpy
 from karpenter_tpu_torch.models import solver
-from karpenter_tpu_torch.ops import cuda_kernels, pack_kernel
+from karpenter_tpu_torch.ops import cuda_kernels, pack_kernel, score_kernel
 from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
 
 torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
 
-# Card and CPU run the same fp32 arithmetic for the kernels (bit-identical),
-# but the LP's softmax and einsum sum in another order on each device.
+# K1 and K2 run the same fp32 arithmetic as their plain versions
+# (bit-identical). K3 and the plain LP take their softmax and einsum sums in
+# other orders, so over 300 Adam steps they drift apart by rounding: the
+# objective agrees to rtol 1e-4, each assignment cell to 1e-3 pods (the CPU
+# parity test's tolerances, tests/test_torch_kernels.py).
 LP_OBJECTIVE_RTOL = 1e-4
+LP_ASSIGNMENT_ATOL = 1e-3
 
 
 @pytest.fixture
@@ -162,12 +167,71 @@ def test_fused_body_on_card_equals_cpu(cuda_device):
 def test_cost_solver_on_card_equals_cpu(cuda_device, monkeypatch):
     monkeypatch.setenv("KARPENTER_HOST_SOLVE", "0")
     pods, catalog = _workload(seed=1)
-    before = (cuda_kernels.dominance_prices.launches, pack_kernel.pack_kernel.launches)
+    before = (
+        cuda_kernels.dominance_prices.launches,
+        pack_kernel.pack_kernel.launches,
+        score_kernel.lp_relax.launches,
+    )
     got = solver.CostSolver(device="cuda").solve(pods, catalog, Constraints())
     assert cuda_kernels.dominance_prices.launches == before[0] + 1
     assert pack_kernel.pack_kernel.launches == before[1] + 1
+    assert score_kernel.lp_relax.launches == before[2] + 1
     want = solver.CostSolver(device="cpu").solve(pods, catalog, Constraints())
     placed = [pod.uid for p in got.packings for node in p.pods_per_node for pod in node]
     assert not got.unschedulable and sorted(placed) == sorted(pod.uid for pod in pods)
     assert got.node_count == want.node_count
     np.testing.assert_allclose(got.projected_cost(), want.projected_cost(), rtol=1e-4)
+
+
+# The non-degenerate LP family of tests/test_torch_kernels.py, padded out to
+# each shape with zero-count groups and invalid types as the bucket padding
+# pads the main path's 400 types to 512 (chip_smoke.lp_inputs; at many valid
+# types the family's prices per core crowd together and the LP turns
+# degenerate, PERF.md §6). (16, 512) is the main path's shape, its state in
+# shared memory; (32, 512) puts the state in global scratch.
+LP_SHAPES = [(8, 16), (16, 64), (16, 512), (32, 512)]
+
+
+def test_lp_shapes_cover_both_storage_paths(cuda_device):
+    workspace = score_kernel.LIBRARY.load().ktt_lp_relax_workspace_bytes
+    limit = score_kernel._SHARED_STATE_LIMIT
+    assert workspace(16, 512, 8) <= limit < workspace(32, 512, 8)
+
+
+@pytest.mark.parametrize("shape", LP_SHAPES, ids=lambda s: f"G{s[0]}xT{s[1]}")
+@pytest.mark.parametrize("seed", chip_smoke.LP_SEEDS)
+def test_lp_kernel_equals_plain_version(seed, shape, cuda_device):
+    args = chip_smoke.lp_inputs(seed, shape, cuda_device)
+    before = score_kernel.lp_relax.launches
+    got = score_kernel.lp_relax(*args, steps=300)
+    want = score_kernel.lp_relax_body(*args, steps=300)
+    torch.cuda.synchronize()
+    assert score_kernel.lp_relax.launches == before + 1
+    np.testing.assert_allclose(
+        float(got.objective), float(want.objective), rtol=LP_OBJECTIVE_RTOL
+    )
+    np.testing.assert_allclose(
+        got.assignment.cpu().numpy(), want.assignment.cpu().numpy(),
+        rtol=0, atol=LP_ASSIGNMENT_ATOL,
+    )
+    np.testing.assert_allclose(
+        got.fractional_nodes.cpu().numpy(), want.fractional_nodes.cpu().numpy(),
+        rtol=0, atol=LP_ASSIGNMENT_ATOL,
+    )
+
+
+def test_cost_solve_dispatch_does_not_sync(cuda_device):
+    pods, catalog = _workload(seed=2)
+    groups = group_pods(pods)
+    fleet = build_fleet(catalog, Constraints(), pods)
+    args = (groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
+    warm = solver.fetch_plan(solver.cost_solve_dispatch(*args, device=cuda_device))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = solver.cost_solve_dispatch(*args, device=cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    plan = solver.fetch_plan(handle)
+    assert int(plan.rounds_cost.num_rounds) == int(warm.rounds_cost.num_rounds)
+    np.testing.assert_allclose(plan.lp_objective, warm.lp_objective, rtol=0)
