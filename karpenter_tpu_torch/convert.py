@@ -5,6 +5,8 @@ This system has no weights: its state is the encoded problem. The reference's
 padded numpy arrays; `fused_args_from_numpy` places them on a torch device
 with the dtypes the fused solve takes, and `fused_outputs_to_numpy` brings the
 fused solve's four outputs back as numpy, so a test compares like with like.
+`upload_packed` is the one way numpy arrays reach a device: for the card, one
+pinned buffer and one copy.
 """
 
 from __future__ import annotations
@@ -34,13 +36,7 @@ def fused_args_from_numpy(
         (valid, np.bool_),
         (prices, np.float32),
     )
-    device = torch.device(device)
-    tensors = (torch.from_numpy(np.ascontiguousarray(array, dtype=dtype)) for array, dtype in arrays)
-    if device.type == "cuda":
-        # From pinned memory the copies queue on the current stream and the
-        # host goes on: no sync before the fused solve is enqueued.
-        return tuple(tensor.pin_memory().to(device, non_blocking=True) for tensor in tensors)
-    return tuple(tensor.to(device) for tensor in tensors)
+    return upload_packed([np.asarray(array, dtype=dtype) for array, dtype in arrays], device)
 
 
 def fused_outputs_to_numpy(
@@ -54,4 +50,37 @@ def fused_outputs_to_numpy(
     float32)."""
     return tuple(
         tensor.detach().cpu().numpy() for tensor in (compact, objective, dense, lp)
+    )
+
+
+_ALIGN = 16  # bytes between arrays in upload_packed's buffer
+_TORCH_DTYPES = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.bool_): torch.bool,
+}
+
+
+def upload_packed(arrays, device) -> Tuple[torch.Tensor, ...]:
+    """float32, int32 and bool numpy arrays as tensors on `device`. For the
+    card they are packed into one pinned buffer and copied with ONE
+    non-blocking host->device transfer, then viewed back one by one: the copy
+    queues on the current stream and the host goes on, with no sync."""
+    arrays = [np.ascontiguousarray(array) for array in arrays]
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tuple(torch.from_numpy(array).to(device) for array in arrays)
+    offsets = []
+    total = 0
+    for array in arrays:
+        offsets.append(total)
+        total += -(-array.nbytes // _ALIGN) * _ALIGN
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    host_bytes = host.numpy()
+    for array, offset in zip(arrays, offsets):
+        host_bytes[offset : offset + array.nbytes] = array.reshape(-1).view(np.uint8)
+    on_card = host.to(device, non_blocking=True)
+    return tuple(
+        on_card[offset : offset + array.nbytes].view(_TORCH_DTYPES[array.dtype]).view(array.shape)
+        for array, offset in zip(arrays, offsets)
     )

@@ -25,7 +25,9 @@ modes in one launch (`pack_kernel_pair`). `_pack_kernel_ref` is its plain
 PyTorch version, which tests the loop condition on the host every round. A
 CPU tensor goes to the plain version, a CUDA tensor to the kernel; quirk=True
 exists only in the plain version (the cost solve never uses it), and asking
-the kernel for it raises.
+the kernel for it raises. The plan compaction after it is K4
+(csrc/compact.cu, `compact_plan`): one launch writes the whole payload, and
+`_compact_plan_ref` is its plain version.
 
 All shapes are padded: G -> groups (counts 0), T -> types (valid mask).
 """
@@ -63,6 +65,16 @@ LIBRARY = CudaLibrary(
             [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 5
             + [ctypes.c_void_p] * 3,
+        ),
+    },
+)
+COMPACT_LIBRARY = CudaLibrary(
+    "compact.cu",
+    {
+        "ktt_compact_words": (ctypes.c_int, [ctypes.c_int]),
+        "ktt_compact_plan": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
         ),
     },
 )
@@ -438,14 +450,54 @@ def _compact_rounds(rounds: PackRounds):
     ]
 
 
-def compact_plan(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any):
-    """Both candidate plans plus the feasibility vector as ONE flat int32
-    tensor — the eager device->host payload of a fused cost solve."""
+def _compact_plan_ref(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any):
+    """Plain version of K4, on any device: both candidate plans plus the
+    feasibility vector as ONE flat int32 tensor."""
     return torch.cat(
         _compact_rounds(rounds_ffd)
         + _compact_rounds(rounds_cost)
         + [feasible_any.to(torch.int32)]
     )
+
+
+def compact_plan(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any):
+    """Both candidate plans plus the feasibility vector as ONE flat int32
+    tensor — the eager device->host payload of a fused cost solve. K4
+    (csrc/compact.cu, one launch) for CUDA tensors, the plain version for
+    CPU tensors."""
+    fields = [*rounds_ffd, *rounds_cost]
+    device = feasible_any.device
+    if any(tensor.device != device for tensor in fields):
+        raise ValueError("compact_plan: every argument must lie on one device")
+    if device.type == "cpu":
+        return _compact_plan_ref(rounds_ffd, rounds_cost, feasible_any)
+    if device.type != "cuda":
+        raise ValueError(f"compact_plan: unsupported device {device}")
+    if feasible_any.dtype != torch.bool or feasible_any.dim() != 1:
+        raise TypeError("compact_plan kernel takes feasible_any as a [G] bool tensor")
+    num_groups = feasible_any.shape[0]
+    mr = max_rounds(num_groups)
+    shapes = ((mr,), (mr, num_groups), (mr,), (), (num_groups,), ())
+    for rounds in (rounds_ffd, rounds_cost):
+        for name, tensor, shape in zip(PackRounds._fields, rounds, shapes):
+            if tensor.dtype != torch.int32 or tuple(tensor.shape) != shape:
+                raise ValueError(f"compact_plan kernel takes {name} as int32 {shape}")
+    if not all(tensor.is_contiguous() for tensor in fields + [feasible_any]):
+        raise ValueError("compact_plan kernel takes contiguous tensors")
+    lib = COMPACT_LIBRARY.load()
+    out = torch.empty(compact_words(num_groups), dtype=torch.int32, device=device)
+    pointers = (ctypes.c_void_p * len(fields))(*(tensor.data_ptr() for tensor in fields))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.ktt_compact_plan(
+            pointers, feasible_any.data_ptr(), num_groups, out.data_ptr(), stream
+        )
+    check_launch(status, "compact_plan")
+    compact_plan.launches += 1
+    return out
+
+
+compact_plan.launches = 0
 
 
 def decompact_plan(

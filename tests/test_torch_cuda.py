@@ -20,7 +20,7 @@ from karpenter_tpu_torch.api.provisioner import Constraints
 from karpenter_tpu_torch.cloudprovider import InstanceType, Offering
 from karpenter_tpu_torch.convert import fused_args_from_numpy
 from karpenter_tpu_torch.models import solver
-from karpenter_tpu_torch.ops import cuda_kernels, pack_kernel, score_kernel
+from karpenter_tpu_torch.ops import consolidate, consolidate_kernel, cuda_kernels, pack_kernel, score_kernel
 from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
 
 torch.set_num_threads(2)
@@ -172,10 +172,12 @@ def test_cost_solver_on_card_equals_cpu(cuda_device, monkeypatch):
         pack_kernel.pack_kernel.launches,
         score_kernel.lp_relax.launches,
     )
+    compact_before = pack_kernel.compact_plan.launches
     got = solver.CostSolver(device="cuda").solve(pods, catalog, Constraints())
     assert cuda_kernels.dominance_prices.launches == before[0] + 1
     assert pack_kernel.pack_kernel.launches == before[1] + 1
     assert score_kernel.lp_relax.launches == before[2] + 1
+    assert pack_kernel.compact_plan.launches == compact_before + 1
     want = solver.CostSolver(device="cpu").solve(pods, catalog, Constraints())
     placed = [pod.uid for p in got.packings for node in p.pods_per_node for pod in node]
     assert not got.unschedulable and sorted(placed) == sorted(pod.uid for pod in pods)
@@ -227,11 +229,134 @@ def test_cost_solve_dispatch_does_not_sync(cuda_device):
     args = (groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
     warm = solver.fetch_plan(solver.cost_solve_dispatch(*args, device=cuda_device))
     torch.cuda.synchronize()
+    before = pack_kernel.compact_plan.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         handle = solver.cost_solve_dispatch(*args, device=cuda_device)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert pack_kernel.compact_plan.launches == before + 1
     plan = solver.fetch_plan(handle)
     assert int(plan.rounds_cost.num_rounds) == int(warm.rounds_cost.num_rounds)
     np.testing.assert_allclose(plan.lp_objective, warm.lp_objective, rtol=0)
+
+
+# --- K4: the plan compaction ----------------------------------------------------
+
+
+# G = 8 and 16 fit one tile of the kernel's 256 threads per block only at low
+# density; 64 and 1024 (MAX_GROUPS) take 35 and 8,224 tiles.
+@pytest.mark.parametrize("num_groups,density", [(8, 0.05), (16, 0.1), (16, 0.9), (64, 0.02), (64, 0.5), (1024, 0.001)])
+def test_compact_kernel_word_identical_to_plain_version(num_groups, density, cuda_device):
+    ffd = chip_smoke.dense_rounds(num_groups, 0, density, cuda_device)
+    cost = chip_smoke.dense_rounds(num_groups, 1, density, cuda_device)
+    feasible = torch.from_numpy(np.random.default_rng(2).random(num_groups) < 0.7).to(cuda_device)
+    before = pack_kernel.compact_plan.launches
+    got = pack_kernel.compact_plan(ffd, cost, feasible)
+    want = pack_kernel._compact_plan_ref(ffd, cost, feasible)
+    torch.cuda.synchronize()
+    assert pack_kernel.compact_plan.launches == before + 1
+    assert torch.equal(got, want)
+    assert pack_kernel.COMPACT_LIBRARY.load().ktt_compact_words(num_groups) == want.shape[0]
+
+
+def test_compact_kernel_on_pack_rounds(cuda_device):
+    for seed, shape in enumerate(PACK_SHAPES):
+        args = fused_args_from_numpy(*_pack_problem(seed, *shape), device=cuda_device)
+        ffd, cost = pack_kernel.pack_kernel_pair(*args)
+        feasible = score_kernel.feasibility_mask(args[0], args[2], args[4]).any(dim=1)
+        got = pack_kernel.compact_plan(ffd, cost, feasible)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pack_kernel._compact_plan_ref(ffd, cost, feasible)), shape
+
+
+def test_compact_kernel_rejects_bad_arguments(cuda_device):
+    ffd = chip_smoke.dense_rounds(8, 0, 0.1, cuda_device)
+    feasible = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        pack_kernel.compact_plan(ffd, ffd, feasible.to(torch.int32))
+    with pytest.raises(ValueError):
+        pack_kernel.compact_plan(ffd._replace(round_repl=ffd.round_repl.long()), ffd, feasible)
+    with pytest.raises(ValueError):
+        pack_kernel.compact_plan(ffd, ffd, feasible.cpu())
+
+
+# --- K7: the consolidation counterfactual --------------------------------------
+
+
+def _assert_k7_equals_plain(operands, axes=None):
+    before = consolidate_kernel.solve_counterfactuals.launches
+    takes, eager = consolidate_kernel.solve_counterfactuals(*operands, axes=axes)
+    want = consolidate_kernel._counterfactual_ref(*operands)
+    torch.cuda.synchronize()
+    assert consolidate_kernel.solve_counterfactuals.launches == before + 1
+    assert torch.equal(takes, want[0])
+    assert torch.equal(eager, consolidate_kernel._eager_from_outputs(*want[1:]))
+
+
+K7_PROBLEMS = list(chip_smoke.k7_problems())
+
+
+@pytest.mark.parametrize("name,arrays", K7_PROBLEMS, ids=[name for name, _ in K7_PROBLEMS])
+def test_counterfactual_kernel_equals_plain_version(name, arrays, cuda_device):
+    operands, axes = chip_smoke.k7_inputs(consolidate.ConsolidationProblem(**arrays), cuda_device)
+    _assert_k7_equals_plain(operands, axes)
+    # A room sized for every axis gives the same bits.
+    _assert_k7_equals_plain(operands)
+
+
+def test_counterfactual_kernel_flags_a_room_sized_too_small(cuda_device):
+    operands, axes = chip_smoke.k7_inputs(
+        consolidate.ConsolidationProblem(**dict(K7_PROBLEMS)["N8192-3-axes"]), cuda_device)
+    assert axes == 3
+    _, eager = consolidate_kernel.solve_counterfactuals(*operands, axes=axes - 1)
+    assert int(eager[3 * operands[0].shape[0]]) == -1
+
+
+def test_k7_problems_cover_both_room_paths(cuda_device):
+    lib = consolidate_kernel.LIBRARY.load()
+    threads = lib.ktt_consolidate_threads(8192)
+    assert 4 * threads * lib.ktt_consolidate_room_words(8192, 3) <= consolidate_kernel._SHARED_ROOM_LIMIT
+    assert 4 * threads * lib.ktt_consolidate_room_words(8192, 8) > consolidate_kernel._SHARED_ROOM_LIMIT
+
+
+@pytest.fixture(scope="module")
+def cluster_problem():
+    """chip_smoke's real-size sweep: 5,000 nodes, 64 candidates, padded to
+    C 64, G 16, N 8192, T 512."""
+    package = chip_smoke.port_package()
+    catalog = chip_smoke.make_catalog(package=package)
+    shapes = chip_smoke.pod_shapes(0)
+    vectors = chip_smoke.shape_vectors(shapes, package)
+    cluster = chip_smoke.make_cluster(chip_smoke.usable_capacity(catalog, package), vectors)
+    return chip_smoke.consolidation_problem(cluster, catalog, shapes, package)
+
+
+def test_counterfactual_kernel_at_real_size(cluster_problem, cuda_device):
+    problem = cluster_problem[0]
+    operands, axes = chip_smoke.k7_inputs(problem, cuda_device)
+    assert tuple(operands[0].shape) == (64, 16, 8)
+    assert operands[2].shape[0] == 8192 and operands[4].shape[0] == 512
+    # The real pods request cpu, memory and pods: the room fits in shared
+    # memory, and no scratch is needed.
+    lib = consolidate_kernel.LIBRARY.load()
+    assert axes == 3
+    assert 4 * lib.ktt_consolidate_threads(8192) * lib.ktt_consolidate_room_words(8192, axes) \
+        <= consolidate_kernel._SHARED_ROOM_LIMIT
+    _assert_k7_equals_plain(operands, axes)
+
+
+def test_solve_candidates_on_card_equals_cpu(cluster_problem, cuda_device):
+    problem, members = cluster_problem[:2]
+    before = consolidate_kernel.solve_counterfactuals.launches
+    got = consolidate.solve_candidates(problem, device="cuda")
+    assert consolidate_kernel.solve_counterfactuals.launches == before + 1
+    want = consolidate.solve_candidates(problem, device="cpu")
+    for name in ("delete_ok", "replace_type", "replace_price", "savings", "action"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+    best = got.best()
+    assert best >= 0
+    np.testing.assert_array_equal(got.take_row(best), want.take_row(best))
+    np.testing.assert_array_equal(got.delete_take, want.delete_take)
+    assert consolidate.delete_assignment(got, best, members[best]) == consolidate.delete_assignment(
+        want, best, members[best])

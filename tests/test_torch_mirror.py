@@ -3,9 +3,9 @@ AST-equal to their references apart from import statements, so a later fix
 to the reference cannot silently miss the port.
 
 Verbatim copies are compared whole. Trimmed copies are compared definition
-by definition: every top-level function and class the port keeps must equal
-the reference's of the same name, except the few the port adapted, which are
-listed with the reason."""
+by definition: every top-level function, class and public constant the port
+keeps must equal the reference's of the same name, except the few the port
+adapted, which are listed with the reason."""
 
 import ast
 from pathlib import Path
@@ -38,6 +38,11 @@ TRIMMED = {
         "_build": "g++ directly, without the reference's Makefile",
         "load": "loads the port's library path",
     },
+    "ops/consolidate.py": {
+        "_fetch": "copies a torch tensor to the host in place of jax.device_get",
+        "_padded": "no device_resident handles: the port uploads the type arrays each sweep",
+        "solve_candidates": "runs on a device the caller picks; K7 returns one eager buffer",
+    },
 }
 
 
@@ -54,11 +59,17 @@ def _tree(path: Path) -> ast.Module:
 
 
 def _definitions(path: Path):
-    return {
-        node.name: ast.dump(node)
-        for node in _tree(path).body
-        if isinstance(node, (ast.FunctionDef, ast.ClassDef))
-    }
+    """Top-level functions, classes and public constants (NAME = value), by
+    name."""
+    found = {}
+    for node in _tree(path).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            found[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1:
+            target = node.targets[0]
+            if isinstance(target, ast.Name) and target.id.isupper() and target.id[0] != "_":
+                found[target.id] = ast.dump(node)
+    return found
 
 
 @pytest.mark.parametrize("relative", VERBATIM)
