@@ -14,10 +14,14 @@ limit, and as the last line {"ok": true, "device": {...}}:
               the 50k-pod x 400-type encoded problem, bit for bit; K4 the
               plan compaction on those rounds and on dense rounds past the
               entry budget, word for word; K3 the LP relaxation on
-              non-degenerate LPs padded to [8, 16], [16, 512] and [32, 512]
-              (state in shared memory and in global scratch), objective
-              within rtol 1e-4 and assignment within 1e-3 pods, and on the
-              50k problem, objective within rtol 1e-4
+              non-degenerate LPs padded to shapes that reach every launch
+              plan (clusters of 2, 4, 8 and 16 blocks, a T the blocks do
+              not divide, G 1 to 128, T 16 to 2048, the state in shared
+              memory and in global scratch) and at the main path's shape on
+              every cluster size, objective within rtol 1e-4 and assignment
+              within 1e-3 pods, and on the 50k problem, objective within
+              rtol 1e-4; two launches of K2 and of K3 on the same inputs
+              give the same bits
   4. solve    the main path: 50,000 pending pods over 400 instance types
               through CostSolver(device="cuda").solve with the host gate off
               (KARPENTER_HOST_SOLVE=0); every pod placed exactly once, each
@@ -43,7 +47,8 @@ limit, and as the last line {"ok": true, "device": {...}}:
               kernels' own time, `ms`) and its time between CUDA events
               around the wrapper (host enqueue included, `event_ms`), its
               plain version's time (CUDA events) and its bound at the path's
-              shapes
+              shapes; K3's time per Adam step and at every cluster size,
+              K2's time per round of each mode
   9. layers   one warm solve layer by layer (each bracketed by device syncs),
               and torch.profiler's device time against the solve's wall time
 
@@ -433,15 +438,16 @@ def lp_problem(seed: int):
 def lp_inputs(seed: int, shape, device):
     """lp_problem(seed) padded to shape = (G, T) with zero-count groups and
     invalid types, as the bucket padding pads the main path, on the card:
-    (vectors, solvable counts, capacity, valid, effective prices)."""
+    (vectors, solvable counts, capacity, valid, effective prices). A G
+    under 8 keeps the first G groups."""
     import torch
 
     from karpenter_tpu_torch.ops import cuda_kernels, score_kernel
 
     vectors, counts, capacity, valid, prices = lp_problem(seed)
     num_groups, num_types = shape
-    vectors = np.pad(vectors, ((0, num_groups - 8), (0, 0)))
-    counts = np.pad(counts, (0, num_groups - 8))
+    vectors = np.pad(vectors[:num_groups], ((0, max(num_groups - 8, 0)), (0, 0)))
+    counts = np.pad(counts[:num_groups], (0, max(num_groups - 8, 0)))
     capacity = np.pad(capacity, ((0, num_types - 16), (0, 0)))
     valid = np.pad(valid, (0, num_types - 16))
     prices = np.pad(prices, (0, num_types - 16), constant_values=np.inf)
@@ -669,24 +675,29 @@ def k7_needed_bytes(operands) -> int:
 
 def device_ms_per_call(fn, kernel_names, reps: int = 20) -> float:
     """torch.profiler's device time of the named kernels per call of `fn`:
-    the kernels' own time on the card, without the host's enqueue."""
+    the kernels' own time on the card, without the host's enqueue. The
+    profiler now and then drops a few kernel records of a window; a window
+    that did not see every launch is measured again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and any(name in e.key for name in kernel_names)
-    ]
-    launches = sum(e.count for e in events)
-    check(launches == reps * len(kernel_names),
-          f"the profiler saw {launches} launches of {kernel_names}, not {reps * len(kernel_names)}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+    expected = reps * len(kernel_names)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [
+            e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(name in e.key for name in kernel_names)
+        ]
+        launches = sum(e.count for e in events)
+        if launches == expected:
+            return sum(e.self_device_time_total for e in events) / 1e3 / reps
+        print(f"  the profiler saw {launches} launches of {kernel_names}, not {expected}: again")
+    check(False, f"the profiler saw {launches} launches of {kernel_names}, not {expected}")
 
 
 def consolidate_phase(catalog, device) -> dict:
@@ -853,9 +864,18 @@ def main() -> int:
     rng = np.random.default_rng(7)
     k2_cases = 0
     k2_err = 0.0
-    # (32, 512) needs more than 48 KB of shared memory and (64, 1024) puts
-    # the fills in global scratch: both of the kernel's storage paths.
-    problems = [random_pack_problem(rng, g, t) for g, t in ((8, 8), (16, 64), (16, 512), (32, 256), (32, 512), (64, 1024))]
+    # (32, 512) needs more than 48 KB of shared memory; (64, 1024) and
+    # (64, 2048) put the fills in global scratch; (16, 300) leaves part of
+    # the block's last warp without a type; (16, 1024) fills a block of
+    # 1,024 threads, one type each; (64, 2048) gives each thread two types.
+    pack_shapes = ((8, 8), (16, 64), (16, 300), (16, 512), (32, 256), (32, 512), (16, 1024),
+                   (64, 1024), (64, 2048))
+    k2_plans = [pack_kernel.pack_launch_plan(g, t, 8) for g, t in pack_shapes]
+    check({p.fills_in_shared for p in k2_plans} == {True, False}
+          and {p.types_per_thread for p in k2_plans} >= {1, 2}
+          and any(p.threads * p.types_per_thread > t for p, (_, t) in zip(k2_plans, pack_shapes)),
+          "the K2 shapes do not cover every launch plan")
+    problems = [random_pack_problem(rng, g, t) for g, t in pack_shapes]
     problems.append(tuple(padded[:5]) + (main_prices.cpu().numpy(),))
     compact_pairs = []
     for problem in problems:
@@ -869,6 +889,10 @@ def main() -> int:
             check(rounds_equal(from_pair, plain), f"K2 pair {mode} differs from its plain version")
             k2_err = max(k2_err, rounds_abs_err(from_pair, plain))
             k2_cases += 1
+        again = pack_kernel.pack_kernel_pair(*args)
+        torch.cuda.synchronize()
+        check(all(rounds_equal(a, b) for a, b in zip(pair, again)),
+              f"two launches of K2 differ at G={problem[0].shape[0]} T={problem[2].shape[0]}")
         feasible = score_kernel.feasibility_mask(args[0], args[2], args[4]).any(dim=1)
         compact_pairs.append((pair, feasible))
     # K4 on every pair of rounds above and on dense rounds past the entry
@@ -887,28 +911,43 @@ def main() -> int:
         check(torch.equal(got, want), f"K4 differs from its plain version at G={feasible.shape[0]}")
         k4_err = max(k4_err, int((got.long() - want.long()).abs().max()))
         k4_cases += 1
-    # K3 on the non-degenerate LP family, padded out to each shape.
+    # K3 on the non-degenerate LP family, padded out to each shape: every
+    # seed at the shapes of the main path's bucket, two seeds at the shapes
+    # that reach the rest of the launch plans (every cluster size the rule
+    # chooses, a T the blocks do not divide, G 1 and G 64, T 1024, the state
+    # in global scratch), and the main path's shape at every cluster size.
     k3_cases = 0
     k3_err = 0.0
     k3_obj_err = 0.0
-    workspace = score_kernel.LIBRARY.load().ktt_lp_relax_workspace_bytes
     k3_shapes = ((8, 16), (16, 512), (32, 512))
-    check(workspace(16, 512, 8) <= score_kernel._SHARED_STATE_LIMIT < workspace(32, 512, 8),
-          "the K3 shapes do not cover both storage paths")
+    k3_plan_shapes = ((16, 64), (16, 128), (16, 256), (16, 300), (1, 512), (64, 512), (16, 1024), (128, 2048))
+    k3_plans = [score_kernel.lp_launch_plan(g, t, 8) for g, t in k3_shapes + k3_plan_shapes]
+    check({p.cluster for p in k3_plans} == {2, 4, 8, 16}
+          and {p.state_in_shared for p in k3_plans} == {True, False}
+          and any(t % p.types_per_block for p, (_, t) in zip(k3_plans, k3_shapes + k3_plan_shapes)),
+          "the K3 shapes do not cover every launch plan")
+
+    def k3_check(lp_args, got, label):
+        nonlocal k3_cases, k3_err, k3_obj_err
+        want = score_kernel.lp_relax_body(*lp_args, steps=300)
+        torch.cuda.synchronize()
+        obj_err = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
+        err = float((got.assignment - want.assignment).abs().max())
+        check(obj_err <= LP_OBJECTIVE_RTOL and err <= LP_ASSIGNMENT_ATOL,
+              f"K3 differs from its plain version at {label}: "
+              f"objective {obj_err:.3e} relative, assignment {err:.3e}")
+        k3_err = max(k3_err, err)
+        k3_obj_err = max(k3_obj_err, obj_err)
+        k3_cases += 1
+
     for seed in LP_SEEDS:
-        for shape in k3_shapes:
+        for shape in k3_shapes + (k3_plan_shapes if seed in LP_SEEDS[:2] else ()):
             lp_args = lp_inputs(seed, shape, device)
-            got = score_kernel.lp_relax(*lp_args, steps=300)
-            want = score_kernel.lp_relax_body(*lp_args, steps=300)
-            torch.cuda.synchronize()
-            obj_err = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
-            err = float((got.assignment - want.assignment).abs().max())
-            check(obj_err <= LP_OBJECTIVE_RTOL and err <= LP_ASSIGNMENT_ATOL,
-                  f"K3 differs from its plain version at seed {seed} shape {shape}: "
-                  f"objective {obj_err:.3e} relative, assignment {err:.3e}")
-            k3_err = max(k3_err, err)
-            k3_obj_err = max(k3_obj_err, obj_err)
-            k3_cases += 1
+            k3_check(lp_args, score_kernel.lp_relax(*lp_args, steps=300), f"seed {seed} shape {shape}")
+    for cluster in (2, 4, 8, 16):
+        lp_args = lp_inputs(LP_SEEDS[0], (16, 512), device)
+        plan = score_kernel.lp_plan_for_cluster(16, 512, 8, cluster)
+        k3_check(lp_args, score_kernel._launch(*lp_args, 300, plan), f"cluster {cluster}")
     # The 50k problem: its prices tie per core within a family, so the LP is
     # degenerate and only the objective is determined by the inputs (PERF.md).
     main_solvable = torch.where(
@@ -919,6 +958,9 @@ def main() -> int:
     torch.cuda.synchronize()
     main_obj_err = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
     main_assign_err = float((got.assignment - want.assignment).abs().max())
+    again = score_kernel.lp_relax(*main_lp, steps=300)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "two launches of K3 differ on the 50k problem")
     main_row_err = float((got.assignment.sum(dim=1) - main_solvable.float()).abs().max())
     print(f"  K3 on the 50k problem: objective {main_obj_err:.3e} relative, assignment "
           f"max abs {main_assign_err:.3e} pods (degenerate), row sums {main_row_err:.3e} pods off the counts")
@@ -1032,6 +1074,17 @@ def main() -> int:
         lambda: [pack_kernel._pack_kernel_ref(vectors, counts, capacity, total, valid, main_prices, mode=m) for m in ("ffd", "cost")],
         reps=5, warmup=1,
     )
+    # Each mode alone: its device time over its rounds; the pair takes as
+    # long as its slower mode, whose time per round the line reports.
+    k2_mode_us = {}
+    for mode, plan_rounds in (("ffd", gpu_plan.rounds_ffd), ("cost", gpu_plan.rounds_cost)):
+        mode_ms = device_ms_per_call(functools.partial(
+            pack_kernel.pack_kernel, vectors, counts, capacity, total, valid, main_prices, mode=mode),
+            ["pack_rounds_kernel"], reps=20)
+        k2_mode_us[mode] = (mode_ms, mode_ms * 1e3 / max(int(plan_rounds.num_rounds), 1))
+    k2_slow_mode = max(k2_mode_us, key=lambda m: k2_mode_us[m][0])
+    print("  K2 per mode: " + ", ".join(
+        f"{m} {ms:.4f} ms, {us:.3f} us a round" for m, (ms, us) in k2_mode_us.items()))
     words = pack_kernel.LIBRARY.load().ktt_pack_rounds_words(num_groups)
     k2_bytes = 4 * (num_groups * dims + num_groups + num_types * dims + num_types) + num_types + 2 * 4 * words
     # Operations this run's data needs: per mode and round, the group scan
@@ -1055,6 +1108,16 @@ def main() -> int:
     k3_event_ms = time_cuda(k3_call, reps=20)
     k3_ms = device_ms_per_call(k3_call, ["lp_relax_kernel"], reps=20)
     k3_plain_ms = time_cuda(lambda: score_kernel.lp_relax_body(*main_lp, steps=lp_steps), reps=5, warmup=1)
+    # Every cluster size at the main path's shape; the rule's choice is
+    # the launch plan lp_relax takes.
+    k3_sweep = {}
+    for cluster in (2, 4, 8, 16):
+        plan = score_kernel.lp_plan_for_cluster(num_groups, num_types, dims, cluster)
+        k3_sweep[cluster] = device_ms_per_call(
+            functools.partial(score_kernel._launch, *main_lp, lp_steps, plan), ["lp_relax_kernel"], reps=20)
+    k3_rule = score_kernel.lp_launch_plan(num_groups, num_types, dims)
+    print(f"  K3 cluster sweep (device ms, rule picks {k3_rule.cluster}): " + ", ".join(
+        f"{cluster}: {ms:.4f}" for cluster, ms in k3_sweep.items()))
     # Each input read once (the bias table included), each output written once.
     k3_bytes = (4 * (num_groups * dims + num_groups + num_types * dims + num_types + 2 * lp_steps)
                 + num_types + 4 * (num_groups * num_types + num_types + 1))
@@ -1111,6 +1174,7 @@ def main() -> int:
             "launches": launches["pack_kernel"], "max_abs_err": k2_err,
             "ms": k2_ms, "event_ms": k2_event_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
             "bound_by": k2_by, "library_ms": None,
+            "us_per_round": k2_mode_us[k2_slow_mode][1], "slower_mode": k2_slow_mode,
         },
         {
             "name": "lp_relax", "route": "cuda",
@@ -1119,6 +1183,7 @@ def main() -> int:
             "launches": launches["lp_relax"], "max_abs_err": k3_err,
             "ms": k3_ms, "event_ms": k3_event_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
             "bound_by": k3_by, "library_ms": None,
+            "us_per_step": k3_ms * 1e3 / lp_steps, "cluster": k3_rule.cluster,
         },
         {
             "name": "compact_plan", "route": "cuda",

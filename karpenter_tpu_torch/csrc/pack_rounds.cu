@@ -8,32 +8,52 @@
 // type, replicates its fill as often as the group counts allow, and stops
 // when every pod is placed or set aside.
 //
-// What bounds it on this card: latency, twice over. The work is tiny (at the
-// main path's 512 types x 16 groups x 8 axes, one round is about 0.3 M fp32
-// operations), but every round depends on the one before, and in eager
-// PyTorch each round would be dozens of launches plus one host sync to test
-// the loop condition.
+// What bounds it on this card: latency. The work is tiny (at the main
+// path's 512 types x 16 groups x 8 axes, one round is about 0.3 M fp32
+// operations), but every round depends on the one before, and the critical
+// path of a round is one type's scan: a chain of G groups, each a correctly
+// rounded division per requested axis, a floor, a multiply and a subtract.
 //
 // What the design does about that: one launch of one block per mode (block 0
 // runs mode ffd, block 1 mode cost when both are asked for) runs the whole
-// round loop on the device, a persistent loop with no host sync. Each thread
-// owns the types t = threadIdx.x + k * blockDim.x and runs the group scan for
-// them with its eight remaining-capacity values in registers; the group
-// vectors and counts live in shared memory, and so do the [T, G] fills while
-// they fit (32 KB at 512 x 16), else a global scratch buffer from the caller.
-// A block reduction selects the type, and thread 0 applies the round.
+// round loop on the device, a persistent loop with no host sync, and keeps
+// everything but that one scan off the round's critical path:
+//   * one type per thread: a block of up to 1,024 threads, so at T <= 1,024
+//     no thread scans two types one after the other (past that, 2 or 4 types
+//     a thread, up to T 4,096);
+//   * the per-type constants (capacity, valid, price) are loaded once,
+//     before the round loop, into registers; each group's axes are sorted
+//     once into two bit masks (divide where vec > 0, subtract where vec !=
+//     0), so the scan divides only on the requested axes (3 of 8 on real
+//     pods) and the uniform branch skips the rest;
+//   * the fills live [G, T], so the threads of a warp write a group's fills
+//     to consecutive words (no bank conflicts), in shared memory while they
+//     fit, else in a global scratch buffer from the caller;
+//   * the selection is a warp reduction and one shared-memory atomicMin per
+//     warp (min is order-free, so the result does not depend on the order
+//     the warps arrive in): for cost mode a 64-bit key (the score's bits,
+//     made to order as unsigned, then the type index, so ties go to the
+//     lowest index), for ffd the lowest type achieving the bound;
+//   * a warp applies the round: lane g takes counts[g] / fill[g] and a warp
+//     min gives repl; the lanes write the fill row and update the counts; a
+//     ballot finds the first active group and a warp sum the total.
+// A round costs three block barriers in ffd mode and two in cost mode.
 //
 // Hazards for rounds that are bit-identical to the reference:
 //   * n_fit = floor(min_r(remaining / vec) + 1e-4) in IEEE fp32: the
 //     division is correctly rounded (__fdiv_rn; the build never passes
-//     --use_fast_math).
+//     --use_fast_math); a zero remaining skips the division, whose result
+//     it is (vec > 0).
 //   * remaining - n * vec must not contract to an FMA: __fmul_rn and
-//     __fsub_rn, and the build passes --fmad=false besides.
+//     __fsub_rn, and the build passes --fmad=false besides. Skipping the
+//     update where vec == 0 keeps the bits: n * 0 = 0 and x - 0 = x.
 //   * the float-to-int conversion of n_fit saturates (an all-zero vector
 //     gives +inf), as XLA's convert does.
 //   * cost mode's weighted = fills @ group_weight is a sequential fp32 sum
 //     over g in ascending order, as in the plain version.
 //   * argmin and argmax ties go to the lowest index, as jnp's do.
+//   * an out-of-range round write is dropped, as the reference's scatter
+//     drops it; overflow reports the lost round.
 //   * every output is int32 in the reference's PackRounds layout, because
 //     the compaction and decompact_plan read word offsets.
 
@@ -44,11 +64,12 @@
 namespace {
 
 constexpr int kMaxDims = 8;
-constexpr int kBlock = 256;
-constexpr int kWarps = kBlock / 32;
+constexpr int kMaxThreads = 1024;
 constexpr int kModeFfd = 0;
 constexpr int kModeCost = 1;
 constexpr int kDefaultSharedLimit = 48 * 1024;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr unsigned long long kNoKey = ~0ull;
 
 // Word offsets of one mode's PackRounds inside the output buffer: the
 // reference's dense spill layout (models/solver.py rounds_ints).
@@ -69,49 +90,53 @@ __host__ __device__ inline Layout make_layout(int groups, int max_rounds) {
   return l;
 }
 
+// The block's control words at the front of dynamic shared memory.
+struct Control {
+  unsigned long long key;  // cost mode's best (score, index)
+  int selected;            // ffd mode's lowest type achieving the bound
+  int largest_valid;
+  int first_active, any_active, proceed, pad;
+};
+
+// Dynamic shared memory of one block: the control words, the group tables
+// [G, R] vectors, [G] weights, axis masks and counts, the [T] sums, and the
+// [G, T] fills when they live in shared memory. ops/pack_kernel.pack_launch_plan
+// mirrors it.
 __host__ __device__ inline size_t shared_bytes(int groups, int types, int dims,
                                                bool fills_in_shared) {
-  size_t bytes = sizeof(float) * (size_t(groups) * dims + groups)  // vectors, weights
-                 + sizeof(int) * (size_t(groups) + types);          // counts, sums
+  size_t bytes = sizeof(Control) + sizeof(float) * (size_t(groups) * dims + groups)
+                 + sizeof(int) * (2 * size_t(groups) + types);
   if (fills_in_shared) bytes += sizeof(int) * size_t(types) * groups;
   return bytes;
 }
 
-// Smaller score wins; equal scores go to the lower index (jnp.argmin).
-__device__ inline void keep_better(float& score, int& index, float other_score,
-                                   int other_index) {
-  if (other_score < score || (other_score == score && other_index < index)) {
-    score = other_score;
-    index = other_index;
-  }
+// a / b for b > 0: the IEEE quotient. The card's division takes its slow
+// path for a zero dividend, which a node filled exactly on one axis gives;
+// a zero divides as 1.0 instead and the select gives back a itself (0 / b
+// is 0 with a's sign when b > 0).
+__device__ __forceinline__ float div_pos(float a, float b) {
+  const unsigned bits = __float_as_uint(a);
+  const bool zero = (bits << 1) == 0u;
+  const float q = __fdiv_rn(__uint_as_float(zero ? 0x3f800000u : bits), b);
+  return zero ? a : q;
 }
 
-// Block-wide argmin of (score, index). Every thread of the block must call
-// it; the result is returned to every thread.
-__device__ int block_argmin(float score, int index, float* red_score,
-                            int* red_index) {
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    keep_better(score, index, __shfl_down_sync(0xffffffffu, score, offset),
-                __shfl_down_sync(0xffffffffu, index, offset));
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // red_* may still be read from the previous call
-  if (lane == 0) {
-    red_score[warp] = score;
-    red_index[warp] = index;
-  }
-  __syncthreads();
-  score = lane < kWarps ? red_score[lane] : INFINITY;
-  index = lane < kWarps ? red_index[lane] : INT_MAX;
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    keep_better(score, index, __shfl_down_sync(0xffffffffu, score, offset),
-                __shfl_down_sync(0xffffffffu, index, offset));
-  }
-  return __shfl_sync(0xffffffffu, index, 0);  // each warp reduced the same values
+// A float's bits, made to order as an unsigned int.
+__device__ inline unsigned int orderable(float value) {
+  const unsigned int bits = __float_as_uint(value);
+  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
 }
 
-__global__ void __launch_bounds__(kBlock)
+__device__ inline unsigned long long warp_min_key(unsigned long long key) {
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(kFullMask, key, offset);
+    key = other < key ? other : key;
+  }
+  return key;
+}
+
+template <int kTypesPerThread>
+__global__ void __launch_bounds__(kMaxThreads)
 pack_rounds_kernel(const float* __restrict__ vectors,
                    const int* __restrict__ counts_in,
                    const float* __restrict__ capacity,
@@ -120,84 +145,122 @@ pack_rounds_kernel(const float* __restrict__ vectors,
                    int dims, int first_mode, int* __restrict__ out,
                    int* __restrict__ fill_scratch) {
   extern __shared__ __align__(16) unsigned char shared_raw[];
-  float* s_vectors = reinterpret_cast<float*>(shared_raw);  // [G, R]
-  float* s_weight = s_vectors + groups * dims;               // [G]
-  int* s_counts = reinterpret_cast<int*>(s_weight + groups); // [G]
-  int* s_sums = s_counts + groups;                           // [T]
+  Control* control = reinterpret_cast<Control*>(shared_raw);
+  float* s_vectors = reinterpret_cast<float*>(control + 1);  // [G, R]
+  float* s_weight = s_vectors + groups * dims;                // [G]
+  int* s_axes = reinterpret_cast<int*>(s_weight + groups);    // [G]
+  int* s_counts = s_axes + groups;                            // [G]
+  int* s_sums = s_counts + groups;                            // [T]
   int* fills = fill_scratch == nullptr
                    ? s_sums + types
-                   : fill_scratch + size_t(blockIdx.x) * types * groups;  // [T, G]
-
-  __shared__ float red_score[kWarps];
-  __shared__ int red_index[kWarps];
-  __shared__ int s_largest_valid, s_first_active, s_any_active, s_continue;
+                   : fill_scratch + size_t(blockIdx.x) * types * groups;  // [G, T]
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int threads = blockDim.x;
   const int mode = first_mode + blockIdx.x;
   const int max_rounds = 2 * groups + 8;
   const Layout layout = make_layout(groups, max_rounds);
   int* o = out + size_t(blockIdx.x) * layout.words;
 
-  for (int i = tid; i < layout.words; i += kBlock) o[i] = 0;
-  for (int i = tid; i < groups * dims; i += kBlock) s_vectors[i] = vectors[i];
-  for (int g = tid; g < groups; g += kBlock) s_counts[g] = counts_in[g];
-  if (tid == 0) {
-    // num_types - 1 - argmax(valid[::-1]): the last valid type, or the last
-    // type when none is valid.
-    int largest = types - 1;
-    for (int t = types - 1; t >= 0; --t) {
-      if (valid[t]) {
-        largest = t;
-        break;
-      }
+  for (int i = tid; i < layout.words; i += threads) o[i] = 0;
+  for (int i = tid; i < groups * dims; i += threads) s_vectors[i] = vectors[i];
+  for (int g = tid; g < groups; g += threads) {
+    s_counts[g] = counts_in[g];
+    int axes = 0;
+    for (int r = 0; r < dims; ++r) {
+      const float v = vectors[g * dims + r];
+      if (v > 0.0f) axes |= 1 << r;
+      if (v != 0.0f) axes |= 1 << (8 + r);
     }
-    s_largest_valid = largest;
+    s_axes[g] = axes;
+  }
+  if (tid == 0) {
+    control->key = kNoKey;
+    control->selected = INT_MAX;
+    control->largest_valid = -1;
   }
   __syncthreads();
-  const int largest_valid = s_largest_valid;
+
+  // The per-type constants, in registers for the whole loop.
+  float cap[kTypesPerThread][kMaxDims];
+  bool type_valid[kTypesPerThread];
+  float price[kTypesPerThread];
+  int largest = -1;
+#pragma unroll
+  for (int k = 0; k < kTypesPerThread; ++k) {
+    const int t = tid + k * threads;
+    const bool in = t < types;
+    type_valid[k] = in && valid[t] != 0;
+    price[k] = in ? prices[t] : INFINITY;
+#pragma unroll
+    for (int r = 0; r < kMaxDims; ++r) {
+      cap[k][r] = in && r < dims ? capacity[size_t(t) * dims + r] : 0.0f;
+    }
+    if (type_valid[k]) largest = t;
+  }
+  // num_types - 1 - argmax(valid[::-1]): the last valid type, or the last
+  // type when none is valid.
+  largest = __reduce_max_sync(kFullMask, largest);
+  if (lane == 0 && largest >= 0) atomicMax(&control->largest_valid, largest);
+  __syncthreads();
+  const int largest_valid = control->largest_valid < 0 ? types - 1 : control->largest_valid;
   // Cost-mode group weight: the largest per-axis share of the largest valid
   // type's capacity (with the capacity floored at 1).
-  for (int g = tid; g < groups; g += kBlock) {
+  for (int g = tid; g < groups; g += threads) {
     float weight = -INFINITY;
     for (int r = 0; r < dims; ++r) {
-      const float ref = fmaxf(capacity[largest_valid * dims + r], 1.0f);
+      const float ref = fmaxf(capacity[size_t(largest_valid) * dims + r], 1.0f);
       weight = fmaxf(weight, __fdiv_rn(s_vectors[g * dims + r], ref));
     }
     s_weight[g] = weight;
   }
 
-  // Loop state kept by thread 0 alone.
+  // Loop state, kept by warp 0 (every lane holds the same values).
   int iters = 0;
   int num_rounds = 0;
-  if (tid == 0) {
-    int total = 0, first = -1;
-    for (int g = 0; g < groups; ++g) {
-      total += s_counts[g];
-      if (first < 0 && s_counts[g] > 0) first = g;
+  // Warp 0: the total of the counts, the first active group and whether
+  // to go on; resets the selection words.
+  auto publish_state = [&]() {
+    int total = 0;
+    int first = -1;
+    for (int base = 0; base < groups; base += 32) {
+      const int g = base + lane;
+      const int count = g < groups ? s_counts[g] : 0;
+      total += count;
+      const unsigned active = __ballot_sync(kFullMask, count > 0);
+      if (first < 0 && active != 0) first = base + __ffs(active) - 1;
     }
-    s_first_active = first < 0 ? 0 : first;
-    s_any_active = first >= 0;
-    s_continue = total > 0 && iters < max_rounds + groups;
-  }
+    total = __reduce_add_sync(kFullMask, total);
+    if (lane == 0) {
+      control->first_active = first < 0 ? 0 : first;
+      control->any_active = first >= 0;
+      control->proceed = total > 0 && iters < max_rounds + groups;
+      control->key = kNoKey;
+      control->selected = INT_MAX;
+    }
+    return total;
+  };
+  if (warp == 0) publish_state();
   __syncthreads();
 
-  while (s_continue) {
-    const int first_active = s_first_active;
-    const bool any_active = s_any_active;
-    float best_score = INFINITY;
-    int best_index = INT_MAX;
+  while (control->proceed) {
+    const int first_active = control->first_active;
+    const bool any_active = control->any_active != 0;
+    unsigned long long best = kNoKey;
     int packs_any = 0;
 
-    for (int t = tid; t < types; t += kBlock) {
-      int* row = fills + size_t(t) * groups;
+#pragma unroll
+    for (int k = 0; k < kTypesPerThread; ++k) {
+      const int t = tid + k * threads;
+      if (t >= types) continue;
       int sum = 0;
       float weighted = 0.0f;
-      if (valid[t] && any_active) {
+      if (type_valid[k] && any_active) {
         float remaining[kMaxDims];
 #pragma unroll
-        for (int r = 0; r < kMaxDims; ++r) {
-          remaining[r] = r < dims ? capacity[t * dims + r] : 0.0f;
-        }
+        for (int r = 0; r < kMaxDims; ++r) remaining[r] = cap[k][r];
         // A first active group that cannot place one pod aborts the fill;
         // every earlier group has count 0, so the fill is all zero then.
         bool abort = false;
@@ -206,11 +269,12 @@ pack_rounds_kernel(const float* __restrict__ vectors,
           int n = 0;
           if (count > 0 && !abort) {
             const float* vec = s_vectors + g * dims;
+            const int axes = s_axes[g];
             float ratio = INFINITY;
 #pragma unroll
             for (int r = 0; r < kMaxDims; ++r) {
-              if (r < dims && vec[r] > 0.0f) {
-                ratio = fminf(ratio, __fdiv_rn(remaining[r], vec[r]));
+              if (r < dims && (axes >> r) & 1) {
+                ratio = fminf(ratio, div_pos(remaining[r], vec[r]));
               }
             }
             const float fit = fmaxf(floorf(__fadd_rn(ratio, 1e-4f)), 0.0f);
@@ -219,102 +283,130 @@ pack_rounds_kernel(const float* __restrict__ vectors,
             const float packed = static_cast<float>(n);
 #pragma unroll
             for (int r = 0; r < kMaxDims; ++r) {
-              if (r < dims) remaining[r] = __fsub_rn(remaining[r], __fmul_rn(packed, vec[r]));
+              if (r < dims && (axes >> (8 + r)) & 1) {
+                remaining[r] = __fsub_rn(remaining[r], __fmul_rn(packed, vec[r]));
+              }
             }
           }
-          row[g] = n;
+          fills[size_t(g) * types + t] = n;
           sum += n;
           if (mode == kModeCost) {
             weighted = __fadd_rn(weighted, __fmul_rn(static_cast<float>(n), s_weight[g]));
           }
         }
       } else {
-        for (int g = 0; g < groups; ++g) row[g] = 0;
+        for (int g = 0; g < groups; ++g) fills[size_t(g) * types + t] = 0;
       }
       s_sums[t] = sum;
       if (mode == kModeCost) {
-        const bool packs = sum > 0 && valid[t];
-        const float score =
-            packs ? __fdiv_rn(prices[t], fmaxf(weighted, 1e-9f)) : INFINITY;
+        const bool packs = sum > 0 && type_valid[k];
+        const float score = packs ? __fdiv_rn(price[k], fmaxf(weighted, 1e-9f)) : INFINITY;
         packs_any |= packs;
-        keep_better(best_score, best_index, score, t);  // t ascends per thread
+        const unsigned long long key =
+            (static_cast<unsigned long long>(orderable(score)) << 32) | static_cast<unsigned>(t);
+        best = key < best ? key : best;
       }
     }
-    __syncthreads();
 
-    int t_sel;
     bool have_pack;
-    if (mode == kModeFfd) {
+    if (mode == kModeCost) {
+      best = warp_min_key(best);
+      if (lane == 0) atomicMin(&control->key, best);
+      have_pack = __syncthreads_or(packs_any) != 0;
+    } else {
+      __syncthreads();
       // The largest valid type's pod count bounds the round; the smallest
-      // type achieving it wins.
+      // valid type achieving it wins.
       const int bound = s_sums[largest_valid];
       have_pack = bound > 0;
-      float score = INFINITY;
-      int index = INT_MAX;
-      for (int t = tid; t < types; t += kBlock) {
-        if (bound > 0 && valid[t] && s_sums[t] == bound) {
-          score = 0.0f;
-          index = t;
-          break;
-        }
+      int candidate = INT_MAX;
+#pragma unroll
+      for (int k = kTypesPerThread - 1; k >= 0; --k) {
+        const int t = tid + k * threads;
+        if (t < types && bound > 0 && type_valid[k] && s_sums[t] == bound) candidate = t;
       }
-      t_sel = block_argmin(score, index, red_score, red_index);
-      if (t_sel == INT_MAX) t_sel = 0;  // jnp.argmax of all-False
-    } else {
-      have_pack = __syncthreads_or(packs_any) != 0;
-      t_sel = block_argmin(best_score, best_index, red_score, red_index);
+      candidate = __reduce_min_sync(kFullMask, candidate);
+      if (lane == 0 && candidate != INT_MAX) atomicMin(&control->selected, candidate);
+      __syncthreads();
     }
 
-    if (tid == 0) {
-      const int* fill = fills + size_t(t_sel) * groups;
+    if (warp == 0) {
+      int t_sel;
+      if (mode == kModeCost) {
+        t_sel = static_cast<int>(control->key & 0xffffffffull);
+      } else {
+        t_sel = control->selected;
+        if (t_sel == INT_MAX) t_sel = 0;  // jnp.argmax of all-False
+      }
       if (have_pack) {
         int repl = INT_MAX;
-        for (int g = 0; g < groups; ++g) {
-          if (fill[g] > 0) repl = min(repl, s_counts[g] / fill[g]);
+        for (int g = lane; g < groups; g += 32) {
+          const int fill = fills[size_t(g) * types + t_sel];
+          if (fill > 0) repl = min(repl, s_counts[g] / fill);
         }
-        repl = max(repl, 1);
-        // An out-of-range round write is dropped, as the reference's scatter
-        // drops it; overflow reports the lost round.
-        if (num_rounds < max_rounds) {
+        repl = max(__reduce_min_sync(kFullMask, repl), 1);
+        const bool write = num_rounds < max_rounds;
+        for (int g = lane; g < groups; g += 32) {
+          const int fill = fills[size_t(g) * types + t_sel];
+          if (write) o[layout.round_fill + num_rounds * groups + g] = fill;
+          s_counts[g] -= repl * fill;
+        }
+        if (lane == 0 && write) {
           o[layout.round_type + num_rounds] = t_sel;
-          for (int g = 0; g < groups; ++g) {
-            o[layout.round_fill + num_rounds * groups + g] = fill[g];
-          }
           o[layout.round_repl + num_rounds] = repl;
         }
-        for (int g = 0; g < groups; ++g) s_counts[g] -= repl * fill[g];
         ++num_rounds;
       } else {
         // Retire the first group with pods left as unschedulable.
         int first = 0;
-        for (int g = 0; g < groups; ++g) {
-          if (s_counts[g] > 0) {
-            first = g;
+        for (int base = 0; base < groups; base += 32) {
+          const int g = base + lane;
+          const unsigned active = __ballot_sync(kFullMask, g < groups && s_counts[g] > 0);
+          if (active != 0) {
+            first = base + __ffs(active) - 1;
             break;
           }
         }
-        o[layout.unschedulable + first] += s_counts[first];
-        s_counts[first] = 0;
+        if (lane == 0) {
+          o[layout.unschedulable + first] += s_counts[first];
+          s_counts[first] = 0;
+        }
       }
+      __syncwarp();
       ++iters;
-      int total = 0, first = -1;
-      for (int g = 0; g < groups; ++g) {
-        total += s_counts[g];
-        if (first < 0 && s_counts[g] > 0) first = g;
-      }
-      s_first_active = first < 0 ? 0 : first;
-      s_any_active = first >= 0;
-      s_continue = total > 0 && iters < max_rounds + groups;
+      publish_state();
     }
     __syncthreads();
   }
 
-  if (tid == 0) {
-    int total = 0;
-    for (int g = 0; g < groups; ++g) total += s_counts[g];
-    o[layout.num_rounds] = min(num_rounds, max_rounds);
-    o[layout.overflow] = (total > 0 || num_rounds > max_rounds) ? 1 : 0;
+  if (warp == 0) {
+    const int total = publish_state();
+    if (lane == 0) {
+      o[layout.num_rounds] = min(num_rounds, max_rounds);
+      o[layout.overflow] = (total > 0 || num_rounds > max_rounds) ? 1 : 0;
+    }
   }
+}
+
+template <int kTypesPerThread>
+int launch(const void* vectors, const void* counts, const void* capacity,
+           const void* valid, const void* prices, int groups, int types, int dims,
+           int first_mode, int num_modes, int threads, void* out, void* fill_scratch,
+           void* stream) {
+  const size_t bytes = shared_bytes(groups, types, dims, fill_scratch == nullptr);
+  if (bytes > kDefaultSharedLimit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pack_rounds_kernel<kTypesPerThread>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  pack_rounds_kernel<kTypesPerThread>
+      <<<num_modes, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(vectors), static_cast<const int*>(counts),
+          static_cast<const float*>(capacity), static_cast<const unsigned char*>(valid),
+          static_cast<const float*>(prices), groups, types, dims, first_mode,
+          static_cast<int*>(out), static_cast<int*>(fill_scratch));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -324,7 +416,7 @@ extern "C" int ktt_pack_rounds_words(int groups) {
   return make_layout(groups, 2 * groups + 8).words;
 }
 
-// Dynamic shared memory one block needs, with or without the [T, G] fills.
+// Dynamic shared memory one block needs, with or without the [G, T] fills.
 extern "C" long long ktt_pack_rounds_shared_bytes(int groups, int types, int dims,
                                                   int fills_in_shared) {
   return static_cast<long long>(shared_bytes(groups, types, dims, fills_in_shared != 0));
@@ -332,30 +424,34 @@ extern "C" long long ktt_pack_rounds_shared_bytes(int groups, int types, int dim
 
 // vectors [G, R] f32, counts [G] i32, capacity [T, R] f32, valid [T] bool
 // (one byte each), prices [T] f32, out [num_modes, words] i32; fill_scratch
-// is null to keep the fills in shared memory, else [num_modes, T, G] i32.
-// Block b runs mode first_mode + b (0 = ffd, 1 = cost). Returns the launch's
-// cudaGetLastError().
+// is null to keep the fills in shared memory, else [num_modes, G, T] i32.
+// Block b runs mode first_mode + b (0 = ffd, 1 = cost) with `threads`
+// threads, thread i owning the types i + k * threads for k <
+// types_per_thread (1, 2 or 4). Returns the launch's cudaGetLastError().
 extern "C" int ktt_pack_rounds(const void* vectors, const void* counts,
                                const void* capacity, const void* valid,
                                const void* prices, int groups, int types,
                                int dims, int first_mode, int num_modes,
+                               int threads, int types_per_thread,
                                void* out, void* fill_scratch, void* stream) {
   if (groups <= 0 || types <= 0 || dims <= 0 || dims > kMaxDims ||
       first_mode < kModeFfd || num_modes < 1 ||
-      first_mode + num_modes - 1 > kModeCost) {
+      first_mode + num_modes - 1 > kModeCost || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 ||
+      static_cast<long long>(threads) * types_per_thread < types) {
     return cudaErrorInvalidValue;
   }
-  const size_t bytes = shared_bytes(groups, types, dims, fill_scratch == nullptr);
-  if (bytes > kDefaultSharedLimit) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pack_rounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  switch (types_per_thread) {
+    case 1:
+      return launch<1>(vectors, counts, capacity, valid, prices, groups, types, dims,
+                       first_mode, num_modes, threads, out, fill_scratch, stream);
+    case 2:
+      return launch<2>(vectors, counts, capacity, valid, prices, groups, types, dims,
+                       first_mode, num_modes, threads, out, fill_scratch, stream);
+    case 4:
+      return launch<4>(vectors, counts, capacity, valid, prices, groups, types, dims,
+                       first_mode, num_modes, threads, out, fill_scratch, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  pack_rounds_kernel<<<num_modes, kBlock, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vectors), static_cast<const int*>(counts),
-      static_cast<const float*>(capacity), static_cast<const unsigned char*>(valid),
-      static_cast<const float*>(prices), groups, types, dims, first_mode,
-      static_cast<int*>(out), static_cast<int*>(fill_scratch));
-  return static_cast<int>(cudaGetLastError());
 }

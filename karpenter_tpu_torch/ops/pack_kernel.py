@@ -21,7 +21,8 @@ Two selection modes:
 
 The round loop is data-dependent, so on the card it is one hand-written
 kernel (csrc/pack_rounds.cu) that runs the whole loop with no host sync, both
-modes in one launch (`pack_kernel_pair`). `_pack_kernel_ref` is its plain
+modes in one launch (`pack_kernel_pair`), one type per thread as
+`pack_launch_plan` lays it out. `_pack_kernel_ref` is its plain
 PyTorch version, which tests the loop condition on the host every round. A
 CPU tensor goes to the plain version, a CUDA tensor to the kernel; quirk=True
 exists only in the plain version (the cost solve never uses it), and asking
@@ -63,7 +64,7 @@ LIBRARY = CudaLibrary(
         "ktt_pack_rounds": (
             ctypes.c_int,
             [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 5
+            + [ctypes.c_int] * 7
             + [ctypes.c_void_p] * 3,
         ),
     },
@@ -78,9 +79,42 @@ COMPACT_LIBRARY = CudaLibrary(
         ),
     },
 )
-# Fills stay in shared memory up to this many bytes per block; past it they
-# go to a global scratch buffer (the card allows 227 KB per block).
-_SHARED_FILL_LIMIT = 160 * 1024
+# Shared memory a block may use on sm_90 (227 KB), threads a block may
+# have, and the types a thread may own.
+SHARED_LIMIT = 232_448
+MAX_THREADS = 1024
+_TYPES_PER_THREAD = (1, 2, 4)
+MAX_TYPES = MAX_THREADS * _TYPES_PER_THREAD[-1]
+# csrc/pack_rounds.cu's Control words at the front of shared memory.
+_CONTROL_BYTES = 32
+
+
+class PackLaunchPlan(NamedTuple):
+    """How K2 lays one mode's round loop over a block."""
+
+    threads: int  # a multiple of 32
+    types_per_thread: int  # thread i owns types i + k * threads, k < this
+    shared_bytes: int  # dynamic shared memory per block
+    fills_in_shared: bool  # else [modes, G, T] int32 of global scratch
+
+    def owner(self, t: int) -> int:
+        """The thread that owns type t."""
+        return t % self.threads
+
+
+def pack_launch_plan(groups: int, types: int, dims: int) -> PackLaunchPlan:
+    """K2's launch plan, from the sizes alone: one type per thread while T
+    fits one block (1,024 threads), else 2 or 4; the [G, T] fills in shared
+    memory when the block's tables and fills fit SHARED_LIMIT, else in
+    global scratch."""
+    if types > MAX_TYPES:
+        raise ValueError(f"pack_kernel kernel takes at most {MAX_TYPES} types")
+    per_thread = next(k for k in _TYPES_PER_THREAD if -(-types // k) <= MAX_THREADS)
+    threads = (-(-types // per_thread) + 31) & ~31
+    tables = _CONTROL_BYTES + 4 * (groups * dims + groups) + 4 * (2 * groups + types)
+    in_shared = tables + 4 * groups * types <= SHARED_LIMIT
+    shared = tables + (4 * groups * types if in_shared else 0)
+    return PackLaunchPlan(threads, per_thread, shared, in_shared)
 
 
 class PackRounds(NamedTuple):
@@ -281,20 +315,21 @@ def _launch(vectors, counts, capacity, valid_types, prices, first_mode: int, num
     tensors = (vectors, counts, capacity, valid_types, prices)
     if not all(tensor.is_contiguous() for tensor in tensors):
         raise ValueError("pack_kernel kernel takes contiguous tensors")
+    plan = pack_launch_plan(num_groups, num_types, dims)
     lib = LIBRARY.load()
     words = lib.ktt_pack_rounds_words(num_groups)
     out = torch.empty((num_modes, words), dtype=torch.int32, device=vectors.device)
-    shared = lib.ktt_pack_rounds_shared_bytes(num_groups, num_types, dims, 1)
     scratch = None
-    if shared > _SHARED_FILL_LIMIT:
+    if not plan.fills_in_shared:
         scratch = torch.empty(
-            (num_modes, num_types, num_groups), dtype=torch.int32, device=vectors.device
+            (num_modes, num_groups, num_types), dtype=torch.int32, device=vectors.device
         )
     with torch.cuda.device(vectors.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.ktt_pack_rounds(
             *(tensor.data_ptr() for tensor in tensors),
             num_groups, num_types, dims, first_mode, num_modes,
+            plan.threads, plan.types_per_thread,
             out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), stream,
         )
     check_launch(status, "pack_kernel")

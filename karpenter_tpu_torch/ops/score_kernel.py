@@ -19,8 +19,9 @@ The gradient of `lp_objective` is written out in closed form
 reference's trajectory as closely as fp32 allows.
 
 K3: on the card the whole relaxation, every Adam step and the hard-max
-result, is one launch of a hand-written kernel (csrc/lp_relax.cu) behind
-`lp_relax`; `lp_relax_body` is its plain PyTorch version. `lp_relax` routes
+result, is one launch of a hand-written kernel (csrc/lp_relax.cu) over a
+thread-block cluster behind `lp_relax`, laid out by `lp_launch_plan`;
+`lp_relax_body` is its plain PyTorch version. `lp_relax` routes
 by where its tensors lie: a CPU tensor goes to the plain version, a CUDA
 tensor to the kernel. There is no fallback between them.
 """
@@ -47,20 +48,111 @@ MAX_DIMS = 8  # per-type registers in the kernel's column pass
 LIBRARY = CudaLibrary(
     "lp_relax.cu",
     {
-        "ktt_lp_relax_workspace_bytes": (
-            ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_int],
-        ),
+        "ktt_lp_relax_shared_bytes": (ctypes.c_longlong, [ctypes.c_int] * 7),
+        "ktt_lp_relax_state_bytes": (ctypes.c_longlong, [ctypes.c_int] * 5),
         "ktt_lp_relax": (
             ctypes.c_int,
             [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 4
+            + [ctypes.c_int] * 7
             + [ctypes.c_void_p] * 5,
         ),
     },
 )
-# The state stays in shared memory up to this many bytes (the card allows
-# 227 KB per block); past it, in a global scratch buffer.
-_SHARED_STATE_LIMIT = 200 * 1024
+# Shared memory a block may use on sm_90 (227 KB), and the largest cluster
+# (16 needs the non-portable attribute; 8 is the portable limit).
+SHARED_LIMIT = 232_448
+MAX_CLUSTER = 16
+# Types a block of the cluster should own, and the threads a block may
+# have: the cluster grows with T so that each block owns at most this many
+# types, and the group lanes grow until the block has this many threads
+# (at the main path's G 16 x T 512: 16 blocks of 512 threads, one cell
+# each).
+_TYPES_PER_BLOCK = 32
+_THREADS = 512
+
+
+class LPLaunchPlan(NamedTuple):
+    """How K3 spreads one LP over a thread-block cluster."""
+
+    cluster: int  # blocks in the cluster, 2..MAX_CLUSTER
+    types_per_block: int  # block b owns types [b * TB, (b + 1) * TB)
+    threads: int  # per block, a multiple of 32
+    group_lanes: int  # Q: adjacent lanes of one type, each owning G / Q groups
+    shared_bytes: int  # dynamic shared memory per block
+    state_bytes: int  # one block's slice of the state
+    state_in_shared: bool  # else cluster * state_bytes of global scratch
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 0 if self.state_in_shared else self.cluster * self.state_bytes
+
+    def owner(self, t: int) -> int:
+        """The cluster rank that owns type t."""
+        return t // self.types_per_block
+
+
+_MAX_DIMS_WORDS = MAX_DIMS + 1  # the requested axes and their count
+
+
+def _round16(size: int) -> int:
+    return (size + 15) & ~15
+
+
+def _lp_layout(groups: int, dims: int, types_per_block: int, threads: int, group_lanes: int,
+               cluster: int):
+    """(table bytes, state bytes) of one block: csrc/lp_relax.cu make_layout."""
+    warps = threads // 32
+    words = (groups * dims + groups + types_per_block * dims + types_per_block + _MAX_DIMS_WORDS
+             + types_per_block * MAX_DIMS
+             + 2 * warps * groups + 3 * groups + 3 * cluster * groups + cluster)
+    type_slots = threads // group_lanes
+    cells = (-(-types_per_block // type_slots)) * (-(-groups // group_lanes)) * threads
+    return _round16(4 * words), _round16(cells * (5 * 4 + 1))
+
+
+def lp_plan_for_cluster(groups: int, types: int, dims: int, cluster: int,
+                        threads: int = _THREADS) -> LPLaunchPlan:
+    """The plan at a given cluster size: Q doubles (up to 32 and up to G)
+    while the block's types times Q stay within `threads`, and the block has
+    at most `threads` threads; the state lives in shared memory when the
+    block's tables and slice fit in SHARED_LIMIT. The tables alone may not
+    fit (shared_bytes past SHARED_LIMIT): such a plan cannot launch."""
+    if not 2 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"lp_relax: cluster of {cluster} blocks is outside 2..{MAX_CLUSTER}")
+    types_per_block = -(-types // cluster)
+    group_lanes = 1
+    while group_lanes < 32 and group_lanes < groups and types_per_block * group_lanes * 2 <= threads:
+        group_lanes *= 2
+    block = min(threads, max(32, -(-types_per_block * group_lanes // 32) * 32))
+    table, state = _lp_layout(groups, dims, types_per_block, block, group_lanes, cluster)
+    in_shared = table + state <= SHARED_LIMIT
+    shared = table + (state if in_shared else 0)
+    return LPLaunchPlan(cluster, types_per_block, block, group_lanes, shared, state, in_shared)
+
+
+def lp_launch_plan(groups: int, types: int, dims: int) -> LPLaunchPlan:
+    """K3's launch plan, from the sizes alone. The cluster is the smallest
+    power of two (at least 2) whose blocks own at most _TYPES_PER_BLOCK
+    types, doubled while the state does not fit the blocks' shared memory;
+    the state goes to global scratch only when it does not fit at
+    MAX_CLUSTER. Past that (hundreds of groups), the cluster halves and then
+    the block's threads halve while the tables, which grow with both, do
+    not fit either."""
+    preferred = 2
+    while preferred < MAX_CLUSTER and preferred * _TYPES_PER_BLOCK < types:
+        preferred *= 2
+    threads = _THREADS
+    while True:
+        plan = lp_plan_for_cluster(groups, types, dims, preferred, threads)
+        while not plan.state_in_shared and plan.cluster < MAX_CLUSTER:
+            plan = lp_plan_for_cluster(groups, types, dims, plan.cluster * 2, threads)
+        while plan.shared_bytes > SHARED_LIMIT and plan.cluster > 2:
+            plan = lp_plan_for_cluster(groups, types, dims, plan.cluster // 2, threads)
+        if plan.shared_bytes <= SHARED_LIMIT:
+            return plan
+        if threads == 32:
+            raise ValueError(f"lp_relax: {groups} groups need {plan.shared_bytes} bytes of tables per block")
+        threads //= 2
 
 
 class LPResult(NamedTuple):
@@ -225,34 +317,43 @@ def lp_relax(
     steps: int = 300,
 ) -> LPResult:
     """The LP relaxation: the CUDA kernel (all `steps` Adam steps in one
-    launch) for CUDA tensors, the plain version for CPU tensors."""
+    launch of one thread-block cluster) for CUDA tensors, the plain version
+    for CPU tensors."""
     _check_args(vectors, counts, capacity, valid_types, prices, steps)
     if vectors.device.type == "cpu":
         return lp_relax_body(vectors, counts, capacity, valid_types, prices, steps=steps)
     if vectors.device.type != "cuda":
         raise ValueError(f"lp_relax: unsupported device {vectors.device}")
     num_groups, dims = vectors.shape
-    num_types = capacity.shape[0]
-    if num_groups == 0 or num_types == 0 or dims == 0 or dims > MAX_DIMS:
+    if num_groups == 0 or capacity.shape[0] == 0 or dims == 0 or dims > MAX_DIMS:
         raise ValueError(f"lp_relax kernel takes G, T >= 1 and 1..{MAX_DIMS} axes")
+    plan = lp_launch_plan(num_groups, capacity.shape[0], dims)
+    return _launch(vectors, counts, capacity, valid_types, prices, steps, plan)
+
+
+def _launch(vectors, counts, capacity, valid_types, prices, steps: int, plan: LPLaunchPlan) -> LPResult:
+    """One launch of K3 with the given plan."""
+    if plan.shared_bytes > SHARED_LIMIT:
+        raise ValueError(f"lp_relax: the plan asks for {plan.shared_bytes} bytes of shared memory")
     tensors = (vectors, counts, capacity, valid_types, prices)
     if not all(tensor.is_contiguous() for tensor in tensors):
         raise ValueError("lp_relax kernel takes contiguous tensors")
+    num_groups, dims = vectors.shape
+    num_types = capacity.shape[0]
     lib = LIBRARY.load()
     device = vectors.device
     bias = _bias_table(steps, device)
     assignment = torch.empty((num_groups, num_types), dtype=torch.float32, device=device)
     nodes = torch.empty(num_types, dtype=torch.float32, device=device)
     objective = torch.empty((), dtype=torch.float32, device=device)
-    workspace = lib.ktt_lp_relax_workspace_bytes(num_groups, num_types, dims)
     scratch = None
-    if workspace > _SHARED_STATE_LIMIT:
-        scratch = torch.empty(workspace, dtype=torch.uint8, device=device)
+    if not plan.state_in_shared:
+        scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.ktt_lp_relax(
             *(tensor.data_ptr() for tensor in tensors), bias.data_ptr(),
-            num_groups, num_types, dims, steps,
+            num_groups, num_types, dims, steps, plan.cluster, plan.threads, plan.group_lanes,
             assignment.data_ptr(), nodes.data_ptr(), objective.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), stream,
         )

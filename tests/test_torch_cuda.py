@@ -94,9 +94,11 @@ def _pack_problem(seed, num_groups, num_types):
     return vectors, counts, capacity, capacity.copy(), valid, prices
 
 
-# (32, 512) needs more than 48 KB of shared memory; (64, 1024) puts the fills
-# in global scratch.
-PACK_SHAPES = [(8, 8), (16, 64), (16, 512), (32, 512), (64, 1024)]
+# (32, 512) needs more than 48 KB of shared memory; (64, 1024) and
+# (64, 2048) put the fills in global scratch; (16, 300) leaves 20 threads of
+# the block without a type; (16, 1024) fills a block of 1,024 threads, one
+# type each; (64, 2048) gives each thread two types.
+PACK_SHAPES = [(8, 8), (16, 64), (16, 300), (16, 512), (32, 512), (16, 1024), (64, 1024), (64, 2048)]
 
 
 @pytest.mark.parametrize("mode", ["ffd", "cost"])
@@ -111,6 +113,29 @@ def test_pack_kernel_equals_plain_version(seed, shape, mode, cuda_device):
     for field, a, b, c in zip(want._fields, got, pair, want):
         assert torch.equal(a, c), field
         assert torch.equal(b, c), field
+
+
+def test_pack_shapes_cover_every_plan(cuda_device):
+    """The shapes above reach one, two types a thread, a ragged last warp,
+    the fills in shared memory and in global scratch; the plan's shared
+    bytes are the kernel's."""
+    lib = pack_kernel.LIBRARY.load()
+    plans = [pack_kernel.pack_launch_plan(g, t, 8) for g, t in PACK_SHAPES]
+    assert {plan.types_per_thread for plan in plans} >= {1, 2}
+    assert {plan.fills_in_shared for plan in plans} == {True, False}
+    assert any(plan.threads * plan.types_per_thread > t for plan, (_, t) in zip(plans, PACK_SHAPES))
+    for plan, (g, t) in zip(plans, PACK_SHAPES):
+        assert lib.ktt_pack_rounds_shared_bytes(g, t, 8, int(plan.fills_in_shared)) == plan.shared_bytes
+
+
+@pytest.mark.parametrize("shape", [(16, 300), (16, 512), (64, 1024)], ids=lambda s: f"G{s[0]}xT{s[1]}")
+def test_pack_kernel_is_deterministic(shape, cuda_device):
+    args = fused_args_from_numpy(*_pack_problem(1, *shape), device=cuda_device)
+    first = pack_kernel.pack_kernel_pair(*args)
+    second = pack_kernel.pack_kernel_pair(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert chip_smoke.rounds_equal(a, b)
 
 
 def test_pack_kernel_refuses_quirk(cuda_device):
@@ -189,26 +214,30 @@ def test_cost_solver_on_card_equals_cpu(cuda_device, monkeypatch):
 # each shape with zero-count groups and invalid types as the bucket padding
 # pads the main path's 400 types to 512 (chip_smoke.lp_inputs; at many valid
 # types the family's prices per core crowd together and the LP turns
-# degenerate, PERF.md §6). (16, 512) is the main path's shape, its state in
-# shared memory; (32, 512) puts the state in global scratch.
-LP_SHAPES = [(8, 16), (16, 64), (16, 512), (32, 512)]
+# degenerate, PERF.md §6). The plan's rule gives clusters of 2 ((8, 16),
+# (16, 64)), 4 ((16, 128)), 8 ((16, 256)) and 16 ((16, 512) the main path's
+# shape, (16, 300) whose last block owns fewer types, G 1, G 32, G 64 and
+# (16, 1024)), the state in shared memory; (128, 2048) puts it in global
+# scratch.
+LP_SHAPES = [(8, 16), (16, 64), (16, 128), (16, 256), (16, 300), (16, 512), (1, 512),
+             (32, 512), (64, 512), (16, 1024), (128, 2048)]
 
 
-def test_lp_shapes_cover_both_storage_paths(cuda_device):
-    workspace = score_kernel.LIBRARY.load().ktt_lp_relax_workspace_bytes
-    limit = score_kernel._SHARED_STATE_LIMIT
-    assert workspace(16, 512, 8) <= limit < workspace(32, 512, 8)
+def test_lp_shapes_cover_every_plan(cuda_device):
+    """Every cluster size the rule can choose, both storage paths, a T the
+    blocks do not divide evenly; the plan's shared bytes are the kernel's."""
+    lib = score_kernel.LIBRARY.load()
+    plans = [score_kernel.lp_launch_plan(g, t, 8) for g, t in LP_SHAPES]
+    assert {plan.cluster for plan in plans} == {2, 4, 8, 16}
+    assert {plan.state_in_shared for plan in plans} == {True, False}
+    assert any(t % plan.types_per_block for plan, (_, t) in zip(plans, LP_SHAPES))
+    for plan, (g, _) in zip(plans, LP_SHAPES):
+        args = (g, 8, plan.types_per_block, plan.threads, plan.group_lanes)
+        assert lib.ktt_lp_relax_shared_bytes(*args, plan.cluster, int(plan.state_in_shared)) == plan.shared_bytes
+        assert lib.ktt_lp_relax_state_bytes(*args) == plan.state_bytes
 
 
-@pytest.mark.parametrize("shape", LP_SHAPES, ids=lambda s: f"G{s[0]}xT{s[1]}")
-@pytest.mark.parametrize("seed", chip_smoke.LP_SEEDS)
-def test_lp_kernel_equals_plain_version(seed, shape, cuda_device):
-    args = chip_smoke.lp_inputs(seed, shape, cuda_device)
-    before = score_kernel.lp_relax.launches
-    got = score_kernel.lp_relax(*args, steps=300)
-    want = score_kernel.lp_relax_body(*args, steps=300)
-    torch.cuda.synchronize()
-    assert score_kernel.lp_relax.launches == before + 1
+def _assert_lp_close(got, want):
     np.testing.assert_allclose(
         float(got.objective), float(want.objective), rtol=LP_OBJECTIVE_RTOL
     )
@@ -220,6 +249,42 @@ def test_lp_kernel_equals_plain_version(seed, shape, cuda_device):
         got.fractional_nodes.cpu().numpy(), want.fractional_nodes.cpu().numpy(),
         rtol=0, atol=LP_ASSIGNMENT_ATOL,
     )
+
+
+@pytest.mark.parametrize("shape", LP_SHAPES, ids=lambda s: f"G{s[0]}xT{s[1]}")
+@pytest.mark.parametrize("seed", chip_smoke.LP_SEEDS)
+def test_lp_kernel_equals_plain_version(seed, shape, cuda_device):
+    args = chip_smoke.lp_inputs(seed, shape, cuda_device)
+    before = score_kernel.lp_relax.launches
+    got = score_kernel.lp_relax(*args, steps=300)
+    want = score_kernel.lp_relax_body(*args, steps=300)
+    torch.cuda.synchronize()
+    assert score_kernel.lp_relax.launches == before + 1
+    _assert_lp_close(got, want)
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+@pytest.mark.parametrize("seed", chip_smoke.LP_SEEDS[:3])
+def test_lp_kernel_at_every_cluster_size(seed, cluster, cuda_device):
+    """The main path's shape spread over each cluster size the card takes."""
+    args = chip_smoke.lp_inputs(seed, (16, 512), cuda_device)
+    plan = score_kernel.lp_plan_for_cluster(16, 512, 8, cluster)
+    got = score_kernel._launch(*args, 300, plan)
+    want = score_kernel.lp_relax_body(*args, steps=300)
+    torch.cuda.synchronize()
+    _assert_lp_close(got, want)
+
+
+@pytest.mark.parametrize("shape", [(16, 300), (16, 512), (128, 2048)], ids=lambda s: f"G{s[0]}xT{s[1]}")
+def test_lp_kernel_is_deterministic(shape, cuda_device):
+    """The blocks combine their partials in rank order: two launches on the
+    same inputs give the same bits."""
+    args = chip_smoke.lp_inputs(0, shape, cuda_device)
+    first = score_kernel.lp_relax(*args, steps=300)
+    second = score_kernel.lp_relax(*args, steps=300)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_cost_solve_dispatch_does_not_sync(cuda_device):
