@@ -43,14 +43,39 @@ limit, and as the last line {"ok": true, "device": {...}}:
               each of its pods once within every receiver's headroom; a room
               sized for too few axes flagged; cold first sweep, warm p50 over
               10 sweeps, the fetch's bytes
-  8. timing   each kernel's device time per call (torch.profiler: the
+  8. constrained  the constrained provisioning path: the main path's 50,000
+              pods, each under one zonal topology spread (max_skew 1,
+              DoNotSchedule) and two preferred node-affinity terms (a zone
+              the catalog does not offer, weight 10; amd64, weight 1),
+              through Scheduler(cluster).solve and
+              constraints.solve.solve_constrained with CostSolver() on the
+              card (padded G' 64, T 512, L 4); K6 launched once a solve;
+              level 1 chosen; every pod placed once or reported
+              unschedulable; the three zones' skew at most 1; $/hr equal to
+              the CPU run within 1e-4; K6 equal to its plain version on the
+              card in both modes and to the numpy mirror; the first solve,
+              warm p50 and max over 10 solves, each layer of one solve
+  9. large_shapes  CostSolver on the card over 12,000 pods in 1,100
+              distinct shapes (padded G 2,048, T 512): every pod placed
+              once, K2's rounds equal to the plain version's (the same
+              dispatch on the CPU), K3's objective within rtol 1e-4 of its
+              plain version; K2 at G 2,048 x T 512 and G 16 x T 8,192, K3
+              at G 2,048 x T 512, G 16 x T 8,192 and G 2,048 x T 2,048 (its
+              tables in global scratch) against their plain versions
+ 10. timing   each kernel's device time per call (torch.profiler: the
               kernels' own time, `ms`) and its time between CUDA events
               around the wrapper (host enqueue included, `event_ms`), its
               plain version's time (CUDA events) and its bound at the path's
               shapes; K3's time per Adam step and at every cluster size,
-              K2's time per round of each mode
-  9. layers   one warm solve layer by layer (each bracketed by device syncs),
+              K2's time per round of each mode; K6 at the constrained
+              path's shapes; K2 and K3 at padded G 2,048
+ 11. layers   one warm solve layer by layer (each bracketed by device syncs),
               and torch.profiler's device time against the solve's wall time
+
+The kernels phase also holds K6, the constrained [L, G', T] dispatch, bit
+for bit to its plain version on 22 seeded cases (both modes; conflicts, node
+caps, penalties, padded levels, T 300 ragged, T 1,500, G' up to 2,048 with
+its tables in global scratch).
 
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and prints
@@ -72,6 +97,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 ZONES = ("z-1a", "z-1b", "z-1c")
+NODE_CAP_NONE = 2**30  # ops/pack_kernel.NODE_CAP_NONE: no per-node cap
 NUM_PODS = 50_000
 NUM_TYPES = 400
 
@@ -81,9 +107,13 @@ def check(condition: bool, message: str) -> None:
         raise RuntimeError(f"check failed: {message}")
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
+    """One phase's line, with the seconds since the script started."""
     text = " ".join(f"{key}={value}" for key, value in fields.items())
-    print(f"phase {name}: ok {text}", flush=True)
+    print(f"phase {name}: ok {text} at_s={time.perf_counter() - _START:.1f}", flush=True)
 
 
 def kube_reserved_cpu_millis(vcpus: int) -> int:
@@ -173,8 +203,10 @@ def port_package():
     passes the reference package's in the same shape."""
     from types import SimpleNamespace
 
-    from karpenter_tpu_torch.api.pods import PodSpec
+    from karpenter_tpu_torch.api import wellknown
+    from karpenter_tpu_torch.api.pods import PodSpec, PreferredTerm, TopologySpreadConstraint
     from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.api.requirements import Requirement
     from karpenter_tpu_torch.cloudprovider import InstanceType, Offering
     from karpenter_tpu_torch.ops import consolidate, encode
 
@@ -182,8 +214,264 @@ def port_package():
         PodSpec=PodSpec, Constraints=Constraints, InstanceType=InstanceType, Offering=Offering,
         group_pods=encode.group_pods, build_fleet=encode.build_fleet,
         resource_vector=encode.resource_vector, accel_indexes=encode._ACCEL_INDEXES,
-        consolidate=consolidate,
+        consolidate=consolidate, TopologySpreadConstraint=TopologySpreadConstraint,
+        PreferredTerm=PreferredTerm, Requirement=Requirement, wellknown=wellknown,
     )
+
+
+# --- the constrained path: spread and preferences ---------------------------
+
+SPREAD_LABELS = {"app": "web"}
+MISSING_ZONE = "z-9z"  # a zone the catalog does not offer
+
+
+def constrained_pods(num_pods: int = NUM_PODS, seed: int = 0, package=None):
+    """The main path's pods in its 16 Zipf shapes, each with one zonal
+    topology spread (max_skew 1, DoNotSchedule: the Kubernetes docs'
+    Deployment example, kubernetes.io/docs/concepts/scheduling-eviction/
+    topology-spread-constraints) and two preferred node-affinity terms:
+    weight 10 for a zone the catalog does not offer, weight 1 for the amd64
+    architecture every type has. The ladder's level 0 keeps both terms and
+    can place nothing; level 1 drops the impossible one; level 2 drops
+    both."""
+    if package is None:
+        package = port_package()
+    wellknown = package.wellknown
+    shapes = pod_shapes(seed)
+    shape_counts = (zipf_weights(len(shapes)) * num_pods).astype(int)
+    shape_counts[0] += num_pods - shape_counts.sum()
+    spread = package.TopologySpreadConstraint(
+        max_skew=1, topology_key=wellknown.ZONE_LABEL, match_labels=dict(SPREAD_LABELS))
+    preferred = [
+        package.PreferredTerm(weight=10, requirements=[
+            package.Requirement.in_(wellknown.ZONE_LABEL, [MISSING_ZONE])]),
+        package.PreferredTerm(weight=1, requirements=[
+            package.Requirement.in_(wellknown.ARCH_LABEL, ["amd64"])]),
+    ]
+    return [
+        package.PodSpec(
+            name=f"web-{cpu}m-{mem}Mi-{i}", uid=f"web-{cpu}m-{mem}Mi-{i}",
+            requests={"cpu": f"{cpu}m", "memory": f"{mem}Mi"}, unschedulable=True,
+            labels=dict(SPREAD_LABELS), topology_spread=[spread], preferred_terms=list(preferred),
+        )
+        for (cpu, mem), count in zip(shapes, shape_counts)
+        for i in range(count)
+    ]
+
+
+def zone_skew(result) -> tuple:
+    """(pods per zone, skew) over the plan's packings, each pinned to one
+    zone by its launch pools."""
+    per_zone = {}
+    for packing in result.packings:
+        zones = {option.zone for option in packing.pool_options}
+        if len(zones) != 1:
+            raise RuntimeError(f"check failed: a packing is not pinned to one zone: {sorted(zones)}")
+        (zone,) = zones
+        per_zone[zone] = per_zone.get(zone, 0) + sum(len(node) for node in packing.pods_per_node)
+    counts = [per_zone.get(zone, 0) for zone in ZONES]
+    return per_zone, max(counts) - min(counts)
+
+
+def placed_once_or_unschedulable(result, pods) -> bool:
+    """Every pod is in the plan once or reported unschedulable, none both."""
+    seen = [pod.uid for packing in result.packings for node in packing.pods_per_node for pod in node]
+    seen += [pod.uid for pod in result.unschedulable]
+    return len(seen) == len(pods) and set(seen) == {pod.uid for pod in pods}
+
+
+def k6_problem(seed: int, num_groups: int, num_types: int, num_levels: int, real_groups=None):
+    """A seeded [L, G', T] problem as pack_kernel_levels' ten numpy operands:
+    pod-sized vectors in FFD order (the first `real_groups` real, the rest
+    padding), nested allow masks that relax level by level with padded
+    levels repeating the last real one, spread-penalty multiples and random
+    penalties, zone-like domain conflicts plus random anti-affinity pairs,
+    per-node caps, a ragged set of valid types."""
+    rng = np.random.default_rng(seed)
+    real = min(num_groups, real_groups or num_groups)
+    vectors = np.zeros((num_groups, 8), np.float32)
+    vectors[:real, 0] = np.sort(rng.integers(1, 17, real))[::-1] * 250
+    vectors[:real, 1] = rng.integers(1, 33, real) * 256
+    vectors[:real, 2] = 1
+    if seed % 2:
+        vectors[0, 0] = 70_000  # larger than any type: unschedulable at every level
+    real_types = int(rng.integers(max(1, num_types // 2), num_types + 1))
+    cpu = np.sort(rng.integers(1, 65, real_types)) * 1000
+    capacity = np.zeros((num_types, 8), np.float32)
+    capacity[:real_types, 0] = cpu - 100
+    capacity[:real_types, 1] = cpu * rng.choice([2, 4, 8], real_types) - 600
+    capacity[:real_types, 2] = 110
+    valid = np.zeros(num_types, bool)
+    valid[:real_types] = True
+    prices = np.full(num_types, np.inf, np.float32)
+    prices[:real_types] = cpu / 1000 * rng.uniform(0.03, 0.05, real_types)
+    real_levels = int(rng.integers(1, num_levels + 1))
+    level_counts = np.zeros((num_levels, num_groups), np.int32)
+    allow = np.zeros((num_levels, num_groups, num_types), bool)
+    base = rng.integers(1, 40, real)
+    mask = rng.random((real, num_types)) < 0.3
+    # Level 0 admits no type for a tenth of the groups (they retire as
+    # unschedulable); each later real level admits more.
+    mask[rng.random(real) < 0.1] = False
+    for level in range(num_levels):
+        if level < real_levels:
+            if level > 0:
+                mask = mask | (rng.random((real, num_types)) < 0.3)
+            kept = base.copy()
+            kept[rng.random(real) < 0.1 * (real_levels - 1 - level)] = 0
+        level_counts[level, :real] = kept
+        allow[level, :real] = mask
+    penalty = np.zeros((num_levels, num_groups, num_types), np.float32)
+    penalty[:, :real] = (0.005 * rng.integers(0, 4, (num_levels, real, num_types))).astype(np.float32)
+    noisy = rng.random((num_levels, real, num_types)) < 0.2
+    penalty[:, :real][noisy] = rng.uniform(0, 0.05, int(noisy.sum())).astype(np.float32)
+    penalty[real_levels:] = penalty[real_levels - 1]
+    domain = np.where(rng.random(real) < 0.6, rng.integers(0, 3, real), -1)
+    conflict = np.zeros((num_groups, num_groups), bool)
+    pinned = domain >= 0
+    conflict[:real, :real] = pinned[:, None] & pinned[None, :] & (domain[:, None] != domain[None, :])
+    pairs = rng.random((real, real)) < 0.02
+    conflict[:real, :real] |= pairs | pairs.T
+    np.fill_diagonal(conflict, False)
+    node_cap = np.full(num_groups, NODE_CAP_NONE, np.int32)
+    capped = rng.random(real) < 0.25
+    node_cap[:real][capped] = rng.integers(1, 4, int(capped.sum()))
+    return (vectors, level_counts, capacity, capacity.copy(), valid, prices, allow, penalty,
+            conflict, node_cap)
+
+
+# (G', T, L, real groups): a single level; the small and the main shapes;
+# T 300 leaves part of the block's last warp without a type; L 8 every
+# level a block; G' 512 and 2,048 keep the placed bits, and 2,048 the
+# tables and fills, in global scratch; T 1,500 gives threads two types.
+K6_SHAPES = ((8, 8, 1, None), (16, 64, 4, None), (16, 300, 4, None), (64, 512, 4, None),
+             (64, 512, 8, None), (128, 256, 2, 80), (256, 512, 4, 60), (512, 256, 2, 50),
+             (2048, 512, 2, 50), (32, 1024, 4, None), (16, 1500, 2, None))
+
+
+def tied_weight_pack_problem(seed: int, groups: int, num_types: int = 16):
+    """Two types of equal price, one with room for cpu only and one for
+    memory only, over groups of one weight apiece: after a tiny first group
+    both take, the cpu groups go to one type and the memory groups to the
+    other, with the same (weight, count) pairs in another order. The exact
+    weighted of both types is equal, so which one the first cost round
+    takes is decided by the order and rounding of fills @ group_weight
+    alone. The third type, the last valid one, sets the weights at a power
+    of two per axis and costs too much to be taken. 16 types: from 9 rows
+    of types on, XLA vectorises the dot as `ops/pack_kernel._weighted_sums`
+    describes."""
+    rng = np.random.default_rng(seed)
+    half = (groups - 1) // 2
+    weights = rng.uniform(0.001, 0.01, half).astype(np.float32)
+    pods = rng.choice([3, 5, 7, 9, 11, 13], half).astype(np.int32)
+    order = rng.permutation(half)
+    vectors = np.zeros((groups, 3), np.float32)
+    counts = np.zeros(groups, np.int32)
+    vectors[0], counts[0] = (1e-3, 1e-3, 0), 2
+    vectors[1 : 2 * half : 2, 0], counts[1 : 2 * half : 2] = weights * 1024, pods
+    vectors[2 : 2 * half + 1 : 2, 1], counts[2 : 2 * half + 1 : 2] = weights[order] * 4096, pods[order]
+    capacity = np.zeros((num_types, 3), np.float32)
+    capacity[:3] = ((1e6, 0.5, 1), (0.5, 1e6, 1), (1024, 4096, 1))
+    valid = np.zeros(num_types, bool)
+    valid[:3] = True
+    prices = np.zeros(num_types, np.float32)
+    prices[:3] = (1, 1, 1e6)
+    return vectors, counts, capacity, capacity.copy(), valid, prices
+
+
+def tied_weight_levels_problem(seed: int, groups: int, levels: int):
+    """Two identical types that may take different halves of the groups
+    (allow masks), each half the same (vector, count) pairs in another
+    order: the exact weighted of both types is equal, so which one the
+    first cost round takes is decided by the order and rounding of
+    fills @ group_weight alone (equal prices, no penalty, one node holds
+    every pod). 16 types: from 9 rows of levels x types on, XLA vectorises
+    the dot as `ops/pack_kernel._weighted_sums` describes."""
+    rng = np.random.default_rng(seed)
+    types, dims = 16, 3
+    half = groups // 2
+    first, second = np.split(rng.permutation(groups), 2)
+    sizes = rng.uniform(1, 10, half).astype(np.float32)
+    pods = rng.choice([3, 5, 7, 9, 11, 13], half).astype(np.int32)
+    order = rng.permutation(half)
+    vectors = np.zeros((groups, dims), np.float32)
+    counts = np.zeros(groups, np.int32)
+    vectors[first, 0], counts[first] = sizes, pods
+    vectors[second, 0], counts[second] = sizes[order], pods[order]
+    capacity = np.zeros((types, dims), np.float32)
+    capacity[:3] = 2.0**20
+    valid = np.zeros(types, bool)
+    valid[:3] = True
+    prices = np.zeros(types, np.float32)
+    prices[:3] = 1.0
+    # Type 2, the last valid one, sets the weights and may take nothing.
+    allow = np.zeros((levels, groups, types), bool)
+    allow[:, first, 0] = True
+    allow[:, second, 1] = True
+    return (vectors, np.tile(counts, (levels, 1)), capacity, capacity.copy(), valid, prices, allow,
+            np.zeros((levels, groups, types), np.float32), np.zeros((groups, groups), bool),
+            np.full(groups, NODE_CAP_NONE, np.int32))
+
+
+# Group counts of the tied-weight cases: one chain of fused multiply-adds
+# below 64, the unrolled and the looped vectorised orders from 64 on.
+TIED_GROUPS = (16, 64, 128, 256)
+
+
+def tied_weight_cases():
+    """(name, K2 problem or None, K6 operands or None) the kernels are held
+    to their plain versions on where the order of `weighted` decides the
+    round: three seeds a group count, K6 at one level and at four."""
+    for groups in TIED_GROUPS:
+        for seed in range(3):
+            yield f"K2-G{groups}-s{seed}", tied_weight_pack_problem(seed, groups), None
+            for levels in (1, 4):
+                yield (f"K6-G{groups}-L{levels}-s{seed}", None,
+                       tied_weight_levels_problem(seed, groups, levels))
+
+
+def k6_cases():
+    """(name, operands, mode) K6 is held to its plain version on: every
+    shape of K6_SHAPES in both modes."""
+    for seed, (groups, types, levels, real) in enumerate(K6_SHAPES):
+        operands = k6_problem(seed, groups, types, levels, real)
+        for mode in ("ffd", "cost"):
+            yield f"G{groups}-T{types}-L{levels}-{mode}", operands, mode
+
+
+def many_shapes_pods(num_pods: int = 12_000, num_shapes: int = 1_100, seed: int = 5, package=None):
+    """num_pods pending pods in num_shapes distinct (cpu, memory) shapes,
+    cpu in 250m steps up to 4 cores and memory in 128Mi steps up to 16Gi,
+    counts as even as the division allows."""
+    if package is None:
+        package = port_package()
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(16 * 128, num_shapes, replace=False)
+    shapes = [(int(c // 128 + 1) * 250, int(c % 128 + 1) * 128) for c in cells]
+    counts = np.full(num_shapes, num_pods // num_shapes)
+    counts[: num_pods % num_shapes] += 1
+    return [
+        package.PodSpec(name=f"pod-{cpu}m-{mem}Mi-{i}", requests={"cpu": f"{cpu}m", "memory": f"{mem}Mi"},
+                        unschedulable=True)
+        for (cpu, mem), count in zip(shapes, counts)
+        for i in range(int(count))
+    ]
+
+
+def sparse_pack_problem(seed: int, num_groups: int, num_types: int, real_groups: int):
+    """random_pack_problem's family with only the first real_groups groups
+    holding pods (a few each), the rest padding: the launch plan of the
+    padded size, at a cost the plain version can follow."""
+    rng = np.random.default_rng(seed)
+    real_groups = min(real_groups, num_groups)
+    vectors, counts, capacity, total, valid, prices = random_pack_problem(rng, 16, num_types)
+    vectors = np.zeros((num_groups, 8), np.float32)
+    vectors[:real_groups, 0] = np.sort(rng.integers(1, 17, real_groups))[::-1] * 250
+    vectors[:real_groups, 1] = rng.integers(1, 33, real_groups) * 256
+    vectors[:real_groups, 2] = 1
+    counts = np.zeros(num_groups, np.int32)
+    counts[:real_groups] = rng.integers(1, 8, real_groups)
+    return vectors, counts, capacity, total, valid, prices
 
 
 # --- consolidation: a cluster of running nodes, by the controller's rules ---
@@ -673,6 +961,45 @@ def k7_needed_bytes(operands) -> int:
     return read + written
 
 
+def k6_needed(operands, mode: str = "cost"):
+    """(bytes, operations) K6 must spend on these operands: every input read
+    once and the output written once; per distinct level and round, the
+    scan of each group still holding pods over the types that may take it
+    (a division, a minimum, a multiply and a subtract per axis the group
+    requests, an add and a floor), counted from the level's own rounds (its
+    plain version, one level at a time). A padded level repeats the last
+    real one and adds no work of its own."""
+    import torch
+
+    from karpenter_tpu_torch.ops import pack_kernel
+
+    vectors, counts, capacity, total, valid, prices, allow, penalty, conflict, node_cap = operands
+    num_levels, num_groups = counts.shape
+    read = sum(t.numel() * t.element_size() for t in operands if t is not total)
+    written = 4 * pack_kernel.level_pack_words(num_groups, num_levels)
+    fits = (vectors[:, None, :] <= capacity[None, :, :] + 1e-6).all(dim=-1)
+    usable = allow & fits[None] & valid[None, None, :]
+    # Per group, its usable types times the scan's operations a type.
+    scan = (usable.sum(dim=2) * (4 * (vectors > 0).sum(dim=1) + 2)[None, :]).long().cpu().numpy()
+    distinct = []
+    ops = 0
+    for level in range(num_levels):
+        if any(torch.equal(counts[level], counts[other]) and torch.equal(allow[level], allow[other])
+               and torch.equal(penalty[level], penalty[other]) for other in distinct):
+            continue
+        distinct.append(level)
+        one = [vectors, counts[level : level + 1], capacity, total, valid, prices,
+               allow[level : level + 1], penalty[level : level + 1], conflict, node_cap]
+        rounds = plain_levels(one, mode).rounds
+        remaining = torch.where(usable[level].any(dim=1), counts[level], 0).long().cpu().numpy()
+        fills = rounds.round_fill.long().cpu().numpy()
+        repl = rounds.round_repl.long().cpu().numpy()
+        for r in range(int(rounds.num_rounds)):
+            ops += int(scan[level][remaining > 0].sum())
+            remaining -= repl[r] * fills[r]
+    return read + written, ops
+
+
 def device_ms_per_call(fn, kernel_names, reps: int = 20) -> float:
     """torch.profiler's device time of the named kernels per call of `fn`:
     the kernels' own time on the card, without the host's enqueue. The
@@ -792,6 +1119,232 @@ def consolidate_phase(catalog, device) -> dict:
     return {"operands": k7_operands, "axes": k7_axes, "launches": sweep_launches, "max_abs_err": k7_err}
 
 
+def level_packs_equal(a, b) -> bool:
+    import torch
+
+    return (
+        rounds_equal(a.rounds, b.rounds) and torch.equal(a.chosen_level, b.chosen_level)
+        and torch.equal(a.group_level, b.group_level) and torch.equal(a.level_unsched, b.level_unsched)
+    )
+
+
+def level_pack_abs_err(a, b) -> float:
+    fields = (a.chosen_level, a.group_level, a.level_unsched)
+    others = (b.chosen_level, b.group_level, b.level_unsched)
+    return max([rounds_abs_err(a.rounds, b.rounds)]
+               + [float((x.long() - y.long()).abs().max()) for x, y in zip(fields, others)])
+
+
+def plain_levels(operands, mode):
+    """K6's plain version on pack_kernel_levels' ten operands (it takes no
+    `total`)."""
+    from karpenter_tpu_torch.ops import pack_kernel
+
+    vectors, counts, capacity, _, valid, prices, allow, penalty, conflict, node_cap = operands
+    return pack_kernel._pack_levels_ref(
+        vectors, counts, capacity, valid, prices, allow, penalty, conflict, node_cap, mode=mode)
+
+
+def mirror_agrees(host, pack, num_sub: int, num_levels: int) -> bool:
+    """The numpy mirror's HostLevelPack (on the unpadded operands) against a
+    padded LevelPack: the chosen level, its rounds, unschedulable and
+    overflow, every real level's unschedulable, each real group's first
+    feasible level (none: num_levels)."""
+    rounds = pack.rounds
+    count = int(rounds.num_rounds)
+    if host.chosen_level != int(pack.chosen_level) or len(host.rounds) != count:
+        return False
+    for r, (t, fill, repl) in enumerate(host.rounds):
+        if (t != int(rounds.round_type[r]) or repl != int(rounds.round_repl[r])
+                or not np.array_equal(fill, rounds.round_fill[r, :num_sub].cpu().numpy())):
+            return False
+    group_level = np.minimum(pack.group_level[:num_sub].cpu().numpy(), num_levels)
+    return (
+        np.array_equal(host.unschedulable, rounds.unschedulable[:num_sub].cpu().numpy())
+        and host.overflow == bool(rounds.overflow)
+        and np.array_equal(host.group_level, group_level)
+        and np.array_equal(host.level_unsched, pack.level_unsched[:num_levels, :num_sub].cpu().numpy())
+    )
+
+
+def constrained_phase(catalog, device, num_pods: int = NUM_PODS, mirror_modes=("cost", "ffd")) -> dict:
+    """The constrained provisioning solve through the entry points the
+    provisioning controller calls: Scheduler(cluster).solve -> one schedule
+    that needs the compiler -> constraints.solve.solve_constrained with
+    CostSolver() (K6 on `device`). Checks the chosen level, every pod placed
+    once or reported unschedulable, the zones' skew, $/hr against the CPU
+    run, and K6 at this size against its plain version (both modes) and the
+    numpy mirror; times the layers of one warm solve. Returns K6's padded
+    operands, launches a solve and differences."""
+    import torch
+
+    from karpenter_tpu_torch.api.provisioner import Provisioner, ProvisionerSpec
+    from karpenter_tpu_torch.constraints import compiler
+    from karpenter_tpu_torch.constraints import solve as constrained
+    from karpenter_tpu_torch.constraints.mirror import pack_levels_host
+    from karpenter_tpu_torch.controllers.cluster import Cluster
+    from karpenter_tpu_torch.controllers.scheduling import Scheduler
+    from karpenter_tpu_torch.convert import upload_packed
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.ops import pack_kernel
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    pods = constrained_pods(num_pods)
+    cluster = Cluster()
+    provisioner = Provisioner(name="default", spec=ProvisionerSpec())
+    schedules = Scheduler(cluster).solve(provisioner, pods)
+    check(len(schedules) == 1 and schedules[0].needs_compiler,
+          f"the spread schedule did not reach the compiler: {len(schedules)} schedules")
+    schedule = schedules[0]
+    card_solver = solver.CostSolver(device=device)
+
+    def solve():
+        return constrained.solve_constrained(card_solver, schedule, catalog, [], cluster=cluster)
+
+    pack_kernel.pack_kernel_levels.launches = 0
+    synchronize(device)
+    start = time.perf_counter()
+    result, decision = solve()
+    first_ms = (time.perf_counter() - start) * 1e3
+    launches = pack_kernel.pack_kernel_levels.launches
+    if torch.device(device).type == "cuda":
+        check(launches == 1, f"the constrained solve launched K6 {launches} times")
+    check(decision.chosen_level == 1, f"the constrained solve chose level {decision.chosen_level}, not 1")
+    check(placed_once_or_unschedulable(result, pods),
+          "the constrained solve did not place every pod once or report it unschedulable")
+    per_zone, skew = zone_skew(result)
+    check(skew <= 1, f"the zones' skew is {skew}: {per_zone}")
+    card_cost = result.projected_cost()
+    warm_ms = []
+    for _ in range(10):
+        start = time.perf_counter()
+        solve()
+        warm_ms.append((time.perf_counter() - start) * 1e3)
+    cpu_result, cpu_decision = constrained.solve_constrained(
+        solver.CostSolver(device="cpu"), schedule, catalog, [], cluster=cluster)
+    cpu_cost = cpu_result.projected_cost()
+    check(cpu_decision.chosen_level == decision.chosen_level, "the CPU run chose another level")
+    cost_rel = abs(card_cost - cpu_cost) / cpu_cost
+    check(cost_rel <= 1e-4, f"$/hr differs between the card ({card_cost}) and the CPU ({cpu_cost})")
+
+    # One warm solve layer by layer, each bracketed by device syncs.
+    layers = {}
+
+    def timed(name, fn):
+        synchronize(device)
+        start = time.perf_counter()
+        out = fn()
+        synchronize(device)
+        layers[name] = (time.perf_counter() - start) * 1e3
+        return out
+
+    groups = timed("encode", lambda: group_pods(list(schedule.pods)))
+    fleet = build_fleet(catalog, schedule.constraints, schedule.pods, [],
+                        pods_need=groups.vectors.max(axis=0))
+    compiled = timed("compile", lambda: compiler.compile_constraints(
+        schedule, groups, fleet, cluster, cache=compiler.CompilerCache()))
+    padded = timed("pad", lambda: constrained.pad_levels(compiled, fleet))
+    operands = timed("h2d", lambda: upload_packed(padded, device))
+    pack = timed("k6", lambda: pack_kernel.pack_kernel_levels(*operands, mode="cost"))
+    host = timed("fetch", lambda: pack_kernel.level_pack_to_host(pack))
+    num_sub, num_levels = compiled.num_subgroups, compiled.num_levels
+    rounds = [
+        (int(host.rounds.round_type[r]), host.rounds.round_fill[r, :num_sub], int(host.rounds.round_repl[r]))
+        for r in range(int(host.rounds.num_rounds))
+    ]
+    timed("decode", lambda: constrained.decode_constrained(
+        rounds, host.rounds.unschedulable[:num_sub], compiled, int(host.chosen_level), fleet))
+    g_pad, t_pad, l_pad = operands[0].shape[0], operands[2].shape[0], operands[1].shape[0]
+    print(f"  constrained sizes: G'={num_sub} padded {g_pad}, T={fleet.num_types} padded {t_pad}, "
+          f"L={num_levels} padded {l_pad}, mirror modes {','.join(mirror_modes)}")
+    if num_pods == NUM_PODS:
+        # 16 shapes x 4 spread domains (the three zones and the missing
+        # zone the preference names), 400 types, 3 ladder levels.
+        check((num_sub, g_pad, t_pad, l_pad) == (64, 64, 512, 4),
+              f"the constrained sizes are G'={num_sub}/{g_pad}, T={t_pad}, L={l_pad}")
+
+    # K6 at this size against its plain version in both modes, and the
+    # mirror on the unpadded operands.
+    k6_err = 0.0
+    packs = {}
+    for mode in ("ffd", "cost"):
+        got = pack_kernel.pack_kernel_levels(*operands, mode=mode)
+        want = plain_levels(operands, mode)
+        synchronize(device)
+        check(level_packs_equal(got, want), f"K6 {mode} differs from its plain version on the constrained path")
+        k6_err = max(k6_err, level_pack_abs_err(got, want))
+        packs[mode] = got
+    for mode in mirror_modes:
+        mirror = pack_levels_host(
+            compiled.vectors, compiled.level_counts, fleet.capacity, np.ones(fleet.num_types, bool),
+            fleet.prices, compiled.allow, compiled.penalty, compiled.conflict, compiled.node_cap,
+            mode=mode)
+        check(mirror_agrees(mirror, packs[mode], num_sub, num_levels),
+              f"K6 {mode} differs from the numpy mirror on the constrained path")
+    phase(
+        "constrained", pods=len(pods), schedules=len(schedules), chosen_level=decision.chosen_level,
+        description=repr(decision.description), nodes=result.node_count,
+        unschedulable=len(result.unschedulable),
+        per_zone=json.dumps(per_zone, sort_keys=True, separators=(",", ":")), skew=skew,
+        cost_per_hr=f"{card_cost:.6f}", cpu_cost_per_hr=f"{cpu_cost:.6f}", cost_rel_diff=f"{cost_rel:.3e}",
+        shape=f"G={g_pad},T={t_pad},L={l_pad}", k6_launches_per_solve=launches, k6_max_abs_err=k6_err,
+        first_solve_ms=f"{first_ms:.3f}", p50_ms=f"{np.percentile(warm_ms, 50):.3f}",
+        max_ms=f"{max(warm_ms):.3f}", **{f"{name}_ms": f"{ms:.3f}" for name, ms in layers.items()},
+    )
+    return {"operands": operands, "launches": launches, "max_abs_err": k6_err, "packs": packs}
+
+
+def large_shapes_phase(catalog, device, num_pods: int = 12_000, num_shapes: int = 1_100) -> dict:
+    """CostSolver on `device` over a schedule of many distinct shapes (padded
+    G 2,048 at the defaults): every pod placed once; K2's rounds equal the
+    plain version's on the CPU (the same dispatch with device="cpu"), K3's
+    objective within the LP tolerance of its plain version on the card.
+    Returns the padded main-path operands."""
+    import torch
+
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.convert import fused_args_from_numpy
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.ops import cuda_kernels, pack_kernel, score_kernel
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    pods = many_shapes_pods(num_pods, num_shapes)
+    start = time.perf_counter()
+    result = solver.CostSolver(device=device).solve(pods, catalog, Constraints())
+    solve_ms = (time.perf_counter() - start) * 1e3
+    check(all_pods_placed_once(result, pods), "the many-shapes solve did not place every pod exactly once")
+    groups = group_pods(pods)
+    fleet = build_fleet(catalog, Constraints(), pods, pods_need=groups.vectors.max(axis=0))
+    args = (groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
+    card = solver.fetch_plan(solver.cost_solve_dispatch(*args, device=device))
+    cpu = solver.fetch_plan(solver.cost_solve_dispatch(*args, device="cpu"))
+    for name in ("rounds_ffd", "rounds_cost"):
+        for a, b in zip(getattr(card, name), getattr(cpu, name)):
+            check(np.array_equal(np.asarray(a), np.asarray(b)),
+                  f"K2 {name} differs from the plain version on the many-shapes schedule")
+    padded = solver.pad_kernel_args(*args)
+    vectors, counts, capacity, total, valid, prices = fused_args_from_numpy(*padded, device=device)
+    effective = cuda_kernels._dominance_prices_ref(capacity, torch.where(valid, prices, torch.inf))
+    solvable = torch.where(score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1), counts, 0)
+    lp_args = (vectors, solvable, capacity, valid, effective)
+    got = score_kernel.lp_relax(*lp_args, steps=300)
+    want = score_kernel.lp_relax_body(*lp_args, steps=300)
+    synchronize(device)
+    lp_rel = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
+    check(lp_rel <= LP_OBJECTIVE_RTOL, f"K3 objective differs on the many-shapes schedule: {lp_rel:.3e}")
+    k2_plan = pack_kernel.pack_launch_plan(vectors.shape[0], capacity.shape[0], vectors.shape[1])
+    k3_plan = score_kernel.lp_launch_plan(vectors.shape[0], capacity.shape[0], vectors.shape[1])
+    phase(
+        "large_shapes", pods=len(pods), shapes=groups.num_groups,
+        shape=f"G={vectors.shape[0]},T={capacity.shape[0]}", nodes=result.node_count,
+        cost_per_hr=f"{result.projected_cost():.6f}", solve_ms=f"{solve_ms:.3f}",
+        rounds_ffd=int(card.rounds_ffd.num_rounds), rounds_cost=int(card.rounds_cost.num_rounds),
+        k3_objective_rel_err=f"{lp_rel:.3e}", k2_plan=f"{k2_plan}".replace(" ", ""),
+        k3_plan=f"{k3_plan}".replace(" ", ""),
+    )
+    return {"args": (vectors, counts, capacity, total, valid, effective), "lp": lp_args}
+
+
 def main() -> int:
     import torch
 
@@ -800,7 +1353,7 @@ def main() -> int:
         return 2
 
     from karpenter_tpu_torch.api.provisioner import Constraints
-    from karpenter_tpu_torch.convert import fused_args_from_numpy
+    from karpenter_tpu_torch.convert import fused_args_from_numpy, upload_packed
     from karpenter_tpu_torch.models import solver
     from karpenter_tpu_torch.ops import (
         consolidate_kernel, cuda_build, cuda_kernels, native, pack_kernel, score_kernel,
@@ -822,7 +1375,7 @@ def main() -> int:
     # library (g++) meanwhile.
     libraries = [
         cuda_kernels.LIBRARY, pack_kernel.LIBRARY, score_kernel.LIBRARY,
-        pack_kernel.COMPACT_LIBRARY, consolidate_kernel.LIBRARY,
+        pack_kernel.COMPACT_LIBRARY, consolidate_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
     ]
     build_s = cuda_build.build_all(libraries)
     for library in libraries:
@@ -877,6 +1430,7 @@ def main() -> int:
           "the K2 shapes do not cover every launch plan")
     problems = [random_pack_problem(rng, g, t) for g, t in pack_shapes]
     problems.append(tuple(padded[:5]) + (main_prices.cpu().numpy(),))
+    problems += [problem for _, problem, _ in tied_weight_cases() if problem is not None]
     compact_pairs = []
     for problem in problems:
         args = fused_args_from_numpy(*problem, device=device)
@@ -965,8 +1519,31 @@ def main() -> int:
     print(f"  K3 on the 50k problem: objective {main_obj_err:.3e} relative, assignment "
           f"max abs {main_assign_err:.3e} pods (degenerate), row sums {main_row_err:.3e} pods off the counts")
     check(main_obj_err <= LP_OBJECTIVE_RTOL, f"K3 objective differs on the 50k problem: {main_obj_err:.3e}")
+    # K6 on every case of k6_cases, bit for bit; two launches alike.
+    k6_plans = [pack_kernel.levels_launch_plan(g, t, 8) for g, t, _, _ in K6_SHAPES]
+    check({p.tables_in_shared for p in k6_plans} == {True, False}
+          and {p.placed_in_registers for p in k6_plans} == {True, False}
+          and any(t > p.threads for p, (_, t, _, _) in zip(k6_plans, K6_SHAPES))
+          and any(t % 32 for _, t, _, _ in K6_SHAPES),
+          "the K6 shapes do not cover every launch plan")
+    k6_cases_run = 0
+    k6_err = 0.0
+    tied = [(name, operands, "cost") for name, _, operands in tied_weight_cases() if operands is not None]
+    for name, operands, mode in list(k6_cases()) + tied:
+        tensors = upload_packed(list(operands), device)
+        got = pack_kernel.pack_kernel_levels(*tensors, mode=mode)
+        want = plain_levels(tensors, mode)
+        torch.cuda.synchronize()
+        check(level_packs_equal(got, want), f"K6 differs from its plain version on {name}")
+        k6_err = max(k6_err, level_pack_abs_err(got, want))
+        k6_cases_run += 1
+        if k6_cases_run == 4:
+            again = pack_kernel.pack_kernel_levels(*tensors, mode=mode)
+            torch.cuda.synchronize()
+            check(level_packs_equal(got, again), f"two launches of K6 differ on {name}")
     phase("kernels", k1_cases=k1_cases, k2_cases=k2_cases, k3_cases=k3_cases, k4_cases=k4_cases,
-          k1_max_abs_err=k1_err, k2_max_abs_err=k2_err, k3_max_abs_err=k3_err, k4_max_abs_err=k4_err,
+          k6_cases=k6_cases_run, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err, k3_max_abs_err=k3_err,
+          k4_max_abs_err=k4_err, k6_max_abs_err=k6_err,
           k3_objective_rel_err=f"{k3_obj_err:.3e}", k3_main_objective_rel_err=f"{main_obj_err:.3e}")
 
     # 4. the main path, through the entry point a user calls.
@@ -1056,7 +1633,33 @@ def main() -> int:
     k7_operands = sweep["operands"]
     c_pad, g_pad, dims_c = k7_operands[0].shape
 
-    # 8. kernel timing at the main path's shapes.
+    # 8. the constrained path: the main path's pods under a zonal spread
+    # and two preferences, through Scheduler and solve_constrained.
+    levels = constrained_phase(catalog, device)
+
+    # 9. many shapes: K2 and K3 past the sizes they once refused.
+    large = large_shapes_phase(catalog, device)
+    plan_cases = 0
+    plan_err = 0.0
+    for num_groups_x, num_types_x in ((2048, 512), (16, 8192)):
+        args = fused_args_from_numpy(*sparse_pack_problem(3, num_groups_x, num_types_x, 200), device=device)
+        pair = pack_kernel.pack_kernel_pair(*args)
+        for mode, got in zip(("ffd", "cost"), pair):
+            want = pack_kernel._pack_kernel_ref(*args, mode=mode)
+            torch.cuda.synchronize()
+            check(rounds_equal(got, want), f"K2 {mode} differs from its plain version at G={num_groups_x} T={num_types_x}")
+            plan_err = max(plan_err, rounds_abs_err(got, want))
+            plan_cases += 1
+    for shape in ((2048, 512), (16, 8192), (2048, 2048)):
+        lp_args = lp_inputs(LP_SEEDS[0], shape, device)
+        k3_check(lp_args, score_kernel.lp_relax(*lp_args, steps=300), f"launch plan at {shape}")
+        plan_cases += 1
+    print(f"  launch plans past the old limits: {plan_cases} cases, K2 max abs err {plan_err}, "
+          f"K2 at G 2048 T 512: {pack_kernel.pack_launch_plan(2048, 512, 8)}, "
+          f"K2 at T 8192: {pack_kernel.pack_launch_plan(16, 8192, 8)}, "
+          f"K3 at G 2048 T 2048: {score_kernel.lp_launch_plan(2048, 2048, 8)}")
+
+    # 10. kernel timing at the main path's shapes.
     num_types, dims = capacity.shape
     num_groups = vectors.shape[0]
     valid_prices = torch.where(valid, prices, torch.inf)
@@ -1089,13 +1692,15 @@ def main() -> int:
     k2_bytes = 4 * (num_groups * dims + num_groups + num_types * dims + num_types) + num_types + 2 * 4 * words
     # Operations this run's data needs: per mode and round, the group scan
     # over every valid type for the groups still holding pods (a division,
-    # a minimum, a multiply and a subtract per axis, an add and a floor).
+    # a minimum, a multiply and a subtract per axis the group requests, an
+    # add and a floor).
     valid_types = int(valid.sum())
+    scan = valid_types * (4 * (vectors[: groups.num_groups] > 0).sum(dim=1) + 2).long().cpu().numpy()
     k2_ops = 0
     for plan_rounds in (gpu_plan.rounds_ffd, gpu_plan.rounds_cost):
         remaining = groups.counts.astype(np.int64).copy()
         for r in range(int(plan_rounds.num_rounds)):
-            k2_ops += valid_types * int((remaining > 0).sum()) * (4 * dims + 2)
+            k2_ops += int(scan[remaining > 0].sum())
             remaining -= plan_rounds.round_repl[r] * plan_rounds.round_fill[r, : groups.num_groups]
 
     def bound(byte_count, op_count):
@@ -1202,9 +1807,35 @@ def main() -> int:
             "bound_by": k7_by, "library_ms": None,
         },
     ]
-    phase("timing", shapes=f"T={num_types},R={dims},G={num_groups}", k7_shapes=f"C={c_pad},G={g_pad},N={k7_bins},T={k7_types}")
+    # K6 at the constrained path's shapes, in the mode the solve runs.
+    k6_operands = levels["operands"]
+    k6_call = functools.partial(pack_kernel.pack_kernel_levels, *k6_operands, mode="cost")
+    k6_event_ms = time_cuda(k6_call, reps=20)
+    k6_ms = device_ms_per_call(k6_call, ["pack_levels_kernel", "select_kernel"], reps=20)
+    k6_plain_ms = time_cuda(lambda: plain_levels(k6_operands, "cost"), reps=3, warmup=1)
+    k6_bytes, k6_ops = k6_needed(k6_operands)
+    k6_bound, k6_by = bound(k6_bytes, k6_ops)
+    kernels.append({
+        "name": "pack_kernel_levels", "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/pack_levels.cu",
+        "replaces": "karpenter_tpu/ops/pack_kernel.py:446",
+        "launches": levels["launches"], "max_abs_err": max(levels["max_abs_err"], k6_err),
+        "ms": k6_ms, "event_ms": k6_event_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound,
+        "bound_by": k6_by, "library_ms": None,
+    })
+    # K2 and K3 at the many-shapes schedule's padded G 2,048: milliseconds
+    # a launch, so CUDA events around the wrapper.
+    big_args = large["args"]
+    k2_big_ms = time_cuda(functools.partial(pack_kernel.pack_kernel_pair, *big_args), reps=5, warmup=1)
+    k3_big_ms = time_cuda(functools.partial(score_kernel.lp_relax, *large["lp"], steps=lp_steps),
+                          reps=5, warmup=1)
+    print(f"  at G={big_args[0].shape[0]} T={big_args[2].shape[0]}: K2 pair {k2_big_ms:.4f} ms, "
+          f"K3 {k3_big_ms:.4f} ms (CUDA events)")
+    phase("timing", shapes=f"T={num_types},R={dims},G={num_groups}", k7_shapes=f"C={c_pad},G={g_pad},N={k7_bins},T={k7_types}",
+          k6_shapes="G={},T={},L={}".format(k6_operands[0].shape[0], k6_operands[2].shape[0], k6_operands[1].shape[0]),
+          k2_g2048_ms=f"{k2_big_ms:.4f}", k3_g2048_ms=f"{k3_big_ms:.4f}")
 
-    # 9. where one warm solve's time goes, layer by layer, and the device's
+    # 11. where one warm solve's time goes, layer by layer, and the device's
     # busy share of a solve.
     layers = layer_breakdown(groups, fleet, device)
     phase("layers", **{name: f"{ms:.3f}" for name, ms in layers.items()})

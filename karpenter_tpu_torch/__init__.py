@@ -9,9 +9,16 @@ Layout (a module's counterpart in the reference has the same name):
   api/            typed spec model: pods, provisioner constraints, requirements
   cloudprovider/  InstanceType / Offering
   ops/            encode, host FFD, native host kernels, the column-LP mix;
-                  K1 dominance pricing (cuda_kernels), K2 the pack round loop
-                  and plan compaction (pack_kernel), K3 the LP relaxation
-                  (score_kernel); csrc/ holds the CUDA and host C++ sources
+                  K1 dominance pricing (cuda_kernels), K2 the pack round loop,
+                  plan compaction and K6 the constrained [L, G, T] dispatch
+                  (pack_kernel), K3 the LP relaxation (score_kernel), K7 the
+                  consolidation counterfactual (consolidate_kernel); csrc/
+                  holds the CUDA and host C++ sources
+  constraints/    the constraint compiler, its relaxation ladder, the numpy
+                  mirror of K6 and the constrained solve
+  controllers/    the cluster store and the scheduler that groups pods into
+                  schedules (copies of the reference's host modules)
+  utils/          logging, metrics, clocks, crash points, write fences
   models/         the solvers: CostSolver and the host FFD solvers
   device.py       the one device verdict: the card unless "cpu" is asked for
   convert.py      the encoded problem between numpy and torch

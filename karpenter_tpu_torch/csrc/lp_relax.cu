@@ -58,9 +58,12 @@
 //     and the mask in its own shared memory, one cell per thread and slot
 //     (cell k of thread i at k * threads + i: no bank conflicts). Past the
 //     227 KB a block may hold at every cluster size, the slices go to a
-//     global scratch buffer of the same layout. The wrapper picks the
-//     cluster size, the threads and the path from the sizes alone
-//     (ops/score_kernel.lp_launch_plan).
+//     global scratch buffer of the same layout. Past thousands of groups
+//     the group tables (the vectors, counts, reductions, rows and the two
+//     exchange tables) do not fit either: they go to a second global
+//     scratch buffer, per block, with one copy of each exchange table for
+//     the whole cluster. The wrapper picks the cluster size, the threads
+//     and both paths from the sizes alone (ops/score_kernel.lp_launch_plan).
 //   * Exchanges through distributed shared memory: each block sums its [G]
 //     partials over its warps in warp order and writes the result into its
 //     row of every block's gather table (remote stores; nobody waits on a
@@ -68,7 +71,10 @@
 //     rank order, so every block holds the same bits and the result is the
 //     same from run to run: no atomics. The row dot and the softmax use two
 //     tables in turn: a block writes a table again only after the next
-//     barrier, which every reader of the table has reached.
+//     barrier, which every reader of the table has reached. With the tables
+//     in global scratch, a block writes its row once into the one global
+//     table and fences before the barrier (whose arrive releases and whose
+//     wait acquires at cluster scope); the order of the sums is the same.
 //   * Tensor cores do not serve here: the products are [T, G] x [G, R] at G
 //     16 and R 8, and TF32 keeps ten mantissa bits, which the objective's
 //     rtol of 1e-4 cannot absorb on demands of tens of thousands of
@@ -142,31 +148,46 @@ __host__ __device__ inline size_t round16(size_t bytes) { return (bytes + 15) & 
 
 // Word offsets of the tables at the front of dynamic shared memory, then
 // the bytes of one block's state (in shared memory after the tables, or in
-// the caller's scratch). ops/score_kernel._lp_layout mirrors it.
+// the caller's scratch). With the group tables in global scratch (the
+// G-sized ones: vectors, counts, red_sum, red_max and the rows), their
+// offsets are into the block's slice of that scratch (group_words a block),
+// and the exchange tables follow all the slices, one copy for the cluster.
+// ops/score_kernel._lp_layout mirrors it.
 struct Layout {
   size_t vectors, counts, cap, price, requested, column, red_sum, red_max, row_dot,
       row_ref, row_total, gather_dot, gather_soft, gather_obj, table_bytes, cells,
-      state_bytes;
+      state_bytes, group_words, global_table_bytes;
 };
 
 __host__ __device__ inline Layout make_layout(int groups, int dims, int types_per_block,
-                                              int threads, int group_lanes, int cluster) {
+                                              int threads, int group_lanes, int cluster,
+                                              bool tables_in_shared = true) {
   Layout l;
   const size_t warps = threads / 32;
-  size_t w = 0;
-  l.vectors = w;     w += size_t(groups) * dims;
-  l.counts = w;      w += groups;
+  size_t w = 0;  // shared words
+  size_t g = 0;  // a block's words of global group tables
+  size_t& at = tables_in_shared ? w : g;
+  l.vectors = at;    at += size_t(groups) * dims;
+  l.counts = at;     at += groups;
   l.cap = w;         w += size_t(types_per_block) * dims;
   l.price = w;       w += types_per_block;
   l.requested = w;   w += kMaxDims + 1;
   l.column = w;      w += size_t(types_per_block) * kMaxDims;
-  l.red_sum = w;     w += warps * groups;
-  l.red_max = w;     w += warps * groups;
-  l.row_dot = w;     w += groups;
-  l.row_ref = w;     w += groups;
-  l.row_total = w;   w += groups;
-  l.gather_dot = w;  w += size_t(cluster) * groups;
-  l.gather_soft = w; w += 2 * size_t(cluster) * groups;
+  l.red_sum = at;    at += warps * groups;
+  l.red_max = at;    at += warps * groups;
+  l.row_dot = at;    at += groups;
+  l.row_ref = at;    at += groups;
+  l.row_total = at;  at += groups;
+  l.group_words = g;
+  if (tables_in_shared) {
+    l.gather_dot = w;  w += size_t(cluster) * groups;
+    l.gather_soft = w; w += 2 * size_t(cluster) * groups;
+  } else {
+    l.gather_dot = size_t(cluster) * g;
+    l.gather_soft = l.gather_dot + size_t(cluster) * groups;
+  }
+  l.global_table_bytes =
+      tables_in_shared ? 0 : sizeof(float) * (size_t(cluster) * (g + 3 * size_t(groups)));
   l.gather_obj = w;  w += cluster;
   l.table_bytes = round16(sizeof(float) * w);
   const int type_slots = threads / group_lanes;
@@ -219,6 +240,9 @@ __device__ inline float sum_over_group_lanes(float value, int group_lanes) {
   return value;
 }
 
+// kTablesInShared is known at compile time so that the hot loops' table
+// reads are shared-memory loads, not generic ones.
+template <bool kTablesInShared>
 __global__ void __launch_bounds__(kMaxThreads)
 lp_relax_kernel(const float* __restrict__ vectors_in,
                 const int* __restrict__ counts_in,
@@ -230,7 +254,8 @@ lp_relax_kernel(const float* __restrict__ vectors_in,
                 float* __restrict__ assignment,  // [G, T]
                 float* __restrict__ nodes_out,   // [T]
                 float* __restrict__ objective,   // [1]
-                unsigned char* __restrict__ scratch) {
+                unsigned char* __restrict__ scratch,
+                float* __restrict__ table_scratch) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char shared_raw[];
   const int groups = shape.groups;
@@ -241,12 +266,18 @@ lp_relax_kernel(const float* __restrict__ vectors_in,
   const int warps = threads / 32;
   const int blocks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const Layout layout =
-      make_layout(groups, dims, shape.types_per_block, threads, lanes_q, blocks);
+  constexpr bool tables_in_shared = kTablesInShared;
+  const Layout layout = make_layout(groups, dims, shape.types_per_block, threads, lanes_q,
+                                    blocks, tables_in_shared);
 
   float* table = reinterpret_cast<float*>(shared_raw);
-  float* vectors = table + layout.vectors;
-  float* counts = table + layout.counts;
+  // The group tables: in shared memory, or in this block's slice of the
+  // global scratch; the exchange tables there are the cluster's one copy.
+  float* group_table =
+      tables_in_shared ? table : table_scratch + size_t(rank) * layout.group_words;
+  float* exchange_table = tables_in_shared ? table : table_scratch;
+  float* vectors = group_table + layout.vectors;
+  float* counts = group_table + layout.counts;
   float* cap = table + layout.cap;  // max(K, 1e-3) of this block's types
   float* price = table + layout.price;
   // The axes some group requests (v != 0), in ascending order, then their
@@ -254,18 +285,37 @@ lp_relax_kernel(const float* __restrict__ vectors_in,
   int* requested = reinterpret_cast<int*>(table + layout.requested);
   // [TB, 8]: D, then dD, of this block's types on the requested axes.
   float* column = table + layout.column;
-  float* red_sum = table + layout.red_sum;  // [warps, G]
-  float* red_max = table + layout.red_max;  // [warps, G]
-  float* row_dot = table + layout.row_dot;
+  float* red_sum = group_table + layout.red_sum;  // [warps, G]
+  float* red_max = group_table + layout.red_max;  // [warps, G]
+  float* row_dot = group_table + layout.row_dot;
   // The softmax's reference: the row max of the logits as the last softmax
   // saw them (exactly the max at the start).
-  float* row_ref = table + layout.row_ref;
-  float* row_total = table + layout.row_total;
+  float* row_ref = group_table + layout.row_ref;
+  float* row_total = group_table + layout.row_total;
   // [cluster, G] row dots, [cluster, G, 2] (block max, block sum), [cluster]
-  // objective partials: block b writes row b of every block's copy.
-  float* gather_dot = table + layout.gather_dot;
-  float* gather_soft = table + layout.gather_soft;
+  // objective partials: block b writes row b of every block's copy (of the
+  // one global copy when the tables are in global scratch).
+  float* gather_dot = exchange_table + layout.gather_dot;
+  float* gather_soft = exchange_table + layout.gather_soft;
   float* gather_obj = table + layout.gather_obj;
+  // Row `rank` of an exchange table: into every block's copy, or once.
+  auto publish = [&](float* gather, size_t index, float value) {
+    if (tables_in_shared) {
+      for (int b = 0; b < blocks; ++b) cluster.map_shared_rank(gather, b)[index] = value;
+    } else {
+      gather[index] = value;
+    }
+  };
+  // The cluster barrier; global exchange rows are fenced before it.
+  auto exchange_barrier = [&]() {
+    if (!tables_in_shared) __threadfence();
+    cluster.sync();
+  };
+  // A row of an exchange table after the barrier; a global one is read past
+  // the SM's L1 (__ldcg), which another SM's writes do not update.
+  auto gathered = [&](const float* gather, size_t index) {
+    return tables_in_shared ? gather[index] : __ldcg(gather + index);
+  };
 
   unsigned char* state = scratch == nullptr
                              ? shared_raw + layout.table_bytes
@@ -378,14 +428,12 @@ lp_relax_kernel(const float* __restrict__ vectors_in,
     const float top = block_partial(red_max, true, g);
     // The dot rows are free until the first step; the softmax's rows are
     // next, so the two exchanges in a row use different rows.
-    for (int b = 0; b < blocks; ++b) {
-      cluster.map_shared_rank(gather_dot, b)[rank * groups + g] = top;
-    }
+    publish(gather_dot, size_t(rank) * groups + g, top);
   }
-  cluster.sync();
+  exchange_barrier();
   for (int g = tid; g < groups; g += threads) {
     float top = -INFINITY;
-    for (int b = 0; b < blocks; ++b) top = fmaxf(top, gather_dot[b * groups + g]);
+    for (int b = 0; b < blocks; ++b) top = fmaxf(top, gathered(gather_dot, size_t(b) * groups + g));
     row_ref[g] = top;
   }
   __syncthreads();
@@ -417,19 +465,16 @@ lp_relax_kernel(const float* __restrict__ vectors_in,
     for (int g = tid; g < groups; g += threads) {
       const float total = block_partial(red_sum, false, g);
       const float top = block_partial(red_max, true, g);
-      for (int b = 0; b < blocks; ++b) {
-        float* remote = cluster.map_shared_rank(gather_soft, b) + 2 * (rank * groups + g);
-        remote[0] = top;
-        remote[1] = total;
-      }
+      publish(gather_soft, 2 * (size_t(rank) * groups + g), top);
+      publish(gather_soft, 2 * (size_t(rank) * groups + g) + 1, total);
     }
-    cluster.sync();
+    exchange_barrier();
     for (int g = tid; g < groups; g += threads) {
       float top = -INFINITY;
       float total = 0.0f;
       for (int b = 0; b < blocks; ++b) {
-        top = fmaxf(top, gather_soft[2 * (b * groups + g)]);
-        total += gather_soft[2 * (b * groups + g) + 1];
+        top = fmaxf(top, gathered(gather_soft, 2 * (size_t(b) * groups + g)));
+        total += gathered(gather_soft, 2 * (size_t(b) * groups + g) + 1);
       }
       row_total[g] = total;
       row_ref[g] = top;
@@ -540,14 +585,12 @@ lp_relax_kernel(const float* __restrict__ vectors_in,
     __syncthreads();
     for (int g = tid; g < groups; g += threads) {
       const float total = block_partial(red_sum, false, g);
-      for (int b = 0; b < blocks; ++b) {
-        cluster.map_shared_rank(gather_dot, b)[rank * groups + g] = total;
-      }
+      publish(gather_dot, size_t(rank) * groups + g, total);
     }
-    cluster.sync();
+    exchange_barrier();
     for (int g = tid; g < groups; g += threads) {
       float total = 0.0f;
-      for (int b = 0; b < blocks; ++b) total += gather_dot[b * groups + g];
+      for (int b = 0; b < blocks; ++b) total += gathered(gather_dot, size_t(b) * groups + g);
       row_dot[g] = total;
     }
     __syncthreads();
@@ -641,19 +684,30 @@ lp_relax_kernel(const float* __restrict__ vectors_in,
 struct Accepted {
   int device = -1, cluster = 0, threads = 0;
   size_t bytes = 0;
+  bool tables_in_shared = true;
 };
 Accepted accepted;
 std::mutex accepted_lock;
 
 }  // namespace
 
-// Dynamic shared memory of one block: the tables, and the state when it
-// lives in shared memory.
+// Dynamic shared memory of one block: the tables (without the group tables
+// when they live in global scratch), and the state when it lives in shared
+// memory.
 extern "C" long long ktt_lp_relax_shared_bytes(int groups, int dims, int types_per_block,
                                                int threads, int group_lanes, int cluster,
-                                               int state_in_shared) {
-  const Layout l = make_layout(groups, dims, types_per_block, threads, group_lanes, cluster);
+                                               int state_in_shared, int tables_in_shared) {
+  const Layout l = make_layout(groups, dims, types_per_block, threads, group_lanes, cluster,
+                               tables_in_shared != 0);
   return static_cast<long long>(l.table_bytes + (state_in_shared ? l.state_bytes : 0));
+}
+
+// Bytes of the global table scratch when the group tables live there.
+extern "C" long long ktt_lp_relax_table_bytes(int groups, int dims, int types_per_block,
+                                              int threads, int group_lanes, int cluster) {
+  return static_cast<long long>(
+      make_layout(groups, dims, types_per_block, threads, group_lanes, cluster, false)
+          .global_table_bytes);
 }
 
 // Bytes of one block's state; the global scratch holds cluster times this.
@@ -670,7 +724,9 @@ extern "C" long long ktt_lp_relax_state_bytes(int groups, int dims, int types_pe
 // group_lanes (a power of two up to 32); block b owns the types
 // [b * TB, (b + 1) * TB) with TB = ceil(T / cluster). scratch is null to
 // keep the state in shared memory, else cluster * ktt_lp_relax_state_bytes
-// bytes. All contiguous on the current device. Returns a CUDA error code:
+// bytes; table_scratch is null to keep the group tables in shared memory,
+// else ktt_lp_relax_table_bytes bytes (the state is then in global scratch
+// too). All contiguous on the current device. Returns a CUDA error code:
 // the occupancy query's, cudaErrorInvalidConfiguration when the card
 // cannot place the cluster, or the launch's.
 extern "C" int ktt_lp_relax(const void* vectors, const void* counts,
@@ -678,11 +734,13 @@ extern "C" int ktt_lp_relax(const void* vectors, const void* counts,
                             const void* prices, const void* bias, int groups,
                             int types, int dims, int steps, int cluster, int threads,
                             int group_lanes, void* assignment, void* nodes,
-                            void* objective, void* scratch, void* stream) {
+                            void* objective, void* scratch, void* table_scratch,
+                            void* stream) {
   if (groups <= 0 || types <= 0 || dims <= 0 || dims > kMaxDims || steps < 0 ||
       cluster < 2 || cluster > kMaxCluster || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || group_lanes < 1 || group_lanes > 32 ||
-      (group_lanes & (group_lanes - 1)) != 0) {
+      (group_lanes & (group_lanes - 1)) != 0 ||
+      (table_scratch != nullptr && scratch == nullptr)) {
     return cudaErrorInvalidValue;
   }
   Shape shape;
@@ -695,8 +753,8 @@ extern "C" int ktt_lp_relax(const void* vectors, const void* counts,
   const int type_slots = threads / group_lanes;
   shape.type_iters = (shape.types_per_block + type_slots - 1) / type_slots;
   shape.group_iters = (groups + group_lanes - 1) / group_lanes;
-  const Layout layout =
-      make_layout(groups, dims, shape.types_per_block, threads, group_lanes, cluster);
+  const Layout layout = make_layout(groups, dims, shape.types_per_block, threads, group_lanes,
+                                    cluster, table_scratch == nullptr);
   const size_t bytes = layout.table_bytes + (scratch == nullptr ? layout.state_bytes : 0);
 
   cudaLaunchConfig_t config = {};
@@ -711,39 +769,44 @@ extern "C" int ktt_lp_relax(const void* vectors, const void* counts,
   attribute[0].val.clusterDim.z = 1;
   config.attrs = attribute;
   config.numAttrs = 1;
+  void (*kernel)(const float*, const int*, const float*, const unsigned char*, const float*,
+                 const float*, Shape, float*, float*, float*, unsigned char*, float*) =
+      table_scratch == nullptr ? lp_relax_kernel<true> : lp_relax_kernel<false>;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   {
     std::lock_guard<std::mutex> hold(accepted_lock);
     if (accepted.device != device || accepted.cluster != cluster ||
-        accepted.threads != threads || accepted.bytes != bytes) {
+        accepted.threads != threads || accepted.bytes != bytes ||
+        accepted.tables_in_shared != (table_scratch == nullptr)) {
       err = cudaFuncSetAttribute(
-          lp_relax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(bytes > kDefaultSharedLimit ? bytes : kDefaultSharedLimit));
       if (err != cudaSuccess) return static_cast<int>(err);
       if (cluster > kPortableCluster) {
-        err = cudaFuncSetAttribute(lp_relax_kernel,
+        err = cudaFuncSetAttribute(kernel,
                                    cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         if (err != cudaSuccess) return static_cast<int>(err);
       }
       int clusters = 0;
-      err = cudaOccupancyMaxActiveClusters(&clusters, lp_relax_kernel, &config);
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
       if (err != cudaSuccess) return static_cast<int>(err);
       if (clusters < 1) return cudaErrorInvalidConfiguration;
       accepted.device = device;
       accepted.cluster = cluster;
       accepted.threads = threads;
       accepted.bytes = bytes;
+      accepted.tables_in_shared = table_scratch == nullptr;
     }
   }
   err = cudaLaunchKernelEx(
-      &config, lp_relax_kernel, static_cast<const float*>(vectors),
+      &config, kernel, static_cast<const float*>(vectors),
       static_cast<const int*>(counts), static_cast<const float*>(capacity),
       static_cast<const unsigned char*>(valid), static_cast<const float*>(prices),
       static_cast<const float*>(bias), shape, static_cast<float*>(assignment),
       static_cast<float*>(nodes), static_cast<float*>(objective),
-      static_cast<unsigned char*>(scratch));
+      static_cast<unsigned char*>(scratch), static_cast<float*>(table_scratch));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

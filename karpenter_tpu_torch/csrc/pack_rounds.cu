@@ -20,7 +20,8 @@
 // everything but that one scan off the round's critical path:
 //   * one type per thread: a block of up to 1,024 threads, so at T <= 1,024
 //     no thread scans two types one after the other (past that, 2 or 4 types
-//     a thread, up to T 4,096);
+//     a thread, up to T 4,096, and past that ceil(T / 1,024) types a thread
+//     whose constants are read from global memory every round);
 //   * the per-type constants (capacity, valid, price) are loaded once,
 //     before the round loop, into registers; each group's axes are sorted
 //     once into two bit masks (divide where vec > 0, subtract where vec !=
@@ -28,7 +29,10 @@
 //     pods) and the uniform branch skips the rest;
 //   * the fills live [G, T], so the threads of a warp write a group's fills
 //     to consecutive words (no bank conflicts), in shared memory while they
-//     fit, else in a global scratch buffer from the caller;
+//     fit, else in a global scratch buffer from the caller; past the fills,
+//     the group tables (vectors, weights, axis masks, counts) and the [T]
+//     sums go to a second global scratch buffer too, one slice a block, so
+//     no group or type count is refused;
 //   * the selection is a warp reduction and one shared-memory atomicMin per
 //     warp (min is order-free, so the result does not depend on the order
 //     the warps arrive in): for cost mode a 64-bit key (the score's bits,
@@ -49,8 +53,11 @@
 //     update where vec == 0 keeps the bits: n * 0 = 0 and x - 0 = x.
 //   * the float-to-int conversion of n_fit saturates (an all-zero vector
 //     gives +inf), as XLA's convert does.
-//   * cost mode's weighted = fills @ group_weight is a sequential fp32 sum
-//     over g in ascending order, as in the plain version.
+//   * cost mode's weighted = fills @ group_weight in the order of the
+//     reference's XLA program on the CPU: below 64 groups one chain of
+//     fused multiply-adds over ascending g (__fmaf_rn), from 64 on the
+//     vectorised order of weighted_in_reference_order, over the fills the
+//     scan wrote.
 //   * argmin and argmax ties go to the lowest index, as jnp's do.
 //   * an out-of-range round write is dropped, as the reference's scatter
 //     drops it; overflow reports the lost round.
@@ -98,14 +105,19 @@ struct Control {
   int first_active, any_active, proceed, pad;
 };
 
-// Dynamic shared memory of one block: the control words, the group tables
-// [G, R] vectors, [G] weights, axis masks and counts, the [T] sums, and the
-// [G, T] fills when they live in shared memory. ops/pack_kernel.pack_launch_plan
-// mirrors it.
+// Words of one block's tables: the group tables [G, R] vectors, [G]
+// weights, axis masks and counts, then the [T] sums.
+__host__ __device__ inline size_t table_words(int groups, int types, int dims) {
+  return size_t(groups) * dims + 3 * size_t(groups) + types;
+}
+
+// Dynamic shared memory of one block: the control words, the tables when
+// they live in shared memory, and the [G, T] fills when they do.
+// ops/pack_kernel.pack_launch_plan mirrors it.
 __host__ __device__ inline size_t shared_bytes(int groups, int types, int dims,
-                                               bool fills_in_shared) {
-  size_t bytes = sizeof(Control) + sizeof(float) * (size_t(groups) * dims + groups)
-                 + sizeof(int) * (2 * size_t(groups) + types);
+                                               bool fills_in_shared, bool tables_in_shared) {
+  size_t bytes = sizeof(Control);
+  if (tables_in_shared) bytes += sizeof(int) * table_words(groups, types, dims);
   if (fills_in_shared) bytes += sizeof(int) * size_t(types) * groups;
   return bytes;
 }
@@ -119,6 +131,56 @@ __device__ __forceinline__ float div_pos(float a, float b) {
   const bool zero = (bits << 1) == 0u;
   const float q = __fdiv_rn(__uint_as_float(zero ? 0x3f800000u : bits), b);
   return zero ? a : q;
+}
+
+// weighted = fills @ group_weight from 64 groups on, in the order the
+// reference's XLA program on the CPU takes it (ops/pack_kernel.py
+// _weighted_sums): LLVM vectorises the dot 8 lanes by 4 accumulators, 32
+// groups a step. Two steps, unrolled, fuse into one chain a lane over the
+// chunks of 8 groups 0, 4, 5, 1, 6, 2, 7, 3; four steps and more keep four
+// chains a lane (chunks 4i + u), added in turn. The lanes are summed
+// pairwise, then the groups past the last whole step chain on. Fused
+// multiply-adds throughout; a fill of 0 adds an exact 0. Below 64 groups
+// the order is one chain over ascending g, which the scan accumulates.
+constexpr int kDotSteps = 32;
+constexpr int kDotLanes = 8;
+
+__device__ __forceinline__ float weighted_in_reference_order(const int* fills, int stride,
+                                                             const float* weight, int groups) {
+  const int steps = groups / kDotSteps;
+  float lanes[kDotLanes];
+#pragma unroll
+  for (int j = 0; j < kDotLanes; ++j) {
+    float acc = 0.0f;
+    if (steps >= 4) {
+      for (int u = 0; u < 4; ++u) {
+        float chain = 0.0f;
+        for (int i = 0; i < steps; ++i) {
+          const int g = kDotSteps * i + kDotLanes * u + j;
+          chain = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], chain);
+        }
+        acc = u == 0 ? chain : __fadd_rn(chain, acc);
+      }
+    } else {
+      for (int i = 0; i < steps; ++i) {
+        const int g = kDotSteps * i + j;
+        acc = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], acc);
+      }
+      for (int u = 1; u < 4; ++u) {
+        for (int i = steps - 1; i >= 0; --i) {
+          const int g = kDotSteps * i + kDotLanes * u + j;
+          acc = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], acc);
+        }
+      }
+    }
+    lanes[j] = acc;
+  }
+  float total = __fadd_rn(__fadd_rn(__fadd_rn(lanes[0], lanes[4]), __fadd_rn(lanes[2], lanes[6])),
+                          __fadd_rn(__fadd_rn(lanes[1], lanes[5]), __fadd_rn(lanes[3], lanes[7])));
+  for (int g = steps * kDotSteps; g < groups; ++g) {
+    total = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], total);
+  }
+  return total;
 }
 
 // A float's bits, made to order as an unsigned int.
@@ -135,7 +197,11 @@ __device__ inline unsigned long long warp_min_key(unsigned long long key) {
   return key;
 }
 
-template <int kTypesPerThread>
+// kTypesPerThread 1, 2 or 4 keeps each type's constants in registers; 0
+// streams them from global memory for ceil(T / threads) types a thread.
+// kTablesInShared is known at compile time so that the scan's table reads
+// are shared-memory loads, not generic ones.
+template <int kTypesPerThread, bool kTablesInShared>
 __global__ void __launch_bounds__(kMaxThreads)
 pack_rounds_kernel(const float* __restrict__ vectors,
                    const int* __restrict__ counts_in,
@@ -143,10 +209,15 @@ pack_rounds_kernel(const float* __restrict__ vectors,
                    const unsigned char* __restrict__ valid,
                    const float* __restrict__ prices, int groups, int types,
                    int dims, int first_mode, int* __restrict__ out,
-                   int* __restrict__ fill_scratch) {
+                   int* __restrict__ fill_scratch, int* __restrict__ table_scratch) {
   extern __shared__ __align__(16) unsigned char shared_raw[];
   Control* control = reinterpret_cast<Control*>(shared_raw);
-  float* s_vectors = reinterpret_cast<float*>(control + 1);  // [G, R]
+  // The tables: after the control words, or in this block's slice of the
+  // global scratch.
+  float* s_vectors = kTablesInShared
+                         ? reinterpret_cast<float*>(control + 1)
+                         : reinterpret_cast<float*>(
+                               table_scratch + size_t(blockIdx.x) * table_words(groups, types, dims));
   float* s_weight = s_vectors + groups * dims;                // [G]
   int* s_axes = reinterpret_cast<int*>(s_weight + groups);    // [G]
   int* s_counts = s_axes + groups;                            // [G]
@@ -154,6 +225,9 @@ pack_rounds_kernel(const float* __restrict__ vectors,
   int* fills = fill_scratch == nullptr
                    ? s_sums + types
                    : fill_scratch + size_t(blockIdx.x) * types * groups;  // [G, T]
+  constexpr int kCached = kTypesPerThread > 0 ? kTypesPerThread : 1;
+  const int per_thread =
+      kTypesPerThread > 0 ? kTypesPerThread : (types + blockDim.x - 1) / blockDim.x;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -183,22 +257,29 @@ pack_rounds_kernel(const float* __restrict__ vectors,
   }
   __syncthreads();
 
-  // The per-type constants, in registers for the whole loop.
-  float cap[kTypesPerThread][kMaxDims];
-  bool type_valid[kTypesPerThread];
-  float price[kTypesPerThread];
+  // The per-type constants, in registers for the whole loop (streamed from
+  // global memory when kTypesPerThread is 0).
+  float cap[kCached][kMaxDims];
+  bool type_valid[kCached];
+  float price[kCached];
   int largest = -1;
+  if (kTypesPerThread > 0) {
 #pragma unroll
-  for (int k = 0; k < kTypesPerThread; ++k) {
-    const int t = tid + k * threads;
-    const bool in = t < types;
-    type_valid[k] = in && valid[t] != 0;
-    price[k] = in ? prices[t] : INFINITY;
+    for (int k = 0; k < kCached; ++k) {
+      const int t = tid + k * threads;
+      const bool in = t < types;
+      type_valid[k] = in && valid[t] != 0;
+      price[k] = in ? prices[t] : INFINITY;
 #pragma unroll
-    for (int r = 0; r < kMaxDims; ++r) {
-      cap[k][r] = in && r < dims ? capacity[size_t(t) * dims + r] : 0.0f;
+      for (int r = 0; r < kMaxDims; ++r) {
+        cap[k][r] = in && r < dims ? capacity[size_t(t) * dims + r] : 0.0f;
+      }
+      if (type_valid[k]) largest = t;
     }
-    if (type_valid[k]) largest = t;
+  } else {
+    for (int t = tid; t < types; t += threads) {
+      if (valid[t] != 0) largest = t;
+    }
   }
   // num_types - 1 - argmax(valid[::-1]): the last valid type, or the last
   // type when none is valid.
@@ -252,15 +333,25 @@ pack_rounds_kernel(const float* __restrict__ vectors,
     int packs_any = 0;
 
 #pragma unroll
-    for (int k = 0; k < kTypesPerThread; ++k) {
+    for (int k = 0; k < per_thread; ++k) {
       const int t = tid + k * threads;
       if (t >= types) continue;
+      // This type's constants: the cached slot, or loaded now.
+      const int slot = kTypesPerThread > 0 ? k : 0;
+      if (kTypesPerThread == 0) {
+        type_valid[0] = valid[t] != 0;
+        price[0] = prices[t];
+#pragma unroll
+        for (int r = 0; r < kMaxDims; ++r) {
+          cap[0][r] = r < dims ? capacity[size_t(t) * dims + r] : 0.0f;
+        }
+      }
       int sum = 0;
       float weighted = 0.0f;
-      if (type_valid[k] && any_active) {
+      if (type_valid[slot] && any_active) {
         float remaining[kMaxDims];
 #pragma unroll
-        for (int r = 0; r < kMaxDims; ++r) remaining[r] = cap[k][r];
+        for (int r = 0; r < kMaxDims; ++r) remaining[r] = cap[slot][r];
         // A first active group that cannot place one pod aborts the fill;
         // every earlier group has count 0, so the fill is all zero then.
         bool abort = false;
@@ -290,17 +381,20 @@ pack_rounds_kernel(const float* __restrict__ vectors,
           }
           fills[size_t(g) * types + t] = n;
           sum += n;
-          if (mode == kModeCost) {
-            weighted = __fadd_rn(weighted, __fmul_rn(static_cast<float>(n), s_weight[g]));
+          if (mode == kModeCost && groups < 2 * kDotSteps) {
+            weighted = __fmaf_rn(static_cast<float>(n), s_weight[g], weighted);
           }
+        }
+        if (mode == kModeCost && groups >= 2 * kDotSteps) {
+          weighted = weighted_in_reference_order(fills + t, types, s_weight, groups);
         }
       } else {
         for (int g = 0; g < groups; ++g) fills[size_t(g) * types + t] = 0;
       }
       s_sums[t] = sum;
       if (mode == kModeCost) {
-        const bool packs = sum > 0 && type_valid[k];
-        const float score = packs ? __fdiv_rn(price[k], fmaxf(weighted, 1e-9f)) : INFINITY;
+        const bool packs = sum > 0 && type_valid[slot];
+        const float score = packs ? __fdiv_rn(price[slot], fmaxf(weighted, 1e-9f)) : INFINITY;
         packs_any |= packs;
         const unsigned long long key =
             (static_cast<unsigned long long>(orderable(score)) << 32) | static_cast<unsigned>(t);
@@ -320,10 +414,19 @@ pack_rounds_kernel(const float* __restrict__ vectors,
       const int bound = s_sums[largest_valid];
       have_pack = bound > 0;
       int candidate = INT_MAX;
+      if (kTypesPerThread > 0) {
 #pragma unroll
-      for (int k = kTypesPerThread - 1; k >= 0; --k) {
-        const int t = tid + k * threads;
-        if (t < types && bound > 0 && type_valid[k] && s_sums[t] == bound) candidate = t;
+        for (int k = kCached - 1; k >= 0; --k) {
+          const int t = tid + k * threads;
+          if (t < types && bound > 0 && type_valid[k] && s_sums[t] == bound) candidate = t;
+        }
+      } else if (bound > 0) {
+        for (int t = tid; t < types; t += threads) {
+          if (valid[t] != 0 && s_sums[t] == bound) {
+            candidate = t;
+            break;
+          }
+        }
       }
       candidate = __reduce_min_sync(kFullMask, candidate);
       if (lane == 0 && candidate != INT_MAX) atomicMin(&control->selected, candidate);
@@ -388,25 +491,41 @@ pack_rounds_kernel(const float* __restrict__ vectors,
   }
 }
 
-template <int kTypesPerThread>
-int launch(const void* vectors, const void* counts, const void* capacity,
-           const void* valid, const void* prices, int groups, int types, int dims,
-           int first_mode, int num_modes, int threads, void* out, void* fill_scratch,
-           void* stream) {
-  const size_t bytes = shared_bytes(groups, types, dims, fill_scratch == nullptr);
+template <int kTypesPerThread, bool kTablesInShared>
+int launch_variant(const void* vectors, const void* counts, const void* capacity,
+                   const void* valid, const void* prices, int groups, int types, int dims,
+                   int first_mode, int num_modes, int threads, void* out, void* fill_scratch,
+                   void* table_scratch, void* stream) {
+  const size_t bytes = shared_bytes(groups, types, dims, fill_scratch == nullptr, kTablesInShared);
   if (bytes > kDefaultSharedLimit) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pack_rounds_kernel<kTypesPerThread>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pack_rounds_kernel<kTypesPerThread, kTablesInShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  pack_rounds_kernel<kTypesPerThread>
+  pack_rounds_kernel<kTypesPerThread, kTablesInShared>
       <<<num_modes, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(vectors), static_cast<const int*>(counts),
           static_cast<const float*>(capacity), static_cast<const unsigned char*>(valid),
           static_cast<const float*>(prices), groups, types, dims, first_mode,
-          static_cast<int*>(out), static_cast<int*>(fill_scratch));
+          static_cast<int*>(out), static_cast<int*>(fill_scratch),
+          static_cast<int*>(table_scratch));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kTypesPerThread>
+int launch(const void* vectors, const void* counts, const void* capacity,
+           const void* valid, const void* prices, int groups, int types, int dims,
+           int first_mode, int num_modes, int threads, void* out, void* fill_scratch,
+           void* table_scratch, void* stream) {
+  if (table_scratch == nullptr) {
+    return launch_variant<kTypesPerThread, true>(vectors, counts, capacity, valid, prices, groups,
+                                                 types, dims, first_mode, num_modes, threads, out,
+                                                 fill_scratch, table_scratch, stream);
+  }
+  return launch_variant<kTypesPerThread, false>(vectors, counts, capacity, valid, prices, groups,
+                                                types, dims, first_mode, num_modes, threads, out,
+                                                fill_scratch, table_scratch, stream);
 }
 
 }  // namespace
@@ -416,42 +535,61 @@ extern "C" int ktt_pack_rounds_words(int groups) {
   return make_layout(groups, 2 * groups + 8).words;
 }
 
-// Dynamic shared memory one block needs, with or without the [G, T] fills.
+// Dynamic shared memory one block needs, with or without the [G, T] fills
+// and the tables.
 extern "C" long long ktt_pack_rounds_shared_bytes(int groups, int types, int dims,
-                                                  int fills_in_shared) {
-  return static_cast<long long>(shared_bytes(groups, types, dims, fills_in_shared != 0));
+                                                  int fills_in_shared, int tables_in_shared) {
+  return static_cast<long long>(
+      shared_bytes(groups, types, dims, fills_in_shared != 0, tables_in_shared != 0));
+}
+
+// Words of one block's slice of the table scratch.
+extern "C" long long ktt_pack_rounds_table_words(int groups, int types, int dims) {
+  return static_cast<long long>(table_words(groups, types, dims));
 }
 
 // vectors [G, R] f32, counts [G] i32, capacity [T, R] f32, valid [T] bool
 // (one byte each), prices [T] f32, out [num_modes, words] i32; fill_scratch
-// is null to keep the fills in shared memory, else [num_modes, G, T] i32.
-// Block b runs mode first_mode + b (0 = ffd, 1 = cost) with `threads`
-// threads, thread i owning the types i + k * threads for k <
-// types_per_thread (1, 2 or 4). Returns the launch's cudaGetLastError().
+// is null to keep the fills in shared memory, else [num_modes, G, T] i32;
+// table_scratch is null to keep the tables in shared memory, else
+// [num_modes, ktt_pack_rounds_table_words] i32 (the fills are then in
+// global scratch too). Block b runs mode first_mode + b (0 = ffd, 1 = cost)
+// with `threads` threads, thread i owning the types i + k * threads for k <
+// types_per_thread (1, 2 or 4 cached in registers, more streamed). Returns
+// the launch's cudaGetLastError().
 extern "C" int ktt_pack_rounds(const void* vectors, const void* counts,
                                const void* capacity, const void* valid,
                                const void* prices, int groups, int types,
                                int dims, int first_mode, int num_modes,
                                int threads, int types_per_thread,
-                               void* out, void* fill_scratch, void* stream) {
+                               void* out, void* fill_scratch, void* table_scratch,
+                               void* stream) {
   if (groups <= 0 || types <= 0 || dims <= 0 || dims > kMaxDims ||
       first_mode < kModeFfd || num_modes < 1 ||
       first_mode + num_modes - 1 > kModeCost || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 ||
-      static_cast<long long>(threads) * types_per_thread < types) {
+      threads > kMaxThreads || threads % 32 != 0 || types_per_thread < 1 ||
+      static_cast<long long>(threads) * types_per_thread < types ||
+      (table_scratch != nullptr && fill_scratch == nullptr)) {
     return cudaErrorInvalidValue;
   }
   switch (types_per_thread) {
     case 1:
       return launch<1>(vectors, counts, capacity, valid, prices, groups, types, dims,
-                       first_mode, num_modes, threads, out, fill_scratch, stream);
+                       first_mode, num_modes, threads, out, fill_scratch, table_scratch,
+                       stream);
     case 2:
       return launch<2>(vectors, counts, capacity, valid, prices, groups, types, dims,
-                       first_mode, num_modes, threads, out, fill_scratch, stream);
+                       first_mode, num_modes, threads, out, fill_scratch, table_scratch,
+                       stream);
     case 4:
       return launch<4>(vectors, counts, capacity, valid, prices, groups, types, dims,
-                       first_mode, num_modes, threads, out, fill_scratch, stream);
-    default:
+                       first_mode, num_modes, threads, out, fill_scratch, table_scratch,
+                       stream);
+    case 3:
       return cudaErrorInvalidValue;
+    default:
+      return launch<0>(vectors, counts, capacity, valid, prices, groups, types, dims,
+                       first_mode, num_modes, threads, out, fill_scratch, table_scratch,
+                       stream);
   }
 }

@@ -67,6 +67,11 @@ class Solver(abc.ABC):
     `solve` densifies specs then delegates to `solve_encoded`, the
     tensor-level entry point."""
 
+    # Device-backed solvers carry build and launch debt the first time each
+    # (groups, types) bucket is hit; the constrained solve routes them to the
+    # [L, G, T] kernel, host solvers to its numpy mirror.
+    needs_device_warmup = False
+
     def solve(
         self,
         pods: Sequence[PodSpec],
@@ -1085,6 +1090,8 @@ class CostSolver(Solver):
 
     device=None runs on the CUDA card and raises without one; "cpu" runs
     the kernels' plain PyTorch versions."""
+
+    needs_device_warmup = True
 
     def __init__(self, lp_steps: int = 300, device=None):
         self.lp_steps = lp_steps

@@ -30,6 +30,12 @@ the kernel for it raises. The plan compaction after it is K4
 (csrc/compact.cu, `compact_plan`): one launch writes the whole payload, and
 `_compact_plan_ref` is its plain version.
 
+K6, `pack_kernel_levels`, is the constrained solve's [L, G', T] dispatch:
+the same round loop under per-level allow masks, penalties, conflicts and
+per-node caps for every relaxation level at once, then the strictest level
+with the fewest misses (csrc/pack_levels.cu; `_pack_levels_ref` is its plain
+version, vectorised over levels and types with a loop over groups).
+
 All shapes are padded: G -> groups (counts 0), T -> types (valid mask).
 """
 
@@ -50,22 +56,31 @@ _INT32_MAX = 2**31 - 1
 # gives the same min(count, n_fit).
 _FIT_CLAMP = float(2**30)
 MAX_DIMS = 8  # remaining-capacity registers per thread in the kernel
-MAX_GROUPS = 1024  # shared-memory bound of the kernel's group tables
 _MODES = ("ffd", "cost")
 
 LIBRARY = CudaLibrary(
     "pack_rounds.cu",
     {
         "ktt_pack_rounds_words": (ctypes.c_int, [ctypes.c_int]),
-        "ktt_pack_rounds_shared_bytes": (
-            ctypes.c_longlong,
-            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
-        ),
+        "ktt_pack_rounds_shared_bytes": (ctypes.c_longlong, [ctypes.c_int] * 5),
+        "ktt_pack_rounds_table_words": (ctypes.c_longlong, [ctypes.c_int] * 3),
         "ktt_pack_rounds": (
             ctypes.c_int,
             [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 7
-            + [ctypes.c_void_p] * 3,
+            + [ctypes.c_void_p] * 4,
+        ),
+    },
+)
+LEVELS_LIBRARY = CudaLibrary(
+    "pack_levels.cu",
+    {
+        "ktt_pack_levels_words": (ctypes.c_int, [ctypes.c_int]),
+        "ktt_pack_levels_shared_bytes": (ctypes.c_longlong, [ctypes.c_int] * 5),
+        "ktt_pack_levels_table_words": (ctypes.c_longlong, [ctypes.c_int] * 3),
+        "ktt_pack_levels": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7,
         ),
     },
 )
@@ -80,11 +95,11 @@ COMPACT_LIBRARY = CudaLibrary(
     },
 )
 # Shared memory a block may use on sm_90 (227 KB), threads a block may
-# have, and the types a thread may own.
+# have, and the types a thread may keep in registers (more are streamed
+# from global memory every round).
 SHARED_LIMIT = 232_448
 MAX_THREADS = 1024
 _TYPES_PER_THREAD = (1, 2, 4)
-MAX_TYPES = MAX_THREADS * _TYPES_PER_THREAD[-1]
 # csrc/pack_rounds.cu's Control words at the front of shared memory.
 _CONTROL_BYTES = 32
 
@@ -96,25 +111,43 @@ class PackLaunchPlan(NamedTuple):
     types_per_thread: int  # thread i owns types i + k * threads, k < this
     shared_bytes: int  # dynamic shared memory per block
     fills_in_shared: bool  # else [modes, G, T] int32 of global scratch
+    tables_in_shared: bool  # else [modes, table words] int32 of global scratch
 
     def owner(self, t: int) -> int:
         """The thread that owns type t."""
         return t % self.threads
 
 
+def pack_table_words(groups: int, types: int, dims: int) -> int:
+    """Words of one block's tables (csrc/pack_rounds.cu table_words): [G, R]
+    vectors, [G] weights, axis masks and counts, and the [T] sums."""
+    return groups * dims + 3 * groups + types
+
+
+def _shared_storage(tables: int, fills: int) -> Tuple[int, bool, bool]:
+    """(shared bytes, fills in shared, tables in shared) of a block of K2 or
+    K6: the tables in shared memory when they fit beside the control words,
+    the [G, T] fills when they fit beside both; the rest in global scratch."""
+    tables_in_shared = _CONTROL_BYTES + tables <= SHARED_LIMIT
+    fills_in_shared = tables_in_shared and _CONTROL_BYTES + tables + fills <= SHARED_LIMIT
+    shared = (_CONTROL_BYTES + (tables if tables_in_shared else 0)
+              + (fills if fills_in_shared else 0))
+    return shared, fills_in_shared, tables_in_shared
+
+
 def pack_launch_plan(groups: int, types: int, dims: int) -> PackLaunchPlan:
     """K2's launch plan, from the sizes alone: one type per thread while T
-    fits one block (1,024 threads), else 2 or 4; the [G, T] fills in shared
-    memory when the block's tables and fills fit SHARED_LIMIT, else in
-    global scratch."""
-    if types > MAX_TYPES:
-        raise ValueError(f"pack_kernel kernel takes at most {MAX_TYPES} types")
-    per_thread = next(k for k in _TYPES_PER_THREAD if -(-types // k) <= MAX_THREADS)
+    fits one block (1,024 threads), else 2 or 4 kept in registers, past
+    T 4,096 ceil(T / 1,024) streamed; the [G, T] fills in shared memory when
+    the block's tables and fills fit SHARED_LIMIT, else in global scratch,
+    and the tables too in global scratch when they alone do not fit. Every
+    size gets a plan."""
+    per_thread = next(
+        (k for k in _TYPES_PER_THREAD if -(-types // k) <= MAX_THREADS), -(-types // MAX_THREADS)
+    )
     threads = (-(-types // per_thread) + 31) & ~31
-    tables = _CONTROL_BYTES + 4 * (groups * dims + groups) + 4 * (2 * groups + types)
-    in_shared = tables + 4 * groups * types <= SHARED_LIMIT
-    shared = tables + (4 * groups * types if in_shared else 0)
-    return PackLaunchPlan(threads, per_thread, shared, in_shared)
+    storage = _shared_storage(4 * pack_table_words(groups, types, dims), 4 * groups * types)
+    return PackLaunchPlan(threads, per_thread, *storage)
 
 
 class PackRounds(NamedTuple):
@@ -162,7 +195,9 @@ def _fill_one_node(capacity, total, vectors, counts, *, quirk: bool):
     stopped = torch.zeros(num_types, dtype=torch.bool, device=device)
     abort = torch.zeros(num_types, dtype=torch.bool, device=device)
     packed = torch.zeros((num_types, num_groups), dtype=torch.int32, device=device)
-    for g in range(num_groups):
+    # A group without pods places none and changes nothing: only the groups
+    # with pods are scanned.
+    for g in torch.nonzero(active).flatten().tolist():
         vec = vectors[g]
         cnt = counts[g]
         positive = vec > 0
@@ -223,11 +258,7 @@ def _pack_kernel_ref(
             t_sel = int(_first_true(achieves))  # first (smallest) achieving type
             have_pack = bool(bound > 0)
         else:
-            # fills @ group_weight as a sequential fp32 sum over ascending g,
-            # the order the kernel takes it in.
-            weighted = torch.zeros(num_types, dtype=torch.float32, device=device)
-            for g in range(num_groups):
-                weighted = weighted + fills[:, g].to(torch.float32) * group_weight[g]
+            weighted = _weighted_sums(fills.to(torch.float32), group_weight)
             score = torch.where(
                 packs_any, prices / torch.clamp(weighted, min=1e-9), torch.inf
             )
@@ -308,10 +339,8 @@ def _launch(vectors, counts, capacity, valid_types, prices, first_mode: int, num
     num_types = capacity.shape[0]
     if num_groups == 0 or num_types == 0 or dims == 0:
         raise ValueError("pack_kernel kernel takes G, T, R >= 1")
-    if dims > MAX_DIMS or num_groups > MAX_GROUPS:
-        raise ValueError(
-            f"pack_kernel kernel takes at most {MAX_DIMS} axes and {MAX_GROUPS} groups"
-        )
+    if dims > MAX_DIMS:
+        raise ValueError(f"pack_kernel kernel takes at most {MAX_DIMS} axes")
     tensors = (vectors, counts, capacity, valid_types, prices)
     if not all(tensor.is_contiguous() for tensor in tensors):
         raise ValueError("pack_kernel kernel takes contiguous tensors")
@@ -319,18 +348,24 @@ def _launch(vectors, counts, capacity, valid_types, prices, first_mode: int, num
     lib = LIBRARY.load()
     words = lib.ktt_pack_rounds_words(num_groups)
     out = torch.empty((num_modes, words), dtype=torch.int32, device=vectors.device)
-    scratch = None
+    scratch = tables = None
     if not plan.fills_in_shared:
         scratch = torch.empty(
             (num_modes, num_groups, num_types), dtype=torch.int32, device=vectors.device
+        )
+    if not plan.tables_in_shared:
+        tables = torch.empty(
+            (num_modes, pack_table_words(num_groups, num_types, dims)),
+            dtype=torch.int32, device=vectors.device,
         )
     with torch.cuda.device(vectors.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.ktt_pack_rounds(
             *(tensor.data_ptr() for tensor in tensors),
             num_groups, num_types, dims, first_mode, num_modes,
-            plan.threads, plan.types_per_thread,
-            out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), stream,
+            plan.threads, plan.types_per_thread, out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(),
+            0 if tables is None else tables.data_ptr(), stream,
         )
     check_launch(status, "pack_kernel")
     pack_kernel.launches += 1
@@ -407,6 +442,475 @@ def pack_kernel_pair(
     out = _launch(vectors, counts, capacity, valid_types, prices, 0, 2)
     num_groups = vectors.shape[0]
     return rounds_from_words(out[0], num_groups), rounds_from_words(out[1], num_groups)
+
+
+# --- K6: the constrained multi-level pack, the [L, G', T] dispatch -----------
+#
+# The constraint compiler (constraints/compiler.py) lowers pod affinity and
+# anti-affinity, topology spread and the preference-relaxation ladder into
+# per-level tensors; this dispatch solves every relaxation level at once and
+# picks the strictest feasible level on the device. Per level l:
+#   * allow[l, g, t]   — sub-group g may be packed onto type t at this level
+#                        (fit is re-checked here);
+#   * penalty[l, g, t] — additive spread pressure in the cost-mode score;
+#   * counts[l, g]     — pods per sub-group at this level;
+#   * conflict[g, h]   — g and h may not share a node;
+#   * node_cap[g]      — at most this many pods of g a node.
+
+NODE_CAP_NONE = 2**30  # int32-safe "no per-node cap" sentinel
+MAX_LEVELS = 8  # constraints.ladder.MAX_LEVELS: K6 runs one block a level
+# XLA's reduce-window size on the CPU: the reference sums pen past 32 groups
+# in windows of 32.
+_SUM_WINDOW = 32
+# XLA's vectorised dot on the CPU: 8 lanes by 4 accumulators, 32 groups a
+# step (see _weighted_sums).
+_DOT_LANES = 8
+_DOT_STEP = 32
+
+
+class LevelPack(NamedTuple):
+    """Output of the [L, G, T] constrained dispatch: the chosen level's
+    rounds plus the level-selection evidence."""
+
+    rounds: PackRounds  # the chosen level's rounds (fields as PackRounds)
+    chosen_level: torch.Tensor  # [] int32 — strictest feasible level index
+    group_level: torch.Tensor  # [G] int32 — first feasible level per group (L if none)
+    level_unsched: torch.Tensor  # [L, G] int32 — unschedulable per level
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c with one rounding, as a fused multiply-add gives it.
+
+    The product of two float32 values is exact in float64; the sum is taken
+    in float64 and rounded to odd (an inexact sum whose last bit is even
+    moves one float64 step toward the exact value), which makes the final
+    rounding to float32 the correct one."""
+    product = a.double() * b.double()
+    addend = c.double()
+    total = product + addend
+    back = total - product
+    error = (product - (total - back)) + (addend - back)
+    even = (total.view(torch.int64) & 1) == 0
+    toward = torch.where(error > 0, torch.inf, -torch.inf).to(torch.float64)
+    total = torch.where((error != 0) & even, torch.nextafter(total, toward), total)
+    return total.float()
+
+
+def _penalty_sums(fills: torch.Tensor, penalty: torch.Tensor) -> torch.Tensor:
+    """pen = sum_g fill * penalty over the last axis, in the order the
+    reference's XLA program on the CPU takes it: up to 32 groups a chain of
+    fused multiply-adds over ascending g; past 32 the rounded products in
+    windows of 32 consecutive groups, the window sums again in windows of 32
+    while more than 32 remain, then in order. A group that packs nothing
+    anywhere adds exact zeros and is skipped."""
+    num_groups = fills.shape[-1]
+    zero = torch.zeros(fills.shape[:-1], dtype=torch.float32, device=fills.device)
+    live = torch.nonzero(fills.reshape(-1, num_groups).any(dim=0)).flatten().tolist()
+    if num_groups <= _SUM_WINDOW:
+        total = zero
+        for g in live:
+            total = _fma32(fills[..., g], penalty[..., g], total)
+        return total
+    level = {g: fills[..., g] * penalty[..., g] for g in live}
+    size = num_groups
+    while size > _SUM_WINDOW:
+        windows = {}
+        for position in sorted(level):
+            window = position // _SUM_WINDOW
+            windows[window] = windows.get(window, zero) + level[position]
+        level = windows
+        size = -(-size // _SUM_WINDOW)
+    total = zero
+    for position in sorted(level):
+        total = total + level[position]
+    return total
+
+
+def _weighted_sums(fills: torch.Tensor, group_weight: torch.Tensor) -> torch.Tensor:
+    """weighted = fills @ group_weight over the last axis, in the order the
+    reference's XLA program on the CPU takes it. XLA emits the dot as a
+    loop whose sum it marks reassociable, and LLVM vectorises that loop
+    over the groups, 8 lanes by 4 accumulators, 32 groups a step, every
+    multiply-add fused:
+      * under 64 groups: one chain of fused multiply-adds over ascending g;
+      * 64 groups (two steps, unrolled): each lane one chain over the
+        chunks of 8 groups 0, 4, 5, 1, 6, 2, 7, 3 (the unrolled adds
+        fused into one chain), then the lanes summed pairwise;
+      * 128 groups and more (a loop): per lane, accumulator u chains the
+        chunks 4i + u over the steps i; the four are added, the 8 lanes
+        summed pairwise ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7));
+      * groups past the last whole step: a chain of fused multiply-adds.
+    Exact for the padded group counts the port dispatches (powers of two
+    from 8) over 9 rows (types, or levels x types) or more; other counts
+    follow the same rules untested. Over 8 rows or fewer XLA orders the dot
+    another way from 64 groups on, which this does not copy yet. A chunk
+    that packs nothing adds exact zeros and is skipped."""
+    num_groups = fills.shape[-1]
+    steps = num_groups // _DOT_STEP if num_groups >= 2 * _DOT_STEP else 0
+    lead = fills.shape[:-1]
+    total = torch.zeros(lead, dtype=torch.float32, device=fills.device)
+    if steps:
+        body = fills[..., : steps * _DOT_STEP].reshape(*lead, steps, 4, _DOT_LANES)
+        weight = group_weight[: steps * _DOT_STEP].reshape(steps, 4, _DOT_LANES)
+        live = body.reshape(-1, steps, 4, _DOT_LANES).any(dim=(0, 3)).tolist()
+        zero = torch.zeros((*lead, _DOT_LANES), dtype=torch.float32, device=fills.device)
+
+        def chain(acc, chunks):
+            for i, u in chunks:
+                if live[i][u]:
+                    acc = _fma32(body[..., i, u, :], weight[i, u].expand_as(acc), acc)
+            return acc
+
+        if steps >= 4:
+            lanes = chain(zero, [(i, 0) for i in range(steps)])
+            for u in range(1, 4):
+                lanes = chain(zero, [(i, u) for i in range(steps)]) + lanes
+        else:
+            order = [(i, 0) for i in range(steps)]
+            order += [(i, u) for u in range(1, 4) for i in reversed(range(steps))]
+            lanes = chain(zero, order)
+        half = lanes[..., :4] + lanes[..., 4:]
+        quarter = half[..., :2] + half[..., 2:]
+        total = quarter[..., 0] + quarter[..., 1]
+    start = steps * _DOT_STEP
+    rest = fills[..., start:].reshape(-1, num_groups - start) if num_groups > start else fills[..., :0]
+    for g in (torch.nonzero(rest.any(dim=0)).flatten() + start).tolist():
+        total = _fma32(fills[..., g], group_weight[g].expand_as(total), total)
+    return total
+
+
+def _fill_one_node_constrained(capacity, vectors, counts, usable, conflict, node_cap):
+    """Greedy-fill one node of every (level, type) at once under the masks.
+    counts [L, G] int32, usable [L, G, T] bool; returns [L, T, G] int32.
+
+    The largest-first scan of _fill_one_node (quirk-free), plus: groups that
+    are not usable are skipped without aborting the fill; a group that
+    conflicts with one already placed on this node is skipped; node caps
+    bound the fill. The fill aborts only when the first eligible group
+    (counts > 0, usable) places no pod."""
+    num_levels, num_groups = counts.shape
+    num_types, dims = capacity.shape
+    device = capacity.device
+    eligible = (counts[:, :, None] > 0) & usable  # [L, G, T]
+    any_eligible = eligible.any(dim=1)  # [L, T]
+    first_eligible = torch.argmax(eligible.to(torch.int32), dim=1)  # [L, T]
+    remaining = capacity.expand(num_levels, num_types, dims)
+    placed = torch.zeros((num_levels, num_types, num_groups), dtype=torch.bool, device=device)
+    abort = torch.zeros((num_levels, num_types), dtype=torch.bool, device=device)
+    packed = torch.zeros((num_levels, num_types, num_groups), dtype=torch.int32, device=device)
+    # A group that no level can place changes nothing: only the groups some
+    # level has pods of are scanned.
+    for g in torch.nonzero((counts > 0).any(dim=0)).flatten().tolist():
+        vec = vectors[g]
+        positive = vec > 0
+        ratio = torch.where(positive, remaining / torch.where(positive, vec, 1.0), torch.inf)
+        n_fit = torch.floor(ratio.amin(dim=-1) + _EPS)
+        n_fit = torch.clamp(n_fit, 0.0, _FIT_CLAMP).to(torch.int32)
+        conflicted = (placed & conflict[g]).any(dim=-1)
+        allowed = eligible[:, g, :] & ~conflicted & ~abort
+        n = torch.minimum(torch.minimum(counts[:, g, None], n_fit), node_cap[g])
+        n = torch.where(allowed, n, 0).to(torch.int32)
+        abort = abort | ((first_eligible == g) & eligible[:, g, :] & ~conflicted & (n == 0))
+        # Two rounded fp32 operations, never a fused multiply-add.
+        remaining = remaining - n.to(vectors.dtype)[..., None] * vec
+        placed[..., g] = n > 0
+        packed[..., g] = n
+    return torch.where((abort | ~any_eligible)[..., None], 0, packed)
+
+
+def _pack_levels_ref(
+    vectors, level_counts, capacity, valid_types, prices, level_allow, level_penalty,
+    conflict, node_cap, *, mode: str,
+) -> LevelPack:
+    """Plain version of K6, on any device: every level's round loop run in
+    step (a level whose loop has ended stands still, as under the
+    reference's vmap of a while_loop), the loop condition tested on the
+    host, then the level selection."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    num_levels, num_groups = level_counts.shape
+    num_types = capacity.shape[0]
+    mr = max_rounds(num_groups)
+    device = vectors.device
+
+    fits = (vectors[:, None, :] <= capacity[None, :, :] + 1e-6).all(dim=-1)  # [G, T]
+    usable = level_allow & fits[None] & valid_types[None, None, :]  # [L, G, T]
+    packable = usable.any(dim=2)  # [L, G]
+    # Groups no type admits at a level retire at once; else the loop would
+    # spin on them until the iteration guard flags a phantom overflow.
+    unschedulable = torch.where(packable, 0, level_counts).to(torch.int32)
+    counts = torch.where(packable, level_counts, 0).to(torch.int32)
+
+    largest_valid = num_types - 1 - int(_first_true(valid_types.flip(0)))
+    ref_cap = torch.clamp(capacity[largest_valid], min=1.0)
+    group_weight = (vectors / ref_cap).amax(dim=1)  # [G]
+    penalty = level_penalty.transpose(1, 2)  # [L, T, G]
+
+    round_type = torch.zeros((num_levels, mr), dtype=torch.int32, device=device)
+    round_fill = torch.zeros((num_levels, mr, num_groups), dtype=torch.int32, device=device)
+    round_repl = torch.zeros((num_levels, mr), dtype=torch.int32, device=device)
+    num_rounds = [0] * num_levels
+    iters = [0] * num_levels
+    while True:
+        live = [
+            int(counts[l].sum()) > 0 and iters[l] < mr + num_groups for l in range(num_levels)
+        ]
+        if not any(live):
+            break
+        fills = _fill_one_node_constrained(capacity, vectors, counts, usable, conflict, node_cap)
+        fills = torch.where(valid_types[None, :, None], fills, 0)  # [L, T, G]
+        sums = fills.sum(dim=2)
+        packs_any = (sums > 0) & valid_types
+        if mode == "ffd":
+            bound = sums.amax(dim=1)  # [L]
+            achieves = (sums == bound[:, None]) & valid_types & (bound[:, None] > 0)
+            t_sel = torch.argmax(achieves.to(torch.int32), dim=1)
+            have_pack = bound > 0
+        else:
+            as_float = fills.to(torch.float32)
+            weighted = _weighted_sums(as_float, group_weight)
+            pen = _penalty_sums(as_float, penalty)
+            score = torch.where(
+                packs_any, (prices + pen) / torch.clamp(weighted, min=1e-9), torch.inf
+            )
+            t_sel = torch.argmin(score, dim=1)
+            have_pack = packs_any.any(dim=1)
+        for l in range(num_levels):
+            if not live[l]:
+                continue
+            level_counts_l = counts[l]
+            if bool(have_pack[l]):
+                fill = fills[l, int(t_sel[l])]
+                safe = torch.div(level_counts_l, torch.clamp(fill, min=1), rounding_mode="floor")
+                repl = max(int(torch.where(fill > 0, safe, _INT32_MAX).min()), 1)
+                # An out-of-range write is dropped, as the reference's
+                # scatter drops it; overflow reports the lost round.
+                if num_rounds[l] < mr:
+                    round_type[l, num_rounds[l]] = t_sel[l]
+                    round_fill[l, num_rounds[l]] = fill
+                    round_repl[l, num_rounds[l]] = repl
+                counts[l] = level_counts_l - repl * fill
+                num_rounds[l] += 1
+            else:
+                first_active = int(_first_true(level_counts_l > 0))
+                unschedulable[l, first_active] += level_counts_l[first_active]
+                counts[l, first_active] = 0
+            iters[l] += 1
+
+    overflow = torch.tensor(
+        [int(counts[l].sum()) > 0 or num_rounds[l] > mr for l in range(num_levels)],
+        dtype=torch.bool, device=device,
+    )
+    # A level's misses: its unschedulable pods, its shortfall against the
+    # fullest level, and 2^30 on overflow (int32, as the reference sums).
+    assigned = level_counts.sum(dim=1, dtype=torch.int32)
+    shortfall = assigned.max() - assigned
+    totals = (unschedulable.sum(dim=1, dtype=torch.int32) + shortfall
+              + overflow.to(torch.int32) * (2**30))
+    chosen = int(torch.argmin(totals))  # the first minimum: the strictest
+    feasible = (unschedulable == 0) & ~overflow[:, None]  # [L, G]
+    group_level = torch.where(
+        feasible.any(dim=0), torch.argmax(feasible.to(torch.int32), dim=0), num_levels
+    ).to(torch.int32)
+    rounds = PackRounds(
+        round_type=round_type[chosen],
+        round_fill=round_fill[chosen],
+        round_repl=round_repl[chosen],
+        num_rounds=torch.tensor(min(num_rounds[chosen], mr), dtype=torch.int32, device=device),
+        unschedulable=unschedulable[chosen],
+        overflow=overflow[chosen].to(torch.int32),
+    )
+    return LevelPack(
+        rounds=rounds,
+        chosen_level=torch.tensor(chosen, dtype=torch.int32, device=device),
+        group_level=group_level,
+        level_unsched=unschedulable,
+    )
+
+
+def _check_level_args(
+    vectors, level_counts, capacity, total, valid_types, prices, level_allow,
+    level_penalty, conflict, node_cap,
+) -> None:
+    named = (
+        ("vectors", vectors, torch.float32), ("level_counts", level_counts, torch.int32),
+        ("capacity", capacity, torch.float32), ("total", total, torch.float32),
+        ("valid_types", valid_types, torch.bool), ("prices", prices, torch.float32),
+        ("level_allow", level_allow, torch.bool), ("level_penalty", level_penalty, torch.float32),
+        ("conflict", conflict, torch.bool), ("node_cap", node_cap, torch.int32),
+    )
+    for name, tensor, dtype in named:
+        if tensor.dtype != dtype:
+            raise TypeError(f"pack_kernel_levels: {name} must be {dtype}, got {tensor.dtype}")
+        if tensor.device != vectors.device:
+            raise ValueError("pack_kernel_levels: every argument must lie on one device")
+    if vectors.dim() != 2 or level_counts.dim() != 2:
+        raise ValueError("pack_kernel_levels takes vectors [G, R] and level_counts [L, G]")
+    num_groups, dims = vectors.shape
+    num_levels = level_counts.shape[0]
+    num_types = capacity.shape[0]
+    if (
+        level_counts.shape != (num_levels, num_groups)
+        or capacity.shape != (num_types, dims)
+        or total.shape != (num_types, dims)
+        or valid_types.shape != (num_types,)
+        or prices.shape != (num_types,)
+        or level_allow.shape != (num_levels, num_groups, num_types)
+        or level_penalty.shape != (num_levels, num_groups, num_types)
+        or conflict.shape != (num_groups, num_groups)
+        or node_cap.shape != (num_groups,)
+    ):
+        raise ValueError("pack_kernel_levels: inconsistent shapes")
+
+
+class LevelsLaunchPlan(NamedTuple):
+    """How K6 lays one level's round loop over a block."""
+
+    threads: int  # a multiple of 32; thread i owns types i + k * threads
+    shared_bytes: int  # dynamic shared memory per block
+    fills_in_shared: bool  # else [L, G, T] int32 of global scratch
+    tables_in_shared: bool  # else [L, table words] int32 of global scratch
+    placed_in_registers: bool  # else [L, W, threads] uint32 of global scratch
+
+
+def levels_table_words(groups: int, types: int, dims: int) -> int:
+    """Words of one block's tables (csrc/pack_levels.cu table_words): [G, R]
+    vectors, five [G] tables, the [G, W] conflict rows and the [T] sums."""
+    return groups * dims + 5 * groups + groups * (-(-groups // 32)) + types
+
+
+def levels_launch_plan(groups: int, types: int, dims: int) -> LevelsLaunchPlan:
+    """K6's launch plan, from the sizes alone: one type per thread up to
+    1,024 threads, more a thread past that; the [G, T] fills in shared
+    memory when the tables and fills fit SHARED_LIMIT, the tables alone
+    when they do, else both in global scratch; the node's placed bits in
+    registers up to G 256."""
+    threads = min(MAX_THREADS, (types + 31) & ~31)
+    storage = _shared_storage(4 * levels_table_words(groups, types, dims), 4 * groups * types)
+    return LevelsLaunchPlan(threads, *storage, groups <= 256)
+
+
+def level_pack_words(groups: int, levels: int) -> int:
+    """Words of K6's output: the chosen level's rounds in the dense layout,
+    the chosen level, group_level [G] and level_unsched [L, G]."""
+    return rounds_words(groups) + 1 + groups + levels * groups
+
+
+def rounds_words(groups: int) -> int:
+    """Words of one PackRounds in the dense layout (rounds_from_words)."""
+    return max_rounds(groups) * (groups + 2) + groups + 2
+
+
+def level_pack_from_words(words: torch.Tensor, groups: int, levels: int) -> LevelPack:
+    """Views of K6's [level_pack_words] int32 output as a LevelPack."""
+    head = rounds_words(groups)
+    return LevelPack(
+        rounds=rounds_from_words(words[:head], groups),
+        chosen_level=words[head].view(()),
+        group_level=words[head + 1 : head + 1 + groups],
+        level_unsched=words[head + 1 + groups :].view(levels, groups),
+    )
+
+
+def _launch_levels(vectors, level_counts, capacity, valid_types, prices, level_allow,
+                   level_penalty, conflict, node_cap, mode: str) -> torch.Tensor:
+    """One call of K6 (the level kernel, then the selection kernel).
+    Returns its [level_pack_words] int32 output."""
+    num_levels, num_groups = level_counts.shape
+    num_types, dims = capacity.shape
+    if num_groups == 0 or num_types == 0 or dims == 0 or num_levels == 0:
+        raise ValueError("pack_kernel_levels kernel takes G, T, R, L >= 1")
+    if dims > MAX_DIMS or num_levels > MAX_LEVELS:
+        raise ValueError(
+            f"pack_kernel_levels kernel takes at most {MAX_DIMS} axes and {MAX_LEVELS} levels")
+    tensors = (vectors, level_counts, capacity, valid_types, prices, level_allow,
+               level_penalty, conflict, node_cap)
+    if not all(tensor.is_contiguous() for tensor in tensors):
+        raise ValueError("pack_kernel_levels kernel takes contiguous tensors")
+    plan = levels_launch_plan(num_groups, num_types, dims)
+    lib = LEVELS_LIBRARY.load()
+    device = vectors.device
+    bit_words = -(-num_groups // 32)
+    level_words = lib.ktt_pack_levels_words(num_groups)
+    level_out = torch.empty((num_levels, level_words), dtype=torch.int32, device=device)
+    usable = torch.empty((num_levels, bit_words, num_types), dtype=torch.int32, device=device)
+    fills = tables = placed = None
+    if not plan.fills_in_shared:
+        fills = torch.empty((num_levels, num_groups, num_types), dtype=torch.int32, device=device)
+    if not plan.tables_in_shared:
+        tables = torch.empty(
+            (num_levels, levels_table_words(num_groups, num_types, dims)),
+            dtype=torch.int32, device=device,
+        )
+    if not plan.placed_in_registers:
+        placed = torch.empty((num_levels, bit_words, plan.threads), dtype=torch.int32, device=device)
+    words = level_pack_words(num_groups, num_levels)
+    out = torch.empty(words, dtype=torch.int32, device=device)
+    select_blocks = max(1, min(132, -(-words // 1024)))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.ktt_pack_levels(
+            *(tensor.data_ptr() for tensor in tensors),
+            num_groups, num_types, dims, num_levels, _MODES.index(mode), plan.threads,
+            select_blocks, level_out.data_ptr(),
+            0 if fills is None else fills.data_ptr(),
+            0 if tables is None else tables.data_ptr(), usable.data_ptr(),
+            0 if placed is None else placed.data_ptr(), out.data_ptr(), stream,
+        )
+    check_launch(status, "pack_kernel_levels")
+    pack_kernel_levels.launches += 1
+    return out
+
+
+def pack_kernel_levels(
+    vectors,  # [G, R] f32 — sub-group request vectors, FFD-sorted desc
+    level_counts,  # [L, G] i32 — per-level pods per sub-group
+    capacity,  # [T, R] f32
+    total,  # [T, R] f32 (layout parity with pack_kernel; the constrained fill does not read it)
+    valid_types,  # [T] bool
+    prices,  # [T] f32
+    level_allow,  # [L, G, T] bool
+    level_penalty,  # [L, G, T] f32
+    conflict,  # [G, G] bool
+    node_cap,  # [G] i32 (NODE_CAP_NONE = uncapped)
+    *,
+    mode: str = "cost",
+) -> LevelPack:
+    """The [L, G, T] dispatch: solve every relaxation level, pick the
+    strictest feasible one. K6 (csrc/pack_levels.cu) for CUDA tensors, the
+    plain version for CPU tensors."""
+    _check_level_args(vectors, level_counts, capacity, total, valid_types, prices,
+                      level_allow, level_penalty, conflict, node_cap)
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if vectors.device.type == "cpu":
+        return _pack_levels_ref(
+            vectors, level_counts, capacity, valid_types, prices, level_allow,
+            level_penalty, conflict, node_cap, mode=mode,
+        )
+    if vectors.device.type != "cuda":
+        raise ValueError(f"pack_kernel_levels: unsupported device {vectors.device}")
+    out = _launch_levels(vectors, level_counts, capacity, valid_types, prices, level_allow,
+                         level_penalty, conflict, node_cap, mode)
+    return level_pack_from_words(out, vectors.shape[0], level_counts.shape[0])
+
+
+pack_kernel_levels.launches = 0
+
+
+def level_pack_to_host(pack: LevelPack) -> LevelPack:
+    """A LevelPack as numpy arrays, brought to the host in one copy (one
+    concatenation on the device, then one device->host transfer)."""
+    fields = [*pack.rounds, pack.chosen_level, pack.group_level, pack.level_unsched]
+    flat = torch.cat([field.reshape(-1).to(torch.int32) for field in fields]).cpu().numpy()
+    out = []
+    cursor = 0
+    for field in fields:
+        out.append(flat[cursor : cursor + field.numel()].reshape(tuple(field.shape)))
+        cursor += field.numel()
+    return LevelPack(
+        rounds=PackRounds(*out[:6]), chosen_level=out[6], group_level=out[7], level_unsched=out[8]
+    )
 
 
 def pad_to(array: np.ndarray, size: int, axis: int = 0, value=0) -> np.ndarray:

@@ -48,13 +48,14 @@ MAX_DIMS = 8  # per-type registers in the kernel's column pass
 LIBRARY = CudaLibrary(
     "lp_relax.cu",
     {
-        "ktt_lp_relax_shared_bytes": (ctypes.c_longlong, [ctypes.c_int] * 7),
+        "ktt_lp_relax_shared_bytes": (ctypes.c_longlong, [ctypes.c_int] * 8),
         "ktt_lp_relax_state_bytes": (ctypes.c_longlong, [ctypes.c_int] * 5),
+        "ktt_lp_relax_table_bytes": (ctypes.c_longlong, [ctypes.c_int] * 6),
         "ktt_lp_relax": (
             ctypes.c_int,
             [ctypes.c_void_p] * 6
             + [ctypes.c_int] * 7
-            + [ctypes.c_void_p] * 5,
+            + [ctypes.c_void_p] * 6,
         ),
     },
 )
@@ -81,6 +82,10 @@ class LPLaunchPlan(NamedTuple):
     shared_bytes: int  # dynamic shared memory per block
     state_bytes: int  # one block's slice of the state
     state_in_shared: bool  # else cluster * state_bytes of global scratch
+    # The group tables in shared memory, else table_bytes of global scratch
+    # (the state is then in global scratch too).
+    tables_in_shared: bool
+    table_bytes: int
 
     @property
     def scratch_bytes(self) -> int:
@@ -99,15 +104,27 @@ def _round16(size: int) -> int:
 
 
 def _lp_layout(groups: int, dims: int, types_per_block: int, threads: int, group_lanes: int,
-               cluster: int):
-    """(table bytes, state bytes) of one block: csrc/lp_relax.cu make_layout."""
+               cluster: int, tables_in_shared: bool = True):
+    """(shared table bytes, state bytes) of one block: csrc/lp_relax.cu
+    make_layout. Without the group tables in shared memory, the shared
+    tables are only the per-type ones and the objective row."""
     warps = threads // 32
-    words = (groups * dims + groups + types_per_block * dims + types_per_block + _MAX_DIMS_WORDS
-             + types_per_block * MAX_DIMS
-             + 2 * warps * groups + 3 * groups + 3 * cluster * groups + cluster)
+    per_type = types_per_block * dims + types_per_block + _MAX_DIMS_WORDS + types_per_block * MAX_DIMS
+    words = per_type + cluster
+    if tables_in_shared:
+        words += groups * dims + groups + 2 * warps * groups + 3 * groups + 3 * cluster * groups
     type_slots = threads // group_lanes
     cells = (-(-types_per_block // type_slots)) * (-(-groups // group_lanes)) * threads
     return _round16(4 * words), _round16(cells * (5 * 4 + 1))
+
+
+def lp_global_table_bytes(groups: int, dims: int, threads: int, cluster: int) -> int:
+    """Global scratch of the group tables (csrc/lp_relax.cu
+    global_table_bytes): per block the vectors, counts, the two [warps, G]
+    reductions and three rows; one [cluster, G] and one [cluster, G, 2]
+    exchange table for the cluster."""
+    per_block = groups * dims + groups + 2 * (threads // 32) * groups + 3 * groups
+    return 4 * cluster * (per_block + 3 * groups)
 
 
 def lp_plan_for_cluster(groups: int, types: int, dims: int, cluster: int,
@@ -127,7 +144,20 @@ def lp_plan_for_cluster(groups: int, types: int, dims: int, cluster: int,
     table, state = _lp_layout(groups, dims, types_per_block, block, group_lanes, cluster)
     in_shared = table + state <= SHARED_LIMIT
     shared = table + (state if in_shared else 0)
-    return LPLaunchPlan(cluster, types_per_block, block, group_lanes, shared, state, in_shared)
+    return LPLaunchPlan(cluster, types_per_block, block, group_lanes, shared, state, in_shared, True, 0)
+
+
+def _lp_plan_with_global_tables(groups: int, types: int, dims: int, cluster: int) -> LPLaunchPlan:
+    """The plan at a cluster size with the group tables and the state in
+    global scratch, _THREADS threads a block: only the per-type tables and
+    the objective row stay in shared memory."""
+    plan = lp_plan_for_cluster(groups, types, dims, cluster)
+    table, _ = _lp_layout(groups, dims, plan.types_per_block, plan.threads, plan.group_lanes,
+                          cluster, tables_in_shared=False)
+    return plan._replace(
+        shared_bytes=table, state_in_shared=False, tables_in_shared=False,
+        table_bytes=lp_global_table_bytes(groups, dims, plan.threads, cluster),
+    )
 
 
 def lp_launch_plan(groups: int, types: int, dims: int) -> LPLaunchPlan:
@@ -137,7 +167,9 @@ def lp_launch_plan(groups: int, types: int, dims: int) -> LPLaunchPlan:
     the state goes to global scratch only when it does not fit at
     MAX_CLUSTER. Past that (hundreds of groups), the cluster halves and then
     the block's threads halve while the tables, which grow with both, do
-    not fit either."""
+    not fit either; where no plan holds the tables (thousands of groups),
+    they go to global scratch with the state, at the preferred cluster and
+    _THREADS threads. Every G and T gets a plan."""
     preferred = 2
     while preferred < MAX_CLUSTER and preferred * _TYPES_PER_BLOCK < types:
         preferred *= 2
@@ -151,7 +183,7 @@ def lp_launch_plan(groups: int, types: int, dims: int) -> LPLaunchPlan:
         if plan.shared_bytes <= SHARED_LIMIT:
             return plan
         if threads == 32:
-            raise ValueError(f"lp_relax: {groups} groups need {plan.shared_bytes} bytes of tables per block")
+            return _lp_plan_with_global_tables(groups, types, dims, preferred)
         threads //= 2
 
 
@@ -346,16 +378,19 @@ def _launch(vectors, counts, capacity, valid_types, prices, steps: int, plan: LP
     assignment = torch.empty((num_groups, num_types), dtype=torch.float32, device=device)
     nodes = torch.empty(num_types, dtype=torch.float32, device=device)
     objective = torch.empty((), dtype=torch.float32, device=device)
-    scratch = None
+    scratch = tables = None
     if not plan.state_in_shared:
         scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=device)
+    if not plan.tables_in_shared:
+        tables = torch.empty(plan.table_bytes // 4, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.ktt_lp_relax(
             *(tensor.data_ptr() for tensor in tensors), bias.data_ptr(),
             num_groups, num_types, dims, steps, plan.cluster, plan.threads, plan.group_lanes,
             assignment.data_ptr(), nodes.data_ptr(), objective.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), stream,
+            0 if scratch is None else scratch.data_ptr(),
+            0 if tables is None else tables.data_ptr(), stream,
         )
     check_launch(status, "lp_relax")
     lp_relax.launches += 1

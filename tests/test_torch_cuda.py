@@ -125,7 +125,8 @@ def test_pack_shapes_cover_every_plan(cuda_device):
     assert {plan.fills_in_shared for plan in plans} == {True, False}
     assert any(plan.threads * plan.types_per_thread > t for plan, (_, t) in zip(plans, PACK_SHAPES))
     for plan, (g, t) in zip(plans, PACK_SHAPES):
-        assert lib.ktt_pack_rounds_shared_bytes(g, t, 8, int(plan.fills_in_shared)) == plan.shared_bytes
+        assert lib.ktt_pack_rounds_shared_bytes(
+            g, t, 8, int(plan.fills_in_shared), int(plan.tables_in_shared)) == plan.shared_bytes
 
 
 @pytest.mark.parametrize("shape", [(16, 300), (16, 512), (64, 1024)], ids=lambda s: f"G{s[0]}xT{s[1]}")
@@ -233,7 +234,8 @@ def test_lp_shapes_cover_every_plan(cuda_device):
     assert any(t % plan.types_per_block for plan, (_, t) in zip(plans, LP_SHAPES))
     for plan, (g, _) in zip(plans, LP_SHAPES):
         args = (g, 8, plan.types_per_block, plan.threads, plan.group_lanes)
-        assert lib.ktt_lp_relax_shared_bytes(*args, plan.cluster, int(plan.state_in_shared)) == plan.shared_bytes
+        assert lib.ktt_lp_relax_shared_bytes(
+            *args, plan.cluster, int(plan.state_in_shared), int(plan.tables_in_shared)) == plan.shared_bytes
         assert lib.ktt_lp_relax_state_bytes(*args) == plan.state_bytes
 
 
@@ -425,3 +427,135 @@ def test_solve_candidates_on_card_equals_cpu(cluster_problem, cuda_device):
     np.testing.assert_array_equal(got.delete_take, want.delete_take)
     assert consolidate.delete_assignment(got, best, members[best]) == consolidate.delete_assignment(
         want, best, members[best])
+
+
+# --- past the old limits: K2 and K3 take any size --------------------------
+
+# (G, T, real groups): padded G 2,048 at the main path's T (K2's fills in
+# global scratch, K3 at its smallest block), T 8,192 (K2 streams eight types
+# a thread), G 8,192 at T 1,024 (K2's tables in global scratch).
+LARGE_PACK_SHAPES = [(2048, 512, 200), (16, 8192, 16), (8192, 1024, 60)]
+
+
+@pytest.mark.parametrize("mode", ["ffd", "cost"])
+@pytest.mark.parametrize("shape", LARGE_PACK_SHAPES, ids=lambda s: f"G{s[0]}xT{s[1]}")
+def test_pack_kernel_past_the_old_limits(shape, mode, cuda_device):
+    groups, types, real = shape
+    args = fused_args_from_numpy(*chip_smoke.sparse_pack_problem(2, groups, types, real), device=cuda_device)
+    got = pack_kernel.pack_kernel(*args, mode=mode)
+    want = pack_kernel._pack_kernel_ref(*args, mode=mode)
+    torch.cuda.synchronize()
+    assert chip_smoke.rounds_equal(got, want)
+
+
+def test_large_pack_shapes_cover_the_new_paths(cuda_device):
+    lib = pack_kernel.LIBRARY.load()
+    plans = [pack_kernel.pack_launch_plan(g, t, 8) for g, t, _ in LARGE_PACK_SHAPES]
+    assert {plan.tables_in_shared for plan in plans} == {True, False}
+    assert max(plan.types_per_thread for plan in plans) == 8
+    for plan, (g, t, _) in zip(plans, LARGE_PACK_SHAPES):
+        assert lib.ktt_pack_rounds_shared_bytes(
+            g, t, 8, int(plan.fills_in_shared), int(plan.tables_in_shared)) == plan.shared_bytes
+        assert lib.ktt_pack_rounds_table_words(g, t, 8) == pack_kernel.pack_table_words(g, t, 8)
+
+
+# Padded G 2,048 at T 512 (the tables in shared memory at the smallest
+# block) and at T 2,048, G 4,096 at T 16 (the group tables in global
+# scratch), T 8,192 (cluster 16, 512 types a block).
+LARGE_LP_SHAPES = [(2048, 512), (2048, 2048), (4096, 16), (16, 8192)]
+
+
+@pytest.mark.parametrize("shape", LARGE_LP_SHAPES, ids=lambda s: f"G{s[0]}xT{s[1]}")
+def test_lp_kernel_past_the_old_limits(shape, cuda_device):
+    args = chip_smoke.lp_inputs(chip_smoke.LP_SEEDS[0], shape, cuda_device)
+    got = score_kernel.lp_relax(*args, steps=300)
+    want = score_kernel.lp_relax_body(*args, steps=300)
+    torch.cuda.synchronize()
+    _assert_lp_close(got, want)
+
+
+def test_large_lp_shapes_cover_the_new_paths(cuda_device):
+    lib = score_kernel.LIBRARY.load()
+    plans = [score_kernel.lp_launch_plan(g, t, 8) for g, t in LARGE_LP_SHAPES]
+    assert {plan.tables_in_shared for plan in plans} == {True, False}
+    for plan, (g, _) in zip(plans, LARGE_LP_SHAPES):
+        args = (g, 8, plan.types_per_block, plan.threads, plan.group_lanes)
+        assert lib.ktt_lp_relax_shared_bytes(
+            *args, plan.cluster, int(plan.state_in_shared), int(plan.tables_in_shared)) == plan.shared_bytes
+        if not plan.tables_in_shared:
+            assert lib.ktt_lp_relax_table_bytes(*args, plan.cluster) == plan.table_bytes
+
+
+# --- K6: the constrained [L, G', T] dispatch ---------------------------------
+
+K6_CASES = list(chip_smoke.k6_cases())
+
+
+@pytest.mark.parametrize("name,operands,mode", K6_CASES, ids=[name for name, _, _ in K6_CASES])
+def test_levels_kernel_equals_plain_version(name, operands, mode, cuda_device):
+    from karpenter_tpu_torch.convert import upload_packed
+
+    tensors = upload_packed(list(operands), cuda_device)
+    before = pack_kernel.pack_kernel_levels.launches
+    got = pack_kernel.pack_kernel_levels(*tensors, mode=mode)
+    want = chip_smoke.plain_levels(tensors, mode)
+    torch.cuda.synchronize()
+    assert pack_kernel.pack_kernel_levels.launches == before + 1
+    assert chip_smoke.level_packs_equal(got, want)
+
+
+TIED_CASES = list(chip_smoke.tied_weight_cases())
+
+
+@pytest.mark.parametrize("name,problem,operands", TIED_CASES, ids=[name for name, _, _ in TIED_CASES])
+def test_kernels_take_the_weighted_sum_in_the_plain_order(name, problem, operands, cuda_device):
+    """K2 and K6 on instances where the order of the cost score's weighted
+    sum alone decides the first round."""
+    from karpenter_tpu_torch.convert import upload_packed
+
+    if problem is not None:
+        args = fused_args_from_numpy(*problem, device=cuda_device)
+        got = pack_kernel.pack_kernel(*args, mode="cost")
+        want = pack_kernel._pack_kernel_ref(*args, mode="cost")
+        torch.cuda.synchronize()
+        assert chip_smoke.rounds_equal(got, want)
+    else:
+        tensors = upload_packed(list(operands), cuda_device)
+        got = pack_kernel.pack_kernel_levels(*tensors, mode="cost")
+        want = chip_smoke.plain_levels(tensors, "cost")
+        torch.cuda.synchronize()
+        assert chip_smoke.level_packs_equal(got, want)
+
+
+def test_levels_shapes_cover_every_plan(cuda_device):
+    lib = pack_kernel.LEVELS_LIBRARY.load()
+    plans = [pack_kernel.levels_launch_plan(g, t, 8) for g, t, _, _ in chip_smoke.K6_SHAPES]
+    assert {plan.tables_in_shared for plan in plans} == {True, False}
+    assert {plan.placed_in_registers for plan in plans} == {True, False}
+    for plan, (g, t, _, _) in zip(plans, chip_smoke.K6_SHAPES):
+        assert lib.ktt_pack_levels_shared_bytes(
+            g, t, 8, int(plan.fills_in_shared), int(plan.tables_in_shared)) == plan.shared_bytes
+        assert lib.ktt_pack_levels_table_words(g, t, 8) == pack_kernel.levels_table_words(g, t, 8)
+        assert lib.ktt_pack_levels_words(g) == pack_kernel.rounds_words(g)
+
+
+def test_constrained_solve_on_card_equals_cpu(cuda_device):
+    from karpenter_tpu_torch.api.provisioner import Provisioner, ProvisionerSpec
+    from karpenter_tpu_torch.constraints.solve import solve_constrained
+    from karpenter_tpu_torch.controllers.cluster import Cluster
+    from karpenter_tpu_torch.controllers.scheduling import Scheduler
+
+    catalog = chip_smoke.make_catalog(40)
+    pods = chip_smoke.constrained_pods(900)
+    cluster = Cluster()
+    (schedule,) = Scheduler(cluster).solve(Provisioner(name="default", spec=ProvisionerSpec()), pods)
+    before = pack_kernel.pack_kernel_levels.launches
+    card, card_decision = solve_constrained(solver.CostSolver(), schedule, catalog, [], cluster=cluster)
+    assert pack_kernel.pack_kernel_levels.launches == before + 1
+    cpu, cpu_decision = solve_constrained(
+        solver.CostSolver(device="cpu"), schedule, catalog, [], cluster=cluster)
+    assert card_decision.chosen_level == cpu_decision.chosen_level == 1
+    assert card_decision.group_levels == cpu_decision.group_levels
+    assert chip_smoke.placed_once_or_unschedulable(card, pods)
+    assert chip_smoke.zone_skew(card)[1] <= 1
+    np.testing.assert_allclose(card.projected_cost(), cpu.projected_cost(), rtol=1e-4)

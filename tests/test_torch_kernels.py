@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from karpenter_tpu.api.provisioner import Constraints
 from karpenter_tpu.ops import pack_kernel as ref_pack
 from karpenter_tpu.ops import pallas_kernels
@@ -203,6 +204,38 @@ def _random_problem(seed):
     return vectors, counts, capacity, total, valid, prices
 
 
+def _many_shapes_problem(num_shapes=1100, padded=2048, num_types=16, seed=0):
+    rng = np.random.default_rng(seed)
+    cpu = rng.integers(1, 4001, num_shapes).astype(np.float32)
+    mem = rng.integers(1, 8193, num_shapes).astype(np.float32)
+    order = np.lexsort((-mem, -cpu))  # FFD: largest cpu first
+    vectors = np.zeros((padded, 8), np.float32)
+    vectors[:num_shapes, 0] = cpu[order]
+    vectors[:num_shapes, 1] = mem[order]
+    vectors[:num_shapes, 2] = 1
+    counts = np.zeros(padded, np.int32)
+    counts[:num_shapes] = 3
+    capacity = np.zeros((num_types, 8), np.float32)
+    capacity[:, 0] = np.arange(1, num_types + 1) * 2000 - 100
+    capacity[:, 1] = np.arange(1, num_types + 1) * 8192 - 600
+    capacity[:, 2] = 110
+    prices = (np.arange(1, num_types + 1) * 0.1).astype(np.float32)
+    return vectors, counts, capacity, capacity.copy(), np.ones(num_types, bool), prices
+
+
+def _first_pick_of_a_sequential_chain(problem):
+    """The type the first cost round of a tied-weight problem would take if
+    weighted were one chain of fused multiply-adds over ascending g."""
+    vectors, counts, capacity = (torch.from_numpy(a) for a in problem[:3])
+    weight = (vectors / capacity[2].clamp(min=1.0)).amax(dim=1)
+    fills = torch.stack([torch.where(vectors[:, axis] == 0, 0, counts) for axis in (0, 1)])
+    fills[:, 0] = counts[0]
+    weighted = torch.zeros(2)
+    for g in range(fills.shape[1]):
+        weighted = port_pack._fma32(fills[:, g].to(torch.float32), weight[g].expand(2), weighted)
+    return int(torch.argmin(1.0 / weighted))
+
+
 PACK_PROBLEMS = [(name, _encode(pods, catalog)) for name, pods, catalog in _fixture_problems()]
 PACK_PROBLEMS += [(f"random{seed}", _random_problem(seed)) for seed in range(6)]
 _pack_ids = [name for name, _ in PACK_PROBLEMS]
@@ -238,6 +271,31 @@ class TestPackKernel:
         assert port_pack.pack_kernel.launches == before  # CPU tensors: plain version
         for mode, rounds in zip(("ffd", "cost"), pair):
             _assert_rounds_equal(rounds, port_pack.pack_kernel(*args, mode=mode))
+
+    @pytest.mark.parametrize("mode", ["ffd", "cost"])
+    def test_many_shapes_bit_identical_to_reference(self, mode):
+        """1,100 distinct FFD-sorted shapes padded to 2,048 groups, 3 pods a
+        shape, over a 16-type cpu/memory ladder: past the 1,024 groups the
+        card's kernel once refused, the plain version still gives the
+        reference's rounds in both modes."""
+        problem = _many_shapes_problem()
+        ref = ref_pack.pack_kernel(*problem, mode=mode)
+        port = port_pack.pack_kernel(*_torch_args(problem), mode=mode)
+        assert int(port.num_rounds) > 100 and not int(port.overflow)
+        _assert_rounds_equal(port, ref)
+
+    @pytest.mark.parametrize("groups", [16, 32, 64, 128, 256])
+    def test_cost_mode_takes_the_weighted_sum_in_the_reference_order(self, groups):
+        chain_misses = 0
+        for seed in range(12):
+            problem = chip_smoke.tied_weight_pack_problem(seed, groups)
+            ref = ref_pack.pack_kernel(*problem, mode="cost")
+            port = port_pack.pack_kernel(*_torch_args(problem), mode="cost")
+            _assert_rounds_equal(port, ref)
+            chain_misses += _first_pick_of_a_sequential_chain(problem) != int(ref.round_type[0])
+        # Under 64 groups the reference's order is that chain; from 64 on it
+        # is not, and these probes tell the two apart.
+        assert (chain_misses > 0) == (groups >= 64)
 
     def test_rejects_bad_arguments(self):
         args = list(_torch_args(PACK_PROBLEMS[0][1]))

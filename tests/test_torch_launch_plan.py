@@ -7,6 +7,9 @@ threads, shared bytes and storage path from a plain function of the sizes
 (`score_kernel.lp_launch_plan`, `pack_kernel.pack_launch_plan`); these tests
 hold those functions to what the kernels assume. The card tests
 (tests/test_torch_cuda.py) hold the kernels' own byte counts to the plans.
+Both functions give a plan for every size up to G 8,192 and T 8,192: past
+shared memory the tables go to global scratch, past 4,096 types K2's
+threads stream their types' constants.
 """
 
 import pytest
@@ -92,9 +95,15 @@ def test_pack_plan_fits_the_card(shape):
     plan = pack_kernel.pack_launch_plan(groups, types, dims)
     assert plan.shared_bytes <= pack_kernel.SHARED_LIMIT == 232_448
     fills = 4 * groups * types
-    tables = plan.shared_bytes - (fills if plan.fills_in_shared else 0)
-    # The fills go to global scratch exactly when the block cannot hold them.
-    assert plan.fills_in_shared == (tables + fills <= pack_kernel.SHARED_LIMIT)
+    tables = 4 * pack_kernel.pack_table_words(groups, types, dims)
+    control = plan.shared_bytes - (fills if plan.fills_in_shared else 0) - (
+        tables if plan.tables_in_shared else 0)
+    assert control == pack_kernel._CONTROL_BYTES
+    # The fills go to global scratch exactly when the block cannot hold
+    # them beside the tables; the tables exactly when they alone do not fit.
+    assert plan.tables_in_shared == (control + tables <= pack_kernel.SHARED_LIMIT)
+    assert plan.fills_in_shared == (
+        plan.tables_in_shared and control + tables + fills <= pack_kernel.SHARED_LIMIT)
 
 
 def test_lp_plan_rule_at_the_main_path_shape():
@@ -128,6 +137,71 @@ def test_lp_plan_refuses_a_cluster_outside_the_card(cluster):
         score_kernel.lp_plan_for_cluster(16, 512, 8, cluster)
 
 
-def test_pack_plan_refuses_too_many_types():
-    with pytest.raises(ValueError):
-        pack_kernel.pack_launch_plan(16, pack_kernel.MAX_TYPES + 1, 8)
+def test_pack_plan_rule_at_the_main_path_shape():
+    plan = pack_kernel.pack_launch_plan(16, 512, 8)
+    assert plan == pack_kernel.PackLaunchPlan(512, 1, 35_552, True, True)
+
+
+# Past the old limits (1,024 groups, 4,096 types, K3's tables at G 2,048 and
+# T 2,048): every size gets a plan that fits the card.
+LARGE_GROUPS = [1025, 1100, 2048, 4096, 8192]
+LARGE_TYPES = [16, 512, 2048, 4097, 8192]
+LARGE = [(g, t, 8) for g in LARGE_GROUPS for t in LARGE_TYPES] + [
+    (g, t, 8) for g in (1, 16, 64) for t in (4097, 6000, 8192)]
+
+
+@pytest.mark.parametrize("shape", LARGE, ids=_ids)
+def test_pack_plan_takes_every_size(shape):
+    groups, types, dims = shape
+    plan = pack_kernel.pack_launch_plan(groups, types, dims)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= pack_kernel.MAX_THREADS
+    assert plan.threads * plan.types_per_thread >= types
+    assert plan.threads * (plan.types_per_thread - 1) < types
+    if types > 4 * pack_kernel.MAX_THREADS:
+        assert plan.types_per_thread == -(-types // pack_kernel.MAX_THREADS) > 4
+    assert plan.shared_bytes <= pack_kernel.SHARED_LIMIT
+    assert plan.tables_in_shared or not plan.fills_in_shared
+    if groups * 11 * 4 > pack_kernel.SHARED_LIMIT:
+        assert not plan.tables_in_shared
+
+
+@pytest.mark.parametrize("shape", LARGE, ids=_ids)
+def test_lp_plan_takes_every_size(shape):
+    groups, types, dims = shape
+    plan = score_kernel.lp_launch_plan(groups, types, dims)
+    assert 2 <= plan.cluster <= score_kernel.MAX_CLUSTER
+    assert plan.types_per_block * plan.cluster >= types
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= score_kernel._THREADS
+    assert plan.group_lanes & (plan.group_lanes - 1) == 0 and plan.group_lanes <= 32
+    # Every (type, group) cell of a block has one owner: the type slots
+    # cover the block's types and the lanes its groups.
+    slots = plan.threads // plan.group_lanes
+    assert slots * -(-plan.types_per_block // slots) >= plan.types_per_block
+    assert plan.shared_bytes <= score_kernel.SHARED_LIMIT
+    table, state = score_kernel._lp_layout(
+        groups, dims, plan.types_per_block, plan.threads, plan.group_lanes, plan.cluster,
+        plan.tables_in_shared)
+    assert plan.state_bytes == state
+    assert plan.shared_bytes == table + (state if plan.state_in_shared else 0)
+    if plan.tables_in_shared:
+        assert plan.table_bytes == 0
+    else:
+        # Tables in global scratch only where no plan holds them, and the
+        # state with them.
+        assert not plan.state_in_shared
+        assert plan.table_bytes == score_kernel.lp_global_table_bytes(
+            groups, dims, plan.threads, plan.cluster)
+        shared_tables, _ = score_kernel._lp_layout(
+            groups, dims, plan.types_per_block, plan.threads, plan.group_lanes, plan.cluster)
+        assert shared_tables > score_kernel.SHARED_LIMIT
+
+
+def test_lp_plan_puts_the_tables_in_global_scratch_past_shared_memory():
+    # G 2,048 at T 2,048 and G 4,096 at any T raised before: the tables of
+    # the smallest block outgrow shared memory.
+    for groups, types in ((2048, 2048), (4096, 16), (8192, 8192)):
+        plan = score_kernel.lp_launch_plan(groups, types, 8)
+        assert not plan.tables_in_shared and not plan.state_in_shared
+        assert plan.shared_bytes < score_kernel.SHARED_LIMIT // 4
+    # G 2,048 at the main path's T still holds its tables in shared memory.
+    assert score_kernel.lp_launch_plan(2048, 512, 8).tables_in_shared

@@ -27,7 +27,21 @@ VERBATIM = [
     "cloudprovider/__init__.py",
     "utils/__init__.py",
     "utils/logging.py",
+    "utils/metrics.py",
+    "utils/clock.py",
+    "utils/crashpoints.py",
+    "controllers/__init__.py",
+    "controllers/errors.py",
+    "controllers/cluster.py",
+    "controllers/scheduling.py",
+    "constraints/__init__.py",
+    "constraints/terms.py",
+    "constraints/ladder.py",
+    "constraints/mirror.py",
+    "constraints/compiler.py",
 ]
+_DOCSTRING = "docstring only: names the port's files and devices"
+_NO_MESH = "one device: no mesh, no sharded variant, no tracing spans"
 # Trimmed copies: {module: {adapted definition: why}}.
 TRIMMED = {
     "ops/ffd.py": {},
@@ -42,6 +56,44 @@ TRIMMED = {
         "_fetch": "copies a torch tensor to the host in place of jax.device_get",
         "_padded": "no device_resident handles: the port uploads the type arrays each sweep",
         "solve_candidates": "runs on a device the caller picks; K7 returns one eager buffer",
+    },
+    "utils/fence.py": {
+        "WriteFence": "check records no flight-recorder event: the port has no flight "
+                      "recorder, and no leader election arms a fence yet",
+    },
+    "constraints/solve.py": {
+        "_dispatch_kernel": "no mesh hook or quarantine (one device); one packed upload, "
+                            "the port's K6 on the solver's device, one fetch",
+        "solve_constrained": "passes the solver's device to _dispatch_kernel",
+        "pad_levels": "the reference's padding, split out of _dispatch_kernel so the "
+                      "padding can be timed on its own",
+    },
+    "models/solver.py": {
+        "Solver": "no pipelined solve and no pre-encoded pass-through yet",
+        "NativeSolver": _DOCSTRING,
+        "_rounds_ints": "the int32 dense spill of PackRounds as torch tensors",
+        "_cost_fused_body": "K1-K4 on a torch device in one launch stream; " + _NO_MESH,
+        "FusedHandle": "torch tensors; " + _NO_MESH,
+        "FetchedPlan": "copies the LP assignment with .cpu() in place of device_get",
+        "fetch_plans": "one cat and one device->host copy in place of device_get; " + _NO_MESH,
+        "fetch_plan": "annotation names a class defined above it",
+        "pad_kernel_args": _NO_MESH,
+        "_pool_price_matrix": "no market hook: the port has no PriceBook yet",
+        "sort_pool_rows": _DOCSTRING,
+        "_cheapest_feasible_pools": _DOCSTRING,
+        "_decode_rounds": _DOCSTRING,
+        "_kernel_rounds_to_list": "annotation names a class the port imports",
+        "cost_solve_dense": "runs on a device the caller picks; " + _NO_MESH,
+        "_HostOverlap": "no pipelined solve yet, so no per-item wait",
+        "compute_mix_candidate": _DOCSTRING,
+        "cost_solve_host": "no dispatch counters yet",
+        "host_solve_enabled": "no mesh: the gate is the pod count alone",
+        "cost_solve_dispatch": "K1-K4 on a torch device with one packed upload; " + _NO_MESH,
+        "_collect_candidates": "takes fetched plans only (no host-tuple candidates)",
+        "cost_solve_finish": _DOCSTRING,
+        "CostSolver": "runs on a device the caller picks and raises without a card; no "
+                      "pipelined solve, warmup or device-memory ladder yet",
+        "decode_dense_result": _DOCSTRING,
     },
 }
 
