@@ -21,7 +21,10 @@ limit, and as the last line {"ok": true, "device": {...}}:
               every cluster size, objective within rtol 1e-4 and assignment
               within 1e-3 pods, and on the 50k problem, objective within
               rtol 1e-4; two launches of K2 and of K3 on the same inputs
-              give the same bits
+              give the same bits; K8 the incremental encode's scatter and
+              gather on float32 rows, int32 and bool values (a delta, a
+              1-element delta, sentinel-only index vectors, an empty
+              permutation), bit for bit, the scatter's input untouched
   4. solve    the main path: 50,000 pending pods over 400 instance types
               through CostSolver(device="cuda").solve with the host gate off
               (KARPENTER_HOST_SOLVE=0); every pod placed exactly once, each
@@ -33,7 +36,32 @@ limit, and as the last line {"ok": true, "device": {...}}:
               torch.cuda.set_sync_debug_mode("error") (no host sync) and
               returns before the card is done
   6. batch    solve_encoded_many over 8 schedules (one fetch for the batch)
-  7. consolidate  the consolidation path: one sweep of
+  7. incremental  the steady-state churn scenario of bench.py
+              (bench_encode_incremental) over the port's Cluster and a
+              DeviceClusterState on the card: 50,000 pods bound over 500
+              nodes in 16 shapes, 1% churn a sweep, 12 sweeps; flush plus
+              sorted view p50/p99, the full rebuild, K8's launches, the
+              largest delta, rebuilds and compactions; every fourth
+              sweep and at the end the view bit-identical to group_pods over
+              the store, node_used equal to a pod walk, the device arrays
+              equal to the host mirrors
+     fast_path  the main path's 50,000 pending pods tracked by a
+              DeviceClusterState: encode_schedule ->
+              CostSolver.solve_many_pipelined on the pre-encoded pair; the
+              plan identical to the snapshot path's, $/hr within 1e-4 of the
+              CPU run, K1-K4 launched once each, no pod tensor uploaded and
+              a warm solve uploading nothing (convert.upload_packed's
+              counters), encode and dispatch under
+              set_sync_debug_mode("error"); again after 1% churn (K8's
+              scatters launched); warm p50 of the fast and the snapshot
+              path, the encode skipped, and the time to the first result of
+              an 8-schedule pipelined solve against the batch
+     oom_ladder  on that 8-schedule batch: an injected out-of-memory fault
+              at one and two split depths, a KARPENTER_HBM_BYTES pre-split
+              and a fault in the middle of the pipeline give the unarmed
+              plans bit for bit, counted by solver_batch_split_total; the
+              floor is never reached
+  8. consolidate  the consolidation path: one sweep of
               ops/consolidate.solve_candidates over a 5,000-node cluster
               (64 candidates, padded C 64, G 16, N 8192, T 512) built by the
               controller's rules; K7 launched once per sweep and bit-identical
@@ -43,7 +71,7 @@ limit, and as the last line {"ok": true, "device": {...}}:
               each of its pods once within every receiver's headroom; a room
               sized for too few axes flagged; cold first sweep, warm p50 over
               10 sweeps, the fetch's bytes
-  8. constrained  the constrained provisioning path: the main path's 50,000
+  9. constrained  the constrained provisioning path: the main path's 50,000
               pods, each under one zonal topology spread (max_skew 1,
               DoNotSchedule) and two preferred node-affinity terms (a zone
               the catalog does not offer, weight 10; amd64, weight 1),
@@ -55,21 +83,22 @@ limit, and as the last line {"ok": true, "device": {...}}:
               the CPU run within 1e-4; K6 equal to its plain version on the
               card in both modes and to the numpy mirror; the first solve,
               warm p50 and max over 10 solves, each layer of one solve
-  9. large_shapes  CostSolver on the card over 12,000 pods in 1,100
+ 10. large_shapes  CostSolver on the card over 12,000 pods in 1,100
               distinct shapes (padded G 2,048, T 512): every pod placed
               once, K2's rounds equal to the plain version's (the same
               dispatch on the CPU), K3's objective within rtol 1e-4 of its
               plain version; K2 at G 2,048 x T 512 and G 16 x T 8,192, K3
               at G 2,048 x T 512, G 16 x T 8,192 and G 2,048 x T 2,048 (its
               tables in global scratch) against their plain versions
- 10. timing   each kernel's device time per call (torch.profiler: the
+ 11. timing   each kernel's device time per call (torch.profiler: the
               kernels' own time, `ms`) and its time between CUDA events
               around the wrapper (host enqueue included, `event_ms`), its
               plain version's time (CUDA events) and its bound at the path's
               shapes; K3's time per Adam step and at every cluster size,
               K2's time per round of each mode; K6 at the constrained
-              path's shapes; K2 and K3 at padded G 2,048
- 11. layers   one warm solve layer by layer (each bracketed by device syncs),
+              path's shapes; K8 on one steady-state sweep's scatters and
+              gathers; K2 and K3 at padded G 2,048
+ 12. layers   one warm solve layer by layer (each bracketed by device syncs),
               and torch.profiler's device time against the solve's wall time
 
 The kernels phase also holds K6, the constrained [L, G', T] dispatch, bit
@@ -357,9 +386,9 @@ def tied_weight_pack_problem(seed: int, groups: int, num_types: int = 16):
     weighted of both types is equal, so which one the first cost round
     takes is decided by the order and rounding of fills @ group_weight
     alone. The third type, the last valid one, sets the weights at a power
-    of two per axis and costs too much to be taken. 16 types: from 9 rows
-    of types on, XLA vectorises the dot as `ops/pack_kernel._weighted_sums`
-    describes."""
+    of two per axis and costs too much to be taken. XLA vectorises the dot
+    over the types as rows, one way from 9 rows on and another over 8 or
+    fewer (`ops/pack_kernel._weighted_sums`)."""
     rng = np.random.default_rng(seed)
     half = (groups - 1) // 2
     weights = rng.uniform(0.001, 0.01, half).astype(np.float32)
@@ -379,16 +408,17 @@ def tied_weight_pack_problem(seed: int, groups: int, num_types: int = 16):
     return vectors, counts, capacity, capacity.copy(), valid, prices
 
 
-def tied_weight_levels_problem(seed: int, groups: int, levels: int):
+def tied_weight_levels_problem(seed: int, groups: int, levels: int, types: int = 16):
     """Two identical types that may take different halves of the groups
     (allow masks), each half the same (vector, count) pairs in another
     order: the exact weighted of both types is equal, so which one the
     first cost round takes is decided by the order and rounding of
     fills @ group_weight alone (equal prices, no penalty, one node holds
-    every pod). 16 types: from 9 rows of levels x types on, XLA vectorises
-    the dot as `ops/pack_kernel._weighted_sums` describes."""
+    every pod). XLA vectorises the dot over levels x types as rows, one way
+    from 9 rows on and another over 8 or fewer
+    (`ops/pack_kernel._weighted_sums`)."""
     rng = np.random.default_rng(seed)
-    types, dims = 16, 3
+    dims = 3
     half = groups // 2
     first, second = np.split(rng.permutation(groups), 2)
     sizes = rng.uniform(1, 10, half).astype(np.float32)
@@ -416,18 +446,29 @@ def tied_weight_levels_problem(seed: int, groups: int, levels: int):
 # Group counts of the tied-weight cases: one chain of fused multiply-adds
 # below 64, the unrolled and the looped vectorised orders from 64 on.
 TIED_GROUPS = (16, 64, 128, 256)
+# Rows of the dot (types, or levels x types) over which XLA orders it
+# another way: 8 or fewer.
+NARROW_ROWS = (8, 4)
 
 
 def tied_weight_cases():
     """(name, K2 problem or None, K6 operands or None) the kernels are held
     to their plain versions on where the order of `weighted` decides the
-    round: three seeds a group count, K6 at one level and at four."""
+    round: three seeds a group count, K6 at one level and at four, and
+    both over 8 and 4 rows (one level) from 64 groups on."""
     for groups in TIED_GROUPS:
         for seed in range(3):
             yield f"K2-G{groups}-s{seed}", tied_weight_pack_problem(seed, groups), None
             for levels in (1, 4):
                 yield (f"K6-G{groups}-L{levels}-s{seed}", None,
                        tied_weight_levels_problem(seed, groups, levels))
+            if groups < 64:
+                continue
+            for rows in NARROW_ROWS:
+                yield (f"K2-G{groups}-T{rows}-s{seed}",
+                       tied_weight_pack_problem(seed, groups, num_types=rows), None)
+                yield (f"K6-G{groups}-L1-T{rows}-s{seed}", None,
+                       tied_weight_levels_problem(seed, groups, 1, types=rows))
 
 
 def k6_cases():
@@ -1000,9 +1041,10 @@ def k6_needed(operands, mode: str = "cost"):
     return read + written, ops
 
 
-def device_ms_per_call(fn, kernel_names, reps: int = 20) -> float:
-    """torch.profiler's device time of the named kernels per call of `fn`:
-    the kernels' own time on the card, without the host's enqueue. The
+def device_ms_per_call(fn, kernel_names, reps: int = 20, launches_per_call: int = 0) -> float:
+    """torch.profiler's device time of the named kernels per call of `fn`
+    (which launches each once, or `launches_per_call` of them in all): the
+    kernels' own time on the card, without the host's enqueue. The
     profiler now and then drops a few kernel records of a window; a window
     that did not see every launch is measured again, up to three times."""
     import torch
@@ -1010,7 +1052,7 @@ def device_ms_per_call(fn, kernel_names, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    expected = reps * len(kernel_names)
+    expected = reps * (launches_per_call or len(kernel_names))
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1345,6 +1387,507 @@ def large_shapes_phase(catalog, device, num_pods: int = 12_000, num_shapes: int 
     return {"args": (vectors, counts, capacity, total, valid, effective), "lp": lp_args}
 
 
+# --- K8, the incremental encode ----------------------------------------------
+
+def k8_cases():
+    """(name, op, array, index, rows) K8 is held to its plain version on, as
+    numpy: the scatter and the gather over float32 rows, int32 and bool
+    values; a delta, a 1-element delta, sentinel-only index vectors, every
+    row, and an empty permutation."""
+    from karpenter_tpu_torch.ops.incremental import pad_indices
+
+    rng = np.random.default_rng(8)
+
+    def array(kind, rows):
+        if kind == "f32":
+            return rng.uniform(-1e3, 1e3, (rows, 8)).astype(np.float32)
+        if kind == "i32":
+            return rng.integers(-(2**31), 2**31 - 1, rows, dtype=np.int64).astype(np.int32)
+        return rng.random(rows) < 0.5
+
+    for kind in ("f32", "i32", "bool"):
+        for count in (13, 1, 0, 64):
+            real = np.sort(rng.choice(64, count, replace=False)).astype(np.int32)
+            idx = pad_indices(real, 64)
+            yield f"scatter-{kind}-{count}", "scatter", array(kind, 64), idx, array(kind, len(idx))
+        for count in (23, 1, 0, 40):
+            live = rng.permutation(40)[:count].astype(np.int32)
+            yield f"gather-{kind}-{count}", "gather", array(kind, 40), pad_indices(live, 40), None
+        yield f"gather-{kind}-empty", "gather", array(kind, 40), np.zeros(0, np.int32), None
+    # The main path's slot arrays: 512 node rows, a 256-row delta.
+    real = np.sort(rng.choice(512, 250, replace=False)).astype(np.int32)
+    idx = pad_indices(real, 512)
+    yield "scatter-f32-nodes", "scatter", array("f32", 512), idx, array("f32", len(idx))
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bits (float32 compared as int32 words)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def k8_check(device) -> dict:
+    """Every case of k8_cases through K8 on the card and its plain version
+    on the same tensors: bit for bit, the scatter's input untouched."""
+    import torch
+
+    from karpenter_tpu_torch.convert import upload_packed
+    from karpenter_tpu_torch.ops import incremental
+
+    cases = 0
+    for name, op, array, index, rows in k8_cases():
+        if op == "scatter":
+            dst, idx, values = upload_packed([array, index, rows], device)
+            kept = dst.clone()
+            got = incremental.scatter(dst, idx, values)
+            want = incremental._scatter_ref(dst, idx, values)
+            torch.cuda.synchronize()
+            check(same_bits(dst, kept), f"K8 wrote into its input on {name}")
+        else:
+            src, perm = upload_packed([array, index], device)
+            got = incremental.gather(src, perm)
+            want = incremental._gather_ref(src, perm)
+            torch.cuda.synchronize()
+        check(same_bits(got, want), f"K8 differs from its plain version on {name}")
+        cases += 1
+    return {"cases": cases}
+
+
+def plan_signature(result):
+    """Everything a plan says, in order: bit-identical plans give equal
+    values."""
+    packings = [
+        (
+            tuple(it.name for it in p.instance_type_options),
+            tuple((o.instance_type.name, o.zone, o.price) for o in p.pool_options or ()),
+            p.node_quantity,
+            tuple(tuple(pod.name for pod in node) for node in p.pods_per_node),
+        )
+        for p in result.packings
+    ]
+    return packings, [pod.name for pod in result.unschedulable]
+
+
+def device_arrays_match_mirrors(state) -> bool:
+    """The state's device arrays hold its host mirrors (node_used cast to
+    float32, as the flush casts it)."""
+    import torch
+
+    _, dev = state.device_view()
+    with state._lock:
+        mirrors = {
+            "group_vectors": state._group_vectors,
+            "group_counts": state._group_counts,
+            "node_capacity": state._node_capacity,
+            "node_used": state._node_used.astype(np.float32),
+            "node_live": state._node_live,
+        }
+    for name, mirror in mirrors.items():
+        if not same_bits(dev[name].cpu(), torch.from_numpy(np.ascontiguousarray(mirror))):
+            return False
+    return True
+
+
+def incremental_phase(device, num_pods: int = NUM_PODS, churn_fraction: float = 0.01,
+                      sweeps: int = 12, parity_every: int = 4) -> dict:
+    """The repository's steady-state churn scenario (bench.py
+    bench_encode_incremental) over the port's Cluster and a
+    DeviceClusterState on `device`: 50,000 pods bound over 500 nodes in 16
+    shapes, then 1% churn a sweep (half bound pods deleted, half new pending
+    pods, a quarter of them in a new shape). A sample is one flush plus the
+    sorted view, synced. Every `parity_every` sweeps and at the end, the
+    view must be bit-identical to group_pods over the store, node_used equal
+    a pod walk, and the device arrays equal the host mirrors."""
+    import torch
+
+    from karpenter_tpu_torch.api.pods import PodSpec
+    from karpenter_tpu_torch.cloudprovider import NodeSpec
+    from karpenter_tpu_torch.controllers.cluster import Cluster
+    from karpenter_tpu_torch.models.cluster_state import DeviceClusterState
+    from karpenter_tpu_torch.ops import incremental
+    from karpenter_tpu_torch.ops.encode import group_pods
+
+    setup_start = time.perf_counter()
+    rng = np.random.default_rng(11)
+    cluster = Cluster()
+    state = DeviceClusterState(cluster, device=device)
+    shapes = [(int(rng.integers(1, 17)) * 250, int(rng.integers(1, 33)) * 256) for _ in range(16)]
+    serial = 0
+
+    def add_pod(shape):
+        nonlocal serial
+        cpu, mem = shape
+        pod = PodSpec(name=f"enc-{serial}", requests={"cpu": f"{cpu}m", "memory": f"{mem}Mi"},
+                      unschedulable=True)
+        serial += 1
+        cluster.apply_pod(pod)
+        return pod
+
+    pods_per_node = 100
+    nodes = []
+    for n in range(num_pods // pods_per_node):
+        node = NodeSpec(name=f"enc-n{n}", capacity={"cpu": 512.0, "memory": 1 << 20})
+        cluster.create_node(node)
+        nodes.append(node)
+    bound = []
+    for i in range(num_pods):
+        pod = add_pod(shapes[i % len(shapes)])
+        cluster.bind_pod(pod, nodes[i // pods_per_node])
+        bound.append(pod)
+    setup_s = time.perf_counter() - setup_start
+
+    # Warm pass: the first flush (a rebuild and a full upload) and one
+    # untimed churn sweep, so the timed sweeps are the steady state.
+    state.pending_groups()
+    cluster.delete_pod(bound[0].namespace, bound[0].name)
+    bound.pop(0)
+    state.pending_groups()
+    synchronize(device)
+
+    # The full snapshot rebuild a restarted consumer pays.
+    start = time.perf_counter()
+    DeviceClusterState(cluster, subscribe=False, device=device).pending_groups()
+    synchronize(device)
+    encode_rebuild_ms = (time.perf_counter() - start) * 1e3
+
+    def assert_parity():
+        got = state.pending_groups()
+        want = group_pods([p for p in cluster.list_pods() if p.is_provisionable()])
+        check(np.array_equal(got.vectors, want.vectors) and np.array_equal(got.counts, want.counts),
+              "the incremental encode diverged from group_pods over the store")
+        check(same_bits(got.device_vectors[: got.num_groups].cpu(), torch.from_numpy(want.vectors))
+              and same_bits(got.device_counts[: got.num_groups].cpu(), torch.from_numpy(want.counts))
+              and not got.device_counts[got.num_groups :].any(),
+              "the sorted device view differs from group_pods over the store")
+        for probe in (nodes[0], nodes[len(nodes) // 2], nodes[-1]):
+            walk = np.zeros(8, np.float64)
+            for p in cluster.list_pods(node_name=probe.name):
+                if not p.is_terminal():
+                    walk += p.dense_vector[0].astype(np.float64)
+            used = state.node_used(probe.name)
+            check(used is not None and np.array_equal(used, walk), "node_used diverged from the pod walk")
+        check(device_arrays_match_mirrors(state), "the device arrays differ from the host mirrors")
+
+    churn = max(int(num_pods * churn_fraction), 2)
+    samples = []
+    arrivals = []
+    deltas = []
+
+    def churn_sweep(sweep):
+        nonlocal arrivals
+        for pod, node in arrivals:
+            cluster.bind_pod(pod, node)
+        arrivals = []
+        for pod in bound[: churn // 2]:
+            cluster.delete_pod(pod.namespace, pod.name)
+        del bound[: churn // 2]
+        fresh_shape = (250 * (17 + sweep), 256 * (3 + sweep % 5))
+        for i in range(churn - churn // 2):
+            pod = add_pod(fresh_shape if i % 4 == 0 else shapes[i % len(shapes)])
+            arrivals.append((pod, nodes[(sweep * 31 + i) % len(nodes)]))
+            bound.append(pod)
+
+    incremental.scatter.launches = 0
+    incremental.gather.launches = 0
+    flushes = 0
+    for sweep in range(sweeps):
+        churn_sweep(sweep)
+        with state._lock:
+            deltas.append((len(state._group_dirty), len(state._node_dirty)))
+        synchronize(device)
+        start = time.perf_counter()
+        state.pending_groups()
+        synchronize(device)
+        samples.append((time.perf_counter() - start) * 1e3)
+        flushes += 1
+        if (sweep + 1) % parity_every == 0:
+            assert_parity()
+            flushes += 1
+    assert_parity()
+    flushes += 1
+    launches = {"scatter": incremental.scatter.launches, "gather": incremental.gather.launches}
+    check(launches["scatter"] > 0 and launches["gather"] > 0,
+          f"the churn sweeps did not launch both K8 kernels: {launches}")
+    group_density, node_density = state.tombstone_density()
+    phase(
+        "incremental", pods=num_pods, nodes=len(nodes), churn_per_sweep=churn, sweeps=sweeps,
+        setup_s=f"{setup_s:.1f}",
+        encode_delta_ms=f"{np.percentile(samples, 50):.3f}",
+        encode_delta_p99_ms=f"{np.percentile(samples, 99):.3f}",
+        encode_rebuild_ms=f"{encode_rebuild_ms:.3f}",
+        scatter_launches=launches["scatter"], gather_launches=launches["gather"], flushes=flushes,
+        delta_rows="{}/{}".format(*np.max(deltas, axis=0)),
+        rebuilds=state.rebuild_count, compactions=state.compaction_count,
+        tombstone_density=f"{group_density:.4f}", parity_checks=sweeps // parity_every + 2,
+    )
+    return {"state": state, "launches": launches, "flushes": flushes, "deltas": deltas}
+
+
+def k8_sweep_operands(state, deltas, device):
+    """The K8 work of one steady-state sweep on `state`'s arrays: the
+    scatters of a flush with the largest delta the sweeps saw (group and
+    node rows at their slots) and the two gathers of the sorted view."""
+    from karpenter_tpu_torch.convert import upload_packed
+    from karpenter_tpu_torch.ops.incremental import pad_indices
+
+    rng = np.random.default_rng(5)
+    _, dev = state.device_view()
+    group_rows, node_rows = (int(n) for n in np.max(deltas, axis=0))
+    g_cap, n_cap = dev["group_vectors"].shape[0], dev["node_capacity"].shape[0]
+    with state._lock:
+        live_groups = np.nonzero(state._group_live)[0].astype(np.int32)
+        live_nodes = np.nonzero(state._node_live)[0].astype(np.int32)
+    g_idx = pad_indices(np.sort(rng.choice(live_groups, min(group_rows, len(live_groups)), replace=False)), g_cap)
+    n_idx = pad_indices(np.sort(rng.choice(live_nodes, min(node_rows, len(live_nodes)), replace=False)), n_cap)
+    perm = pad_indices(live_groups, g_cap)
+    host = [
+        g_idx, rng.uniform(0, 1e4, (len(g_idx), 8)).astype(np.float32),
+        rng.integers(0, 1000, len(g_idx)).astype(np.int32),
+        n_idx, rng.uniform(0, 1e4, (len(n_idx), 8)).astype(np.float32),
+        rng.uniform(0, 1e4, (len(n_idx), 8)).astype(np.float32), np.ones(len(n_idx), bool), perm,
+    ]
+    g_idx_t, g_rows, g_counts, n_idx_t, n_cap_rows, n_used, n_live, perm_t = upload_packed(host, device)
+    scatters = [
+        (dev["group_vectors"], g_idx_t, g_rows), (dev["group_counts"], g_idx_t, g_counts),
+        (dev["node_capacity"], n_idx_t, n_cap_rows), (dev["node_used"], n_idx_t, n_used),
+        (dev["node_live"], n_idx_t, n_live),
+    ]
+    gathers = [(dev["group_vectors"], perm_t), (dev["group_counts"], perm_t)]
+    # Bytes the kernels move: every index read, each in-range row read and
+    # written by the scatter; the permutation read, each in-range row read
+    # and every output row written by the gather.
+    real_g, real_n, real_p = group_rows, node_rows, len(live_groups)
+    moved = 0
+    for (dst, idx, rows), real in zip(scatters, (real_g, real_g, real_n, real_n, real_n)):
+        row_bytes = rows[0].numel() * rows.element_size()
+        moved += 4 * idx.shape[0] + 2 * real * row_bytes
+    for src, index in gathers:
+        row_bytes = src[0].numel() * src.element_size()
+        moved += 4 * index.shape[0] + real_p * row_bytes + index.shape[0] * row_bytes
+    return scatters, gathers, moved
+
+
+def fast_path_phase(catalog, cost_solver, device, cpu_cost: float, num_pods: int = NUM_PODS) -> dict:
+    """The provisioning pass's fast path: the main path's 50,000 pending
+    pods tracked by a DeviceClusterState on the card; encode_schedule hands
+    CostSolver.solve_many_pipelined a pre-encoded pair whose pod tensors are
+    already on the card. Held to the snapshot path (solve_many over the
+    same pods: the same plan) and to the port's CPU run of these pods
+    (`cpu_cost`: $/hr within 1e-4); K1-K4 launched once each; no
+    pod tensor crosses host->device, and a warm solve uploads nothing
+    (convert.upload_packed's counters); encode and
+    dispatch pass under torch.cuda.set_sync_debug_mode("error"). Then 1%
+    churn on the backlog and the same again, K8 launched."""
+    import torch
+
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.controllers.cluster import Cluster
+    from karpenter_tpu_torch.convert import upload_packed
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.models.cluster_state import DeviceClusterState
+    from karpenter_tpu_torch.ops import cuda_kernels, incremental, pack_kernel, score_kernel
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    pods, _ = make_workload(num_pods)
+    start = time.perf_counter()
+    cluster = Cluster()
+    state = DeviceClusterState(cluster, device=device)
+    for pod in pods:
+        cluster.apply_pod(pod)
+    setup_s = time.perf_counter() - start
+    constraints = Constraints()
+    kernels = {
+        "dominance_prices": cuda_kernels.dominance_prices, "pack_kernel": pack_kernel.pack_kernel,
+        "lp_relax": score_kernel.lp_relax, "compact_plan": pack_kernel.compact_plan,
+    }
+
+    def pending():
+        return [p for p in cluster.list_pods() if p.is_provisionable()]
+
+    def uploads():
+        return upload_packed.copies, upload_packed.arrays, upload_packed.bytes
+
+    def fast_solve(batch):
+        """One fast-path solve: counts zeroed just before, read after;
+        encode and dispatch under the sync check."""
+        for fn in kernels.values():
+            fn.launches = 0
+        incremental.scatter.launches = incremental.gather.launches = 0
+        synchronize(device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start = time.perf_counter()
+            pair = state.encode_schedule(batch, catalog, constraints, [])
+            encode_ms = (time.perf_counter() - start) * 1e3
+            check(pair is not None and pair[0].device_vectors is not None,
+                  "encode_schedule did not cover the backlog")
+            before = uploads()
+            stream = cost_solver.solve_many_pipelined([pair])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        (result,) = list(stream)
+        after = uploads()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        check(all(count == 1 for count in launches.values()),
+              f"the fast-path solve did not launch each of K1-K4 exactly once: {launches}")
+        k8 = {"scatter": incremental.scatter.launches, "gather": incremental.gather.launches}
+        return pair, result, encode_ms, tuple(b - a for a, b in zip(before, after)), launches, k8
+
+    fleet_arrays = None
+    rounds = []
+    for label in ("backlog", "churned"):
+        batch = pending()
+        pack_kernel.reset_device_resident()
+        pair, result, encode_fast_ms, cold_uploads, launches, k8 = fast_solve(batch)
+        fleet_arrays = fleet_arrays or sum(
+            -(-np.asarray(a).nbytes // 16) * 16
+            for a in solver.pad_kernel_args(pair[0].vectors, pair[0].counts, pair[1].capacity,
+                                            pair[1].total, pair[1].prices)[2:])
+        # Cold (the fleet not resident): exactly the four fleet arrays went
+        # up, so no pod tensor did.
+        check(cold_uploads == (1, 4, fleet_arrays),
+              f"the {label} fast-path solve uploaded {cold_uploads}, not the fleet's 4 arrays alone")
+        check(k8["gather"] == 2, f"the {label} encode launched K8's gather {k8['gather']} times, not 2")
+        check(all_pods_placed_once(result, batch), f"the {label} fast path did not place every pod once")
+        # Warm: the same pair again uploads nothing.
+        before = uploads()
+        (again,) = list(cost_solver.solve_many_pipelined([pair]))
+        synchronize(device)
+        warm_uploads = tuple(b - a for a, b in zip(before, uploads()))
+        check(warm_uploads == (0, 0, 0), f"the warm {label} fast-path solve copied to the card: {warm_uploads}")
+        check(plan_signature(again) == plan_signature(result), f"two {label} fast-path solves differ")
+        (snapshot,) = cost_solver.solve_many([(batch, catalog, constraints, ())])
+        check(plan_signature(result) == plan_signature(snapshot),
+              f"the {label} fast path's plan differs from the snapshot path's")
+        check(result.projected_cost() == snapshot.projected_cost(), "fast and snapshot $/hr differ")
+        rounds.append({"label": label, "k8": k8, "encode_fast_ms": encode_fast_ms,
+                       "cost": result.projected_cost(), "nodes": result.node_count})
+        if label == "backlog":
+            cpu_rel = abs(result.projected_cost() - cpu_cost) / cpu_cost
+            check(cpu_rel <= 1e-4, f"fast-path $/hr differs between the card and the CPU by {cpu_rel:.3e}")
+            # Warm p50s, 10 runs each: the fast path (encode + solve) and the
+            # snapshot path (group_pods + build_fleet + solve).
+            fast_ms, snap_ms, skipped_ms = [], [], []
+            for _ in range(10):
+                start = time.perf_counter()
+                fast_pair = state.encode_schedule(batch, catalog, constraints, [])
+                list(cost_solver.solve_many_pipelined([fast_pair]))
+                fast_ms.append((time.perf_counter() - start) * 1e3)
+                start = time.perf_counter()
+                cost_solver.solve_many([(batch, catalog, constraints, ())])
+                snap_ms.append((time.perf_counter() - start) * 1e3)
+                start = time.perf_counter()
+                snap_groups = group_pods(batch)
+                build_fleet(catalog, constraints, batch, pods_need=snap_groups.vectors.max(axis=0))
+                skipped_ms.append((time.perf_counter() - start) * 1e3)
+            # 1% churn on the backlog, twice: half the churn deleted, half
+            # new pending pods (a quarter of them in a new shape no larger
+            # than the backlog's largest, so the fleet keeps its content).
+            # The first churn grows the group slots past their bucket of 16
+            # (a full upload, a new epoch); the second is the steady state,
+            # a flush of K8 scatters.
+            from karpenter_tpu_torch.api.pods import PodSpec
+
+            churn = len(batch) // 100
+            for step in range(2):
+                for pod in batch[step * churn : step * churn + churn // 2]:
+                    cluster.delete_pod(pod.namespace, pod.name)
+                for i in range(churn - churn // 2):
+                    cpu, mem = (1250, 1280) if i % 4 == 0 else pod_shapes(0)[i % 16]
+                    cluster.apply_pod(PodSpec(name=f"churn-{step}-{i}", unschedulable=True,
+                                              requests={"cpu": f"{cpu}m", "memory": f"{mem}Mi"}))
+                if step == 0:
+                    state.flush()
+    check(rounds[1]["k8"]["scatter"] > 0, f"the churned encode launched no K8 scatter: {rounds[1]['k8']}")
+
+    # Time to the first result of an 8-schedule pipelined solve, against
+    # the batch solve of the same schedules.
+    batch = pending()
+    encoded = solver.Solver._encode_problems([(batch[k::8], catalog, constraints, ()) for k in range(8)])
+    cost_solver.solve_encoded_many(encoded)  # warm
+    start = time.perf_counter()
+    stream = cost_solver.solve_encoded_pipelined(encoded)
+    piped = [next(stream)]
+    first_ms = (time.perf_counter() - start) * 1e3
+    piped += list(stream)
+    piped_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    batched = cost_solver.solve_encoded_many(encoded)
+    batch_ms = (time.perf_counter() - start) * 1e3
+    check([plan_signature(r) for r in piped] == [plan_signature(r) for r in batched],
+          "the pipelined and batched solves of 8 schedules differ")
+    phase(
+        "fast_path", pods=num_pods, types=len(catalog), setup_s=f"{setup_s:.1f}",
+        nodes=rounds[0]["nodes"], cost_per_hr=f"{rounds[0]['cost']:.6f}", cpu_cost_rel_diff=f"{cpu_rel:.3e}",
+        plan="identical to the snapshot path", pod_h2d="none", warm_fleet_uploads=0,
+        encode_dispatch_sync_free="yes", launches=json.dumps(launches, separators=(",", ":")),
+        fast_p50_ms=f"{np.percentile(fast_ms, 50):.3f}", snapshot_p50_ms=f"{np.percentile(snap_ms, 50):.3f}",
+        encode_fast_ms=f"{rounds[0]['encode_fast_ms']:.3f}",
+        encode_skipped_ms=f"{np.percentile(skipped_ms, 50):.3f}",
+        churned_k8=json.dumps(rounds[1]["k8"], separators=(",", ":")),
+        churned_encode_ms=f"{rounds[1]['encode_fast_ms']:.3f}", churned_cost_per_hr=f"{rounds[1]['cost']:.6f}",
+        first_result_ms=f"{first_ms:.3f}", pipelined8_ms=f"{piped_ms:.3f}", batch8_ms=f"{batch_ms:.3f}",
+    )
+    return {"encoded": encoded, "plans": [plan_signature(r) for r in batched]}
+
+
+def oom_ladder_phase(cost_solver, encoded, clean) -> None:
+    """The device-memory ladder on the card, on the fast path's 8-schedule
+    batch: an injected out-of-memory fault at one and two split depths, the
+    KARPENTER_HBM_BYTES pre-split, and a fault in the middle of the
+    pipeline each give the unarmed run's plans bit for bit, and the split
+    counter counts them; the floor is never reached."""
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.utils import faultpoints
+
+    def split(reason):
+        return solver.SOLVER_BATCH_SPLIT_TOTAL.get(reason)
+
+    floor = split("floor")
+    counted = {}
+    for depth in (1, 2):
+        before = split("oom")
+        faultpoints.arm("solver.dispatch", "oom", count=depth)
+        try:
+            plans = [plan_signature(r) for r in cost_solver.solve_encoded_many(encoded)]
+            fired = faultpoints.fired("solver.dispatch")
+        finally:
+            faultpoints.disarm_all()
+        check(plans == clean, f"the bisect at depth {depth} changed the plans")
+        check(fired == depth and split("oom") == before + depth,
+              f"depth {depth}: {fired} faults fired, {split('oom') - before} bisects counted")
+        counted[f"oom{depth}"] = split("oom") - before
+    one = max(solver._estimate_solve_bytes(*item) for item in encoded)
+    before = split("estimate")
+    os.environ["KARPENTER_HBM_BYTES"] = str(2.5 * one / solver.HBM_SAFETY_FACTOR)
+    try:
+        chunks = len(solver._presplit_for_hbm(encoded, cost_solver.device))
+        plans = [plan_signature(r) for r in cost_solver.solve_encoded_many(encoded)]
+    finally:
+        del os.environ["KARPENTER_HBM_BYTES"]
+    check(chunks > 1 and plans == clean and split("estimate") == before + chunks - 1,
+          f"the HBM pre-split gave {chunks} chunks, {split('estimate') - before} counted")
+    counted["estimate"] = split("estimate") - before
+    before = split("oom")
+    stream = cost_solver.solve_encoded_pipelined(encoded)
+    plans = [plan_signature(next(stream))]
+    faultpoints.arm("solver.dispatch", "oom", count=1)
+    try:
+        plans += [plan_signature(r) for r in stream]
+    finally:
+        faultpoints.disarm_all()
+    check(plans == clean and split("oom") == before + 1, "the mid-pipeline fault changed the plans")
+    counted["mid_pipeline"] = split("oom") - before
+    check(split("floor") == floor, "the ladder reached its floor")
+    phase("oom_ladder", schedules=len(encoded), plans="bit-identical", floor=0,
+          **{key: value for key, value in counted.items()})
+
+
 def main() -> int:
     import torch
 
@@ -1356,7 +1899,7 @@ def main() -> int:
     from karpenter_tpu_torch.convert import fused_args_from_numpy, upload_packed
     from karpenter_tpu_torch.models import solver
     from karpenter_tpu_torch.ops import (
-        consolidate_kernel, cuda_build, cuda_kernels, native, pack_kernel, score_kernel,
+        consolidate_kernel, cuda_build, cuda_kernels, incremental, native, pack_kernel, score_kernel,
     )
     from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
 
@@ -1376,6 +1919,7 @@ def main() -> int:
     libraries = [
         cuda_kernels.LIBRARY, pack_kernel.LIBRARY, score_kernel.LIBRARY,
         pack_kernel.COMPACT_LIBRARY, consolidate_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
+        incremental.LIBRARY,
     ]
     build_s = cuda_build.build_all(libraries)
     for library in libraries:
@@ -1541,9 +2085,11 @@ def main() -> int:
             again = pack_kernel.pack_kernel_levels(*tensors, mode=mode)
             torch.cuda.synchronize()
             check(level_packs_equal(got, again), f"two launches of K6 differ on {name}")
+    # K8 on every case of k8_cases, bit for bit.
+    k8 = k8_check(device)
     phase("kernels", k1_cases=k1_cases, k2_cases=k2_cases, k3_cases=k3_cases, k4_cases=k4_cases,
-          k6_cases=k6_cases_run, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err, k3_max_abs_err=k3_err,
-          k4_max_abs_err=k4_err, k6_max_abs_err=k6_err,
+          k6_cases=k6_cases_run, k8_cases=k8["cases"], k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
+          k3_max_abs_err=k3_err, k4_max_abs_err=k4_err, k6_max_abs_err=k6_err, k8_max_abs_err=0,
           k3_objective_rel_err=f"{k3_obj_err:.3e}", k3_main_objective_rel_err=f"{main_obj_err:.3e}")
 
     # 4. the main path, through the entry point a user calls.
@@ -1628,16 +2174,23 @@ def main() -> int:
         check(all_pods_placed_once(schedule_result, schedule_pods), "a batched schedule lost pods")
     phase("batch", schedules=len(batch), pods=sum(len(b[0]) for b in batch), batch8_ms=f"{batch_ms:.3f}")
 
-    # 7. the consolidation path: one sweep at the large-cluster envelope.
+    # 7. the incremental encode under steady-state churn (K8), the
+    # provisioning pass's fast path through it, and the device-memory
+    # ladder on the fast path's 8-schedule batch.
+    churn = incremental_phase(device)
+    fast = fast_path_phase(catalog, cost_solver, device, cpu_cost)
+    oom_ladder_phase(cost_solver, fast["encoded"], fast["plans"])
+
+    # 8. the consolidation path: one sweep at the large-cluster envelope.
     sweep = consolidate_phase(catalog, device)
     k7_operands = sweep["operands"]
     c_pad, g_pad, dims_c = k7_operands[0].shape
 
-    # 8. the constrained path: the main path's pods under a zonal spread
+    # 9. the constrained path: the main path's pods under a zonal spread
     # and two preferences, through Scheduler and solve_constrained.
     levels = constrained_phase(catalog, device)
 
-    # 9. many shapes: K2 and K3 past the sizes they once refused.
+    # 10. many shapes: K2 and K3 past the sizes they once refused.
     large = large_shapes_phase(catalog, device)
     plan_cases = 0
     plan_err = 0.0
@@ -1659,7 +2212,7 @@ def main() -> int:
           f"K2 at T 8192: {pack_kernel.pack_launch_plan(16, 8192, 8)}, "
           f"K3 at G 2048 T 2048: {score_kernel.lp_launch_plan(2048, 2048, 8)}")
 
-    # 10. kernel timing at the main path's shapes.
+    # 11. kernel timing at the main path's shapes.
     num_types, dims = capacity.shape
     num_groups = vectors.shape[0]
     valid_prices = torch.where(valid, prices, torch.inf)
@@ -1823,6 +2376,33 @@ def main() -> int:
         "ms": k6_ms, "event_ms": k6_event_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound,
         "bound_by": k6_by, "library_ms": None,
     })
+    # K8: one steady-state sweep's scatters and gathers on the churn
+    # phase's arrays.
+    k8_scatters, k8_gathers, k8_bytes = k8_sweep_operands(churn["state"], churn["deltas"], device)
+
+    def k8_call(scatter=incremental.scatter, gather=incremental.gather):
+        for dst, idx, rows in k8_scatters:
+            scatter(dst, idx, rows)
+        for src, perm in k8_gathers:
+            gather(src, perm)
+
+    k8_ms = device_ms_per_call(k8_call, ["scatter_kernel", "gather_kernel"], reps=50,
+                               launches_per_call=len(k8_scatters) + len(k8_gathers))
+    k8_event_ms = time_cuda(k8_call, reps=50)
+    k8_plain_ms = time_cuda(functools.partial(
+        k8_call, incremental._scatter_ref, incremental._gather_ref), reps=20)
+    k8_bound, k8_by = bound(k8_bytes, 0)
+    kernels.append({
+        "name": "incremental_scatter_gather", "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/incremental.cu",
+        "replaces": "karpenter_tpu/ops/incremental.py:37",
+        "launches": churn["launches"]["scatter"] + churn["launches"]["gather"], "max_abs_err": 0.0,
+        "ms": k8_ms, "event_ms": k8_event_ms, "plain_ms": k8_plain_ms, "bound_ms": k8_bound,
+        "bound_by": k8_by, "library_ms": None,
+        "launches_scatter": churn["launches"]["scatter"], "launches_gather": churn["launches"]["gather"],
+        "flushes": churn["flushes"], "cases": k8["cases"],
+        "bytes": k8_bytes,
+    })
     # K2 and K3 at the many-shapes schedule's padded G 2,048: milliseconds
     # a launch, so CUDA events around the wrapper.
     big_args = large["args"]
@@ -1835,7 +2415,7 @@ def main() -> int:
           k6_shapes="G={},T={},L={}".format(k6_operands[0].shape[0], k6_operands[2].shape[0], k6_operands[1].shape[0]),
           k2_g2048_ms=f"{k2_big_ms:.4f}", k3_g2048_ms=f"{k3_big_ms:.4f}")
 
-    # 11. where one warm solve's time goes, layer by layer, and the device's
+    # 12. where one warm solve's time goes, layer by layer, and the device's
     # busy share of a solve.
     layers = layer_breakdown(groups, fleet, device)
     phase("layers", **{name: f"{ms:.3f}" for name, ms in layers.items()})
@@ -1844,6 +2424,8 @@ def main() -> int:
           busy_share=f"{busy['busy_share']:.4f}", device_launches=busy["device_launches"])
     for key, count, ms in busy["top"]:
         print(f"  device {ms:9.3f} ms  x{count:<6d} {key}")
+    check(solver.SOLVER_BATCH_SPLIT_TOTAL.get("floor") == 0,
+          "a solve reached the device-memory ladder's floor")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

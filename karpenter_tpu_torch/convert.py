@@ -6,7 +6,7 @@ padded numpy arrays; `fused_args_from_numpy` places them on a torch device
 with the dtypes the fused solve takes, and `fused_outputs_to_numpy` brings the
 fused solve's four outputs back as numpy, so a test compares like with like.
 `upload_packed` is the one way numpy arrays reach a device: for the card, one
-pinned buffer and one copy.
+pinned buffer and one copy, counted.
 """
 
 from __future__ import annotations
@@ -75,6 +75,9 @@ def upload_packed(arrays, device) -> Tuple[torch.Tensor, ...]:
     for array in arrays:
         offsets.append(total)
         total += -(-array.nbytes // _ALIGN) * _ALIGN
+    upload_packed.copies += 1
+    upload_packed.arrays += len(arrays)
+    upload_packed.bytes += total
     host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
     host_bytes = host.numpy()
     for array, offset in zip(arrays, offsets):
@@ -84,3 +87,11 @@ def upload_packed(arrays, device) -> Tuple[torch.Tensor, ...]:
         on_card[offset : offset + array.nbytes].view(_TORCH_DTYPES[array.dtype]).view(array.shape)
         for array, offset in zip(arrays, offsets)
     )
+
+
+# Host->device transfers to the card, the arrays and the (aligned) bytes
+# they carried: a run reads them to show which arrays crossed (the fast path
+# uploads no pod tensor, a warm solve no fleet array).
+upload_packed.copies = 0
+upload_packed.arrays = 0
+upload_packed.bytes = 0

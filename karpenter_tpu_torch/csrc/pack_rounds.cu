@@ -135,49 +135,73 @@ __device__ __forceinline__ float div_pos(float a, float b) {
 
 // weighted = fills @ group_weight from 64 groups on, in the order the
 // reference's XLA program on the CPU takes it (ops/pack_kernel.py
-// _weighted_sums): LLVM vectorises the dot 8 lanes by 4 accumulators, 32
-// groups a step. Two steps, unrolled, fuse into one chain a lane over the
-// chunks of 8 groups 0, 4, 5, 1, 6, 2, 7, 3; four steps and more keep four
-// chains a lane (chunks 4i + u), added in turn. The lanes are summed
-// pairwise, then the groups past the last whole step chain on. Fused
-// multiply-adds throughout; a fill of 0 adds an exact 0. Below 64 groups
-// the order is one chain over ascending g, which the scan accumulates.
+// _dot_plan and _weighted_sums): LLVM vectorises the dot 8 lanes by A
+// accumulators, a chunk 8 groups. Over 9 rows (types, or levels x types)
+// or more, A is 4 and the steps of 32 groups unroll at two steps only;
+// over one row likewise, unrolled up to 256 groups; over 2 to 8 rows the
+// fills are read with a stride: A is 2 at 64 groups and 4 past it, the
+// last step is left to the scalar chain, and the steps unroll up to 256
+// groups. Unrolled, a lane is one chain: accumulator 0's chunks over the
+// steps in order, then each later accumulator's over the steps 1, 0, 2,
+// 3, ...; looped, each accumulator chains its chunks in order and the A
+// chains are added in turn. The lanes are summed pairwise, then the groups
+// past the vectorised steps chain on. Fused multiply-adds throughout; a
+// fill of 0 adds an exact 0. Below 64 groups the order is one chain over
+// ascending g, which the scan accumulates.
 constexpr int kDotSteps = 32;
 constexpr int kDotLanes = 8;
+constexpr int kNarrowRows = 8;
+constexpr int kUnrolledGroups = 256;
 
 __device__ __forceinline__ float weighted_in_reference_order(const int* fills, int stride,
-                                                             const float* weight, int groups) {
-  const int steps = groups / kDotSteps;
+                                                             const float* weight, int groups,
+                                                             int rows) {
+  int accumulators = 4;
+  int steps;
+  bool unrolled;
+  if (rows > kNarrowRows) {
+    steps = groups / kDotSteps;
+    unrolled = steps < 4;
+  } else if (rows == 1) {
+    steps = groups / kDotSteps;
+    unrolled = groups <= kUnrolledGroups;
+  } else {
+    accumulators = groups <= 2 * kDotSteps ? 2 : 4;
+    steps = groups / (kDotLanes * accumulators) - 1;
+    unrolled = groups <= kUnrolledGroups;
+  }
+  const int step = kDotLanes * accumulators;
   float lanes[kDotLanes];
 #pragma unroll
   for (int j = 0; j < kDotLanes; ++j) {
     float acc = 0.0f;
-    if (steps >= 4) {
-      for (int u = 0; u < 4; ++u) {
+    if (unrolled) {
+      for (int i = 0; i < steps; ++i) {
+        const int g = step * i + j;
+        acc = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], acc);
+      }
+      for (int u = 1; u < accumulators; ++u) {
+        for (int k = 0; k < steps; ++k) {
+          const int i = (steps >= 2 && k < 2) ? 1 - k : k;
+          const int g = step * i + kDotLanes * u + j;
+          acc = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], acc);
+        }
+      }
+    } else {
+      for (int u = 0; u < accumulators; ++u) {
         float chain = 0.0f;
         for (int i = 0; i < steps; ++i) {
-          const int g = kDotSteps * i + kDotLanes * u + j;
+          const int g = step * i + kDotLanes * u + j;
           chain = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], chain);
         }
         acc = u == 0 ? chain : __fadd_rn(chain, acc);
-      }
-    } else {
-      for (int i = 0; i < steps; ++i) {
-        const int g = kDotSteps * i + j;
-        acc = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], acc);
-      }
-      for (int u = 1; u < 4; ++u) {
-        for (int i = steps - 1; i >= 0; --i) {
-          const int g = kDotSteps * i + kDotLanes * u + j;
-          acc = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], acc);
-        }
       }
     }
     lanes[j] = acc;
   }
   float total = __fadd_rn(__fadd_rn(__fadd_rn(lanes[0], lanes[4]), __fadd_rn(lanes[2], lanes[6])),
                           __fadd_rn(__fadd_rn(lanes[1], lanes[5]), __fadd_rn(lanes[3], lanes[7])));
-  for (int g = steps * kDotSteps; g < groups; ++g) {
+  for (int g = steps * step; g < groups; ++g) {
     total = __fmaf_rn(static_cast<float>(fills[size_t(g) * stride]), weight[g], total);
   }
   return total;
@@ -386,7 +410,7 @@ pack_rounds_kernel(const float* __restrict__ vectors,
           }
         }
         if (mode == kModeCost && groups >= 2 * kDotSteps) {
-          weighted = weighted_in_reference_order(fills + t, types, s_weight, groups);
+          weighted = weighted_in_reference_order(fills + t, types, s_weight, groups, types);
         }
       } else {
         for (int g = 0; g < groups; ++g) fills[size_t(g) * types + t] = 0;

@@ -11,10 +11,15 @@ The device is explicit: CostSolver(device=None) runs on the CUDA card and
 raises without one (karpenter_tpu_torch/device.py); device="cpu" runs the
 kernels' plain PyTorch versions.
 
+Pod tensors may arrive already on the device (the incremental encode's
+sorted gather, models/cluster_state.py); the fleet arrays ride the
+device_resident cache; the pipelined solve hands results back one schedule
+at a time; and the batched paths survive device-memory exhaustion by
+pre-splitting and bisecting the batch.
+
 Left out of this slice, against the reference: the sharded and mesh path,
-break-even calibration, the device-memory bisect ladder, device-resident
-caching, incremental-encode device pods, metrics and tracing, TPUSolver and
-the market hooks in the pool-price matrix.
+break-even calibration, tracing spans, TPUSolver and the market hooks in the
+pool-price matrix.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import functools
 import os
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +37,6 @@ import torch
 from karpenter_tpu_torch.api.pods import PodSpec
 from karpenter_tpu_torch.api.provisioner import Constraints
 from karpenter_tpu_torch.cloudprovider import InstanceType
-from karpenter_tpu_torch.convert import fused_args_from_numpy
 from karpenter_tpu_torch.device import resolve_device
 from karpenter_tpu_torch.ops import ffd
 from karpenter_tpu_torch.ops import mix_pack
@@ -45,6 +49,7 @@ from karpenter_tpu_torch.ops.pack_kernel import (
     decompact_plan,
     max_rounds,
     pack_kernel_pair,
+    device_resident,
     pad_to,
 )
 from karpenter_tpu_torch.ops.score_kernel import (
@@ -53,6 +58,7 @@ from karpenter_tpu_torch.ops.score_kernel import (
     round_assignment,
 )
 from karpenter_tpu_torch.utils import logging as klog
+from karpenter_tpu_torch.utils.metrics import REGISTRY
 
 # The plain LP's einsums (the CPU path, and what K3 is held against on the
 # card) must stay in full fp32: TF32 would keep about three decimal digits.
@@ -60,12 +66,36 @@ from karpenter_tpu_torch.utils import logging as klog
 # on it.
 torch.backends.cuda.matmul.allow_tf32 = False
 
+# Which side of the adaptive dispatch a cost solve was ROUTED to — the
+# first thing to check when solve latency looks wrong for the problem
+# size. Counted at routing time: a device dispatch whose candidates all
+# fail (rare — the caller then falls back to host greedy) still counts as
+# "device", since the routing decision is what the metric explains.
+SOLVE_DISPATCH_TOTAL = REGISTRY.counter(
+    "solver_dispatch_total",
+    "Cost solves by routed dispatch path (host|device)",
+    ["path"],
+)
+# Device-memory survival (CostSolver._solve_batch_survive): batch splits
+# forced by HBM pressure. "estimate" = the pre-dispatch estimator chunked
+# an oversized batch before it could OOM; "oom" = a live RESOURCE_EXHAUSTED
+# bisected the batch and re-dispatched the halves; "floor" = a single
+# schedule still OOMed, so the solve answered from the host path. A
+# climbing "oom" rate with zero "estimate" means the estimator's
+# budget read is wrong for this device.
+SOLVER_BATCH_SPLIT_TOTAL = REGISTRY.counter(
+    "solver_batch_split_total",
+    "Solve-batch splits under device memory pressure (estimate|oom|floor)",
+    ["reason"],
+)
+
+
 
 class Solver(abc.ABC):
     """The solver boundary. Pods must already share one schedule's
     constraints (the scheduler groups them; ref: scheduling/scheduler.go:67).
     `solve` densifies specs then delegates to `solve_encoded`, the
-    tensor-level entry point."""
+    tensor-level entry point the benchmark and sidecar call directly."""
 
     # Device-backed solvers carry build and launch debt the first time each
     # (groups, types) bucket is hit; the constrained solve routes them to the
@@ -92,9 +122,23 @@ class Solver(abc.ABC):
             Tuple[Sequence[PodSpec], Sequence[InstanceType], Constraints, Sequence[PodSpec]]
         ],
     ) -> List[Tuple[PodGroups, InstanceFleet]]:
-        """THE spec->tensor encoding of a problem batch."""
+        """THE spec->tensor encoding of a problem batch, shared by the
+        barrier (solve_many) and pipelined (solve_many_pipelined) paths so
+        they can never drift.
+
+        Encoded-state fast path: a problem may arrive ALREADY encoded as a
+        (PodGroups, InstanceFleet) pair — the incremental encoder
+        (models/cluster_state.DeviceClusterState) hands these over when its
+        delta-maintained tensors cover the batch, and group_pods/build_fleet
+        are skipped entirely (per-sweep encode cost O(churn), not
+        O(cluster)). The pair passes through untouched so the two sources
+        stay interchangeable downstream."""
         encoded = []
-        for pods, instance_types, constraints, daemons in problems:
+        for item in problems:
+            if len(item) == 2 and isinstance(item[0], PodGroups):
+                encoded.append((item[0], item[1]))
+                continue
+            pods, instance_types, constraints, daemons = item
             groups = group_pods(list(pods))
             encoded.append(
                 (
@@ -114,14 +158,43 @@ class Solver(abc.ABC):
         ],
     ) -> List[ffd.PackResult]:
         """Solve a batch of independent schedule problems. Device-backed
-        solvers override solve_encoded_many to share one device->host fetch
-        across the whole batch."""
+        solvers override solve_encoded_many to share one device->host round
+        trip across the whole batch (a pod batch regularly splits into many
+        schedules — ref: provisioner.go solves them in a loop, paying the
+        kernel per schedule)."""
         return self.solve_encoded_many(self._encode_problems(problems))
 
     def solve_encoded_many(
         self, items: Sequence[Tuple[PodGroups, InstanceFleet]]
     ) -> List[ffd.PackResult]:
         return [self.solve_encoded(groups, fleet) for groups, fleet in items]
+
+    def solve_many_pipelined(
+        self,
+        problems: Sequence[
+            Tuple[Sequence[PodSpec], Sequence[InstanceType], Constraints, Sequence[PodSpec]]
+        ],
+    ) -> Iterator[ffd.PackResult]:
+        """solve_many as a generator: results come back one schedule at a
+        time, in order, so the caller can bind schedule N while later
+        schedules are still solving. Device-backed solvers override
+        solve_encoded_pipelined to genuinely overlap the remaining kernels
+        and device->host copies with the caller's bind work; the base
+        implementation solves the whole batch up front and just yields."""
+        return self.solve_encoded_pipelined(self._encode_problems(problems))
+
+    def solve_encoded_pipelined(
+        self, items: Sequence[Tuple[PodGroups, InstanceFleet]]
+    ) -> Iterator[ffd.PackResult]:
+        """Base implementation: solve each schedule ON DEMAND at its pull.
+        Host solvers have no device work to overlap, but lazy per-pull
+        solving keeps the caller's per-schedule timing honest (each
+        SOLVE_DURATION sample in provisioning measures a real solve, not a
+        pre-solved batch) and matches the pipelined contract: work for
+        schedule N+1 happens after schedule N was handed over. Batching
+        solvers (CostSolver, RemoteSolver) override this with genuinely
+        overlapped implementations."""
+        return (self.solve_encoded(groups, fleet) for groups, fleet in items)
 
     @abc.abstractmethod
     def solve_encoded(self, groups: PodGroups, fleet: InstanceFleet) -> ffd.PackResult:
@@ -255,6 +328,9 @@ class FusedHandle(NamedTuple):
     lp: torch.Tensor  # [G*T] float32 — deferred LP assignment
     num_groups: int  # padded G
     num_types: int  # padded T
+    # (pinned host payload, its event) once plan_start_fetch queued the copy;
+    # cost_solve_dispatch passes an empty list.
+    staged: Optional[list] = None
 
 
 class FetchedPlan:
@@ -281,23 +357,53 @@ class FetchedPlan:
         return self._lp
 
 
+def _eager_payload(handle: FusedHandle) -> torch.Tensor:
+    """The compact words and the objective's bits, as one int32 tensor."""
+    return torch.cat([handle.compact, handle.objective.view(torch.int32)])
+
+
+def plan_start_fetch(handle: FusedHandle) -> None:
+    """Queue the EAGER payload's device->host copy behind the dispatched
+    kernels: one cat on the device, one non-blocking copy into pinned host
+    memory and an event the fetch waits on, with no host sync. A no-op on
+    the CPU (nothing to overlap) and for a handle already staged."""
+    if handle.staged is None or handle.staged or handle.compact.device.type != "cuda":
+        return
+    with torch.cuda.device(handle.compact.device):
+        payload = _eager_payload(handle)
+        host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
+        host.copy_(payload, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    handle.staged.append((host, done))
+
+
 def fetch_plans(handles: Sequence[FusedHandle]) -> List[FetchedPlan]:
-    """THE compacted fetch: every handle's eager payload (compact words plus
-    the objective's bits) concatenated on the device and copied to the host
-    in one transfer — one sync for the whole batch — then decoded on the
-    host. A plan that overflowed the entry budget falls back to its dense
+    """THE compacted fetch, then host-side decode. A handle whose copy
+    plan_start_fetch queued waits on its event; the others' eager payloads
+    (compact words plus the objective's bits) are concatenated on the device
+    and copied to the host in one transfer — one sync for the whole batch.
+    A plan that overflowed the entry budget falls back to its dense
     spill."""
-    parts = []
-    for handle in handles:
-        parts += [handle.compact, handle.objective.view(torch.int32)]
-    payload = torch.cat(parts).cpu().numpy()
+    unstaged = [handle for handle in handles if not handle.staged]
+    payload = (
+        torch.cat([_eager_payload(handle) for handle in unstaged]).cpu().numpy()
+        if unstaged
+        else None
+    )
     plans: List[FetchedPlan] = []
     cursor = 0
     for handle in handles:
         size = int(handle.compact.shape[0])
-        compact = payload[cursor : cursor + size]
-        objective = payload[cursor + size : cursor + size + 1].view(np.float32)
-        cursor += size + 1
+        if handle.staged:
+            host, done = handle.staged[0]
+            done.synchronize()
+            words = host.numpy()
+        else:
+            words = payload[cursor : cursor + size + 1]
+            cursor += size + 1
+        compact = words[:size]
+        objective = words[size : size + 1].view(np.float32)
         rounds_ffd, rounds_cost, feasible_any, ok = decompact_plan(
             compact, handle.num_groups
         )
@@ -319,12 +425,16 @@ def fetch_plan(handle: FusedHandle) -> FetchedPlan:
 
 def pad_kernel_args(vectors, counts, capacity, total, prices):
     """Bucket-pad the six dense kernel inputs — THE padding/valid-mask
-    convention, identical to the reference's single-device padding."""
+    convention, identical to the reference's single-device padding. Pod
+    tensors already on the device (the incremental encode's sorted gather)
+    come bucket-padded and pass through."""
     g_pad = bucket_size(int(vectors.shape[0]))
     t_pad = bucket_size(int(capacity.shape[0]))
-    return (
-        pad_to(vectors, g_pad),
-        pad_to(counts.astype(np.int32), g_pad),
+    if isinstance(vectors, torch.Tensor):
+        pods = (vectors, counts)
+    else:
+        pods = (pad_to(vectors, g_pad), pad_to(counts.astype(np.int32), g_pad))
+    return pods + (
         pad_to(capacity, t_pad),
         pad_to(total, t_pad),
         pad_to(np.ones(int(capacity.shape[0]), bool), t_pad),
@@ -568,6 +678,18 @@ LP_REALIZE_SLACK = 0.8
 PRIORITY_DECAY = 0.5
 
 
+def device_pod_args(groups: PodGroups):
+    """The pod-side kernel tensors for a schedule: the encoded-state device
+    tensors when the groups carry them (DeviceClusterState handles — already
+    sorted + bucket-padded, and read-only to every solve kernel), None
+    otherwise (caller uses the host numpy tensors)."""
+    device_vectors = getattr(groups, "device_vectors", None)
+    device_counts = getattr(groups, "device_counts", None)
+    if device_vectors is None or device_counts is None:
+        return None
+    return device_vectors, device_counts
+
+
 def cost_solve_dense(
     vectors: np.ndarray,
     counts: np.ndarray,
@@ -578,6 +700,7 @@ def cost_solve_dense(
     lp_steps: int = 300,
     explain: Optional[dict] = None,
     device=None,
+    device_pods=None,
 ) -> Optional[DenseSolveResult]:
     """The flagship solve on dense tensors only. Returns None when no
     candidate packing exists (caller falls back to host greedy).
@@ -589,7 +712,9 @@ def cost_solve_dense(
     pool_prices may be the [T, Z] array itself or a zero-arg callable
     producing it: the device work is asynchronous, so a callable is
     evaluated in a worker thread while the card computes and the fetch
-    waits."""
+    waits. device_pods, when given, are the schedule's pod tensors already
+    on the device (device_pod_args); the host arrays still serve the gate
+    and the scoring."""
     # Adaptive dispatch: below the device break-even the host candidates
     # answer in milliseconds and carry the cost win.
     if host_solve_enabled(int(np.asarray(counts).sum())):
@@ -602,12 +727,14 @@ def cost_solve_dense(
         if dense is not None:
             return dense
 
+    pod_vectors, pod_counts = device_pods or (vectors, counts)
     fused = cost_solve_dispatch(
-        vectors, counts, capacity, total, prices, lp_steps, device=device
+        pod_vectors, pod_counts, capacity, total, prices, lp_steps, device=device
     )
     # The pool matrix build and the column-LP mix candidate run in a worker
     # thread concurrently with the fetch, which waits on the device with the
     # interpreter lock released.
+    plan_start_fetch(fused)
     overlap = _HostOverlap([(vectors, counts, capacity, pool_prices)])
     overlap.start()
     fetched = fetch_plan(fused)
@@ -620,19 +747,28 @@ def cost_solve_dense(
 
 
 class _HostOverlap:
-    """THE fetch-overlap worker, shared by the single and the batched solve:
-    for each item (vectors, counts, capacity, pool_prices-or-thunk), evaluate
-    the pool-price matrix then the mix candidate, in a thread that runs
-    concurrently with the blocking device fetch. Mix candidates are
-    best-effort (an internal error degrades that item to no-mix); a
+    """THE fetch-overlap worker, shared by the single, the batched and the
+    pipelined solve: for each item (vectors, counts, capacity,
+    pool_prices-or-thunk), evaluate the pool-price matrix then the mix
+    candidate, in a thread that runs concurrently with the blocking device
+    fetch (which waits with the interpreter lock released). Mix candidates
+    are best-effort (an internal error degrades that item to no-mix); a
     pool-matrix failure re-raises on join, since the finish path cannot
-    proceed without it."""
+    proceed without it.
+
+    Items complete IN ORDER and each completion sets a per-item event, so
+    the pipelined consumer (solve_encoded_pipelined) can wait(k) for just
+    its item instead of joining the whole batch — the hand-off that lets
+    schedule k's decode start while later schedules' host work is still
+    running."""
 
     def __init__(self, items: Sequence[Tuple]):
         self._items = list(items)
         self.pool_prices: List = [None] * len(self._items)
         self.mix_plans: List = [None] * len(self._items)
         self._error: Optional[BaseException] = None
+        self._error_index = len(self._items)
+        self._done = [threading.Event() for _ in self._items]
         self._thread = threading.Thread(
             target=self._run, name="solve-host-overlap", daemon=True
         )
@@ -651,6 +787,9 @@ class _HostOverlap:
                 self.pool_prices[index] = pool_prices
             except BaseException as error:  # noqa: BLE001 — re-raised on join
                 self._error = error
+                self._error_index = index
+                for event in self._done[index:]:
+                    event.set()
                 return
             try:
                 self.mix_plans[index] = compute_mix_candidate(
@@ -660,6 +799,15 @@ class _HostOverlap:
                 klog.named("solver").warning(
                     "mix candidate failed; solving without it", exc_info=True
                 )
+            self._done[index].set()
+
+    def wait(self, index: int) -> None:
+        """Block until item `index` is finished; re-raise the pool-matrix
+        error iff it poisoned this item (items before the failure stay
+        usable — their slots were already filled in order)."""
+        self._done[index].wait()
+        if self._error is not None and index >= self._error_index:
+            raise self._error
 
     def join(self) -> Tuple[List, List]:
         self._thread.join()
@@ -731,10 +879,11 @@ def cost_solve_host(
     pool_prices: np.ndarray,
     explain: Optional[dict] = None,
 ) -> Optional[DenseSolveResult]:
-    """Host-only cost solve for small problems: the compiled-C++ greedy FFD
-    plus the column-LP mix, scored identically to the device path's
-    candidates. Returns None when the native library is unavailable —
-    callers fall through to the device path."""
+    """Host-only cost solve for problems under HOST_SOLVE_MAX_PODS: the
+    compiled-C++ greedy FFD (reference-parity guarantee — greedy is always
+    among the candidates) plus the column-LP mix, scored identically to the
+    device path's candidates. Returns None when the native library is
+    unavailable — callers fall through to the device path."""
     from karpenter_tpu_torch.ops import native as native_mod
 
     ffd_result = native_mod.ffd_pack_rounds(
@@ -742,6 +891,7 @@ def cost_solve_host(
     )
     if ffd_result is None:
         return None
+    SOLVE_DISPATCH_TOTAL.inc("host")
     mix_plan = compute_mix_candidate(
         vectors, counts, capacity, pool_prices, allow_single_group=True
     )
@@ -777,6 +927,12 @@ def host_solve_enabled(num_pods: int, batched: bool = False) -> bool:
     return num_pods <= limit
 
 
+# The fused solve's input dtypes, and which inputs are the fleet's (kept
+# resident on the device across solves).
+_FUSED_DTYPES = (np.float32, np.int32, np.float32, np.float32, np.bool_, np.float32)
+_FLEET_RESIDENT = (False, False, True, True, True, True)
+
+
 def cost_solve_dispatch(
     vectors, counts, capacity, total, prices, lp_steps: int = 300, device=None,
 ) -> FusedHandle:
@@ -784,10 +940,24 @@ def cost_solve_dispatch(
     for); pair with a (batchable) fetch + cost_solve_finish. On the card the
     work is asynchronous and this returns before it finishes, with no host
     sync: the host overlap work starts while the card computes, and a batch
-    of schedules shares one device->host round trip."""
+    of schedules shares one device->host round trip.
+
+    Fleet-side arrays ride the device_resident cache: back-to-back solves
+    over the same encoded fleet skip their host->device transfer. Pod
+    tensors already on the device (the incremental encode's sorted gather)
+    pass through untouched: no kernel writes into its inputs, so they stay
+    readable after the solve. Whatever is left goes up in one packed copy."""
+    SOLVE_DISPATCH_TOTAL.inc("device")
     device = resolve_device(device)
     padded = pad_kernel_args(vectors, counts, capacity, total, prices)
-    args = fused_args_from_numpy(*padded, device=device)
+    args = device_resident(
+        [
+            array if isinstance(array, torch.Tensor) else np.asarray(array, dtype=dtype)
+            for array, dtype in zip(padded, _FUSED_DTYPES)
+        ],
+        _FLEET_RESIDENT,
+        device,
+    )
     compact, objective, dense_ints, lp_flat = _cost_fused_body(*args, lp_steps=lp_steps)
     return FusedHandle(
         compact=compact,
@@ -796,6 +966,7 @@ def cost_solve_dispatch(
         lp=lp_flat,
         num_groups=int(padded[0].shape[0]),
         num_types=int(padded[2].shape[0]),
+        staged=[],
     )
 
 
@@ -1082,6 +1253,111 @@ def _realize_lp_dense(
     return round_list, unschedulable_counts
 
 
+# --- device-memory survival --------------------------------------------------
+#
+# A batch of schedules can exceed device memory even though every schedule
+# fits alone: the batched path dispatches all K fused solves before the
+# first fetch, so their [G, T] LP states are live together. Rather than let
+# one oversized sweep crash provisioning, CostSolver bisects on an
+# allocation failure and re-dispatches the halves — each half re-runs the
+# identical per-schedule math, so the recovered plans are bit-identical to
+# the unsplit solve.
+
+# Markers scanned (case-insensitively) over the error text: the injected
+# fault says RESOURCE_EXHAUSTED, torch's allocator "CUDA out of memory".
+_RESOURCE_EXHAUSTED_MARKERS = (
+    "resource_exhausted",
+    "out of memory",
+    "failed to allocate",
+)
+
+
+def _is_resource_exhausted(error: BaseException) -> bool:
+    """True when `error` is a device allocation failure — the recoverable
+    kind the bisect ladder retries: torch's CUDA out-of-memory error, or an
+    error whose text carries one of the markers (the injected fault)."""
+    if isinstance(error, torch.cuda.OutOfMemoryError):
+        return True
+    text = f"{type(error).__name__}: {error}".lower()
+    return any(marker in text for marker in _RESOURCE_EXHAUSTED_MARKERS)
+
+
+# Live [G, T] float32 copies per in-flight solve: LP assignment + Adam m/v +
+# gradient + softmax activations + compaction scratch. A deliberate
+# overestimate — the pre-split only has to be conservative enough that the
+# bisect path stays the rare fallback, not a per-sweep tax.
+_LIVE_TENSOR_COPIES = 6
+# Fraction of the device budget the pre-split packs to — headroom for the
+# runtime's own allocations and fetch staging buffers.
+HBM_SAFETY_FACTOR = 0.8
+
+
+def _hbm_budget_bytes(device=None) -> Optional[float]:
+    """Device memory budget for the pre-dispatch estimator, or None to skip
+    pre-splitting (the CPU reports no limit — the bisect ladder still covers
+    it). KARPENTER_HBM_BYTES overrides for tests; else the card's total
+    memory (torch.cuda.mem_get_info)."""
+    raw = os.environ.get("KARPENTER_HBM_BYTES", "")
+    if raw:
+        try:
+            return float(raw)
+        except ValueError:
+            return None
+    device = torch.device("cpu" if device is None else device)
+    if device.type != "cuda":
+        return None
+    return float(torch.cuda.mem_get_info(device)[1])
+
+
+def _estimate_solve_bytes(groups: PodGroups, fleet: InstanceFleet) -> float:
+    """Rough HBM footprint of one schedule's fused solve: the padded [G, T]
+    LP tensors dominate (the dense plan state is [MR, G] int8 — noise next
+    to float32 [G, T] at scale). Bucketed dims, because that's what the
+    kernel actually allocates."""
+    g = bucket_size(max(1, int(groups.num_groups)))
+    t = bucket_size(max(1, int(fleet.num_types)))
+    return float(g) * float(t) * 4.0 * _LIVE_TENSOR_COPIES
+
+
+def _presplit_for_hbm(
+    items: Sequence[Tuple[PodGroups, InstanceFleet]],
+    device=None,
+) -> List[List[Tuple[PodGroups, InstanceFleet]]]:
+    """Greedily chunk a batch so each chunk's estimated footprint fits the
+    device budget — the cheap pre-check that spares the common oversized
+    sweep a guaranteed OOM + bisect round trip. One chunk (no split) when
+    the budget is unknown or everything fits."""
+    budget = _hbm_budget_bytes(device)
+    if budget is None or len(items) <= 1:
+        return [list(items)]
+    cap = budget * HBM_SAFETY_FACTOR
+    chunks: List[List[Tuple[PodGroups, InstanceFleet]]] = []
+    current: List[Tuple[PodGroups, InstanceFleet]] = []
+    current_bytes = 0.0
+    for item in items:
+        cost = _estimate_solve_bytes(*item)
+        if current and current_bytes + cost > cap:
+            chunks.append(current)
+            current, current_bytes = [], 0.0
+        current.append(item)
+        current_bytes += cost
+    chunks.append(current)
+    return chunks
+
+
+def _maybe_inject_device_oom() -> None:
+    """The solver.dispatch faultpoint: chaos harnesses arm "oom" here to
+    prove the bisect ladder recovers (count=N forces N failures, i.e. N
+    split depths, before a dispatch goes through)."""
+    from karpenter_tpu_torch.utils import faultpoints
+
+    if faultpoints.draw("solver.dispatch") is not None:
+        raise RuntimeError(
+            "RESOURCE_EXHAUSTED: injected device allocation failure "
+            "(faultpoint solver.dispatch)"
+        )
+
+
 class CostSolver(Solver):
     """The flagship: runs pure-greedy FFD, cost-greedy, and the LP-relaxation
     plan on the device, returns the cheapest feasible packing. Because greedy
@@ -1125,6 +1401,7 @@ class CostSolver(Solver):
             lp_steps=self.lp_steps,
             explain=explain,
             device=self.device,
+            device_pods=device_pod_args(groups),
         )
         if dense is None:
             return ffd.pack_groups(fleet, groups)
@@ -1134,12 +1411,19 @@ class CostSolver(Solver):
             )
         return decode_dense_result(dense, groups, fleet, pool_zones)
 
-    def _dispatch_batch(self, items, batched: bool):
-        """Host-solve or dispatch every schedule (the device work queues up
-        asynchronously), and start ONE overlap worker for the pending
-        schedules' host work. Returns (results, pending, zones_box, overlap)
-        where `results` holds the already-finished slots and `pending` the
-        in-flight ones."""
+    def _dispatch_batch(self, items, batched: Optional[bool] = None):
+        """Shared first stage of the batched and pipelined paths: host-solve
+        or dispatch every schedule (async, device->host copies queued), and
+        start ONE overlap worker for the pending schedules' host work.
+        Returns (results, pending, zones_box, overlap) where `results` holds
+        the already-finished slots and pending the in-flight ones.
+
+        `batched` pins the host-gate threshold independently of len(items):
+        the OOM bisect re-dispatches HALVES of a batch, and a singleton half
+        re-gated as unary would flip host/device routing — the recovered
+        plan must be bit-identical to the unsplit solve's."""
+        if batched is None:
+            batched = len(items) > 1
         results: List[Optional[ffd.PackResult]] = [None] * len(items)
         pending = []  # (index, groups, fleet, fused, prebuilt_pool)
         for i, (groups, fleet) in enumerate(items):
@@ -1148,6 +1432,10 @@ class CostSolver(Solver):
                 continue
             prebuilt_pool = None  # (zones, matrix) when the host gate ran
             if host_solve_enabled(int(groups.counts.sum()), batched=batched):
+                # Small schedule: the host path answers in milliseconds —
+                # cheaper than even a SHARED device fetch's slice of work.
+                # A single-item "batch" has no fetch to amortize, so it uses
+                # the unary threshold.
                 prebuilt_pool = _pool_price_matrix(fleet)
                 dense = cost_solve_host(
                     groups.vectors,
@@ -1162,20 +1450,31 @@ class CostSolver(Solver):
                         dense, groups, fleet, prebuilt_pool[0]
                     )
                     continue
-            fused = cost_solve_dispatch(
+            pod_vectors, pod_counts = device_pod_args(groups) or (
                 groups.vectors,
                 groups.counts,
+            )
+            fused = cost_solve_dispatch(
+                pod_vectors,
+                pod_counts,
                 fleet.capacity,
                 fleet.total,
                 fleet.prices,
                 self.lp_steps,
                 device=self.device,
             )
+            plan_start_fetch(fused)
             pending.append((i, groups, fleet, fused, prebuilt_pool))
 
         overlap = None
         zones_box: List[Optional[List[str]]] = [None] * len(pending)
         if pending:
+            # Per-schedule host work (pool matrices + mix candidates) runs in
+            # a worker thread concurrently with the blocking fetches, exactly
+            # like the single-solve path. The thunks stash each fleet's zone
+            # axis so the finish loop doesn't rebuild it, and reuse a matrix
+            # the host-gate branch already built (rare fallthrough: native
+            # overflow after the gate passed).
             def _matrix_thunk(
                 fleet: InstanceFleet, slot: int, prebuilt
             ) -> np.ndarray:
@@ -1218,14 +1517,28 @@ class CostSolver(Solver):
     def solve_encoded_many(
         self, items: Sequence[Tuple[PodGroups, InstanceFleet]]
     ) -> List[ffd.PackResult]:
-        """Batch path: dispatch every schedule's fused solve first, build all
-        pool matrices while the device works, then fetch ALL compacted
-        payloads in one device->host transfer — K schedules cost one sync
-        instead of K."""
+        """Batch path: dispatch every schedule's fused kernel first (async),
+        build all pool matrices while the device works, then fetch ALL
+        compacted payloads in one device->host transfer — K schedules cost
+        one round trip instead of K (the round trip dominates on tunneled
+        devices). Rides the OOM-survival ladder: oversized batches are
+        pre-split by the HBM estimator, and a live RESOURCE_EXHAUSTED
+        bisects and re-dispatches instead of crashing the sweep."""
+        return self._solve_batch_survive(list(items), batched=len(items) > 1)
+
+    def _solve_batch_fetch(
+        self,
+        items: Sequence[Tuple[PodGroups, InstanceFleet]],
+        batched: bool,
+    ) -> List[ffd.PackResult]:
+        """One dispatch->fetch->finish round for `items` — the unit the
+        bisect retries. Raises (RESOURCE_EXHAUSTED included) instead of
+        falling back; _solve_batch_survive owns recovery."""
         results, pending, zones_box, overlap = self._dispatch_batch(
-            items, batched=len(items) > 1
+            items, batched=batched
         )
         if pending:
+            _maybe_inject_device_oom()
             plans = fetch_plans([entry[3] for entry in pending])
             pool_matrices, mix_plans = overlap.join()
             for entry, zones, pool_prices, mix_plan, plan in zip(
@@ -1235,6 +1548,153 @@ class CostSolver(Solver):
                     entry, zones, pool_prices, mix_plan, plan
                 )
         return results
+
+    def _solve_batch_survive(
+        self,
+        items: List[Tuple[PodGroups, InstanceFleet]],
+        batched: bool,
+        depth: int = 0,
+    ) -> List[ffd.PackResult]:
+        """Device-memory survival ladder around the batched solve:
+
+        1. depth 0 pre-splits by the HBM estimator — a batch whose estimated
+           footprint exceeds the device budget never reaches the device
+           whole (reason="estimate").
+        2. A RESOURCE_EXHAUSTED from dispatch/fetch bisects the batch and
+           re-dispatches the halves sequentially (reason="oom") — each half
+           re-runs the identical per-schedule math under the ORIGINAL
+           batched gate, so recovered plans are bit-identical to the
+           unsplit solve's.
+        3. A singleton that still OOMs is the floor (reason="floor"):
+           answer from the host path, counted and logged — degraded
+           latency, never a crash.
+
+        Any non-memory error propagates unchanged: retrying a batch around
+        a logic error would just re-fail, and the caller's fallback ladder
+        owns those.
+        """
+        if not items:
+            return []
+        if depth == 0:
+            chunks = _presplit_for_hbm(items, self.device)
+            if len(chunks) > 1:
+                SOLVER_BATCH_SPLIT_TOTAL.inc("estimate", amount=len(chunks) - 1)
+                klog.named("solver").info(
+                    "HBM estimator pre-split solve batch: %d schedules -> "
+                    "%d chunks", len(items), len(chunks),
+                )
+                out: List[ffd.PackResult] = []
+                for chunk in chunks:
+                    out.extend(self._solve_batch_survive(chunk, batched, depth=1))
+                return out
+        try:
+            return self._solve_batch_fetch(items, batched)
+        except Exception as error:  # noqa: BLE001 — classifier gates the catch
+            if not _is_resource_exhausted(error):
+                raise
+            if len(items) == 1:
+                SOLVER_BATCH_SPLIT_TOTAL.inc("floor")
+                klog.named("solver").warning(
+                    "single schedule exhausted device memory (%s); "
+                    "answering from the host path", error,
+                )
+                return [self._floor_solve(*items[0])]
+            SOLVER_BATCH_SPLIT_TOTAL.inc("oom")
+            mid = len(items) // 2
+            klog.named("solver").warning(
+                "device memory exhausted (%s); bisecting %d-schedule batch "
+                "at depth %d", error, len(items), depth + 1,
+            )
+            # Sequential, not parallel: the halves must not be in flight
+            # together — co-residency is exactly what just OOMed.
+            return self._solve_batch_survive(
+                items[:mid], batched, depth=depth + 1
+            ) + self._solve_batch_survive(
+                items[mid:], batched, depth=depth + 1
+            )
+
+    @staticmethod
+    def _floor_solve(groups: PodGroups, fleet: InstanceFleet) -> ffd.PackResult:
+        """The bisect floor's answer: host cost solve (compiled FFD + mix
+        candidates — same scoring as the device candidates), or plain FFD
+        when the native library is absent. Cannot touch the device, so it
+        cannot re-OOM."""
+        zones, matrix = _pool_price_matrix(fleet)
+        dense = cost_solve_host(
+            groups.vectors, groups.counts, fleet.capacity,
+            fleet.total, fleet.prices, matrix,
+        )
+        if dense is None:
+            return ffd.pack_groups(fleet, groups)
+        return decode_dense_result(dense, groups, fleet, zones)
+
+    def solve_encoded_pipelined(
+        self, items: Sequence[Tuple[PodGroups, InstanceFleet]]
+    ) -> Iterator[ffd.PackResult]:
+        """The solve->bind pipeline: every schedule's kernel is dispatched
+        and its compacted device->host copy queued UP FRONT (double-buffered
+        — the copies stream behind the kernels on the device queue), then
+        results yield in schedule order. While the caller binds/launches
+        result N, schedules N+1.. are still computing and copying; each
+        fetch here finds its payload already staged instead of starting a
+        round trip.
+
+        Dispatch happens EAGERLY at the call (not at the first pull): the
+        caller's dispatch-stage timing stays honest, and the device starts
+        working before the first bind regardless of when iteration
+        begins."""
+        results, pending, zones_box, overlap = self._dispatch_batch(items)
+
+        def _results() -> Iterator[ffd.PackResult]:
+            next_pending = 0
+            # After a mid-stream RESOURCE_EXHAUSTED, the not-yet-fetched
+            # tail is re-solved through the bisect ladder; `recovered`
+            # holds those plans, indexed from pending slot `recovered_base`.
+            recovered: Optional[List[ffd.PackResult]] = None
+            recovered_base = 0
+            for i in range(len(items)):
+                if results[i] is not None:
+                    yield results[i]
+                    continue
+                entry = pending[next_pending]
+                k = next_pending
+                next_pending += 1
+                if recovered is not None:
+                    yield recovered[k - recovered_base]
+                    continue
+                # Wait for THIS schedule's host work only — later schedules'
+                # mix candidates keep computing while this one decodes/binds.
+                overlap.wait(k)
+                try:
+                    _maybe_inject_device_oom()
+                    plan = fetch_plan(entry[3])
+                except Exception as error:  # noqa: BLE001 — classifier gates
+                    if not _is_resource_exhausted(error):
+                        raise
+                    # The in-flight tail just proved it doesn't fit next to
+                    # whatever else holds HBM: abandon those handles and
+                    # re-solve pending[k:] through the bisect ladder, under
+                    # the SAME batched gate so plans stay bit-identical.
+                    SOLVER_BATCH_SPLIT_TOTAL.inc("oom")
+                    klog.named("solver").warning(
+                        "device memory exhausted mid-pipeline (%s); "
+                        "re-solving %d remaining schedules via bisect",
+                        error, len(pending) - k,
+                    )
+                    recovered = self._solve_batch_survive(
+                        [(e[1], e[2]) for e in pending[k:]],
+                        batched=len(items) > 1,
+                        depth=1,
+                    )
+                    recovered_base = k
+                    yield recovered[0]
+                    continue
+                yield self._finish_one(
+                    entry, zones_box[k], overlap.pool_prices[k],
+                    overlap.mix_plans[k], plan,
+                )
+
+        return _results()
 
 
 def decode_dense_result(

@@ -23,7 +23,8 @@ The counterfactual itself is K7 (ops/consolidate_kernel.solve_counterfactuals:
 csrc/consolidate.cu on the card, its plain PyTorch version on the CPU).
 
 A sweep makes one host->device copy (every padded operand packed into one
-pinned buffer) and one device->host copy (`_fetch` of the eager buffer: the
+pinned buffer, but the catalog's arrays once they are resident on the card)
+and one device->host copy (`_fetch` of the eager buffer: the
 [C] verdict columns, the device argmax and the winner's [G, N] row). The full
 [C, G, N] plan tensor stays on the card behind lazy accessors.
 """
@@ -36,7 +37,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.convert import upload_packed
 from karpenter_tpu_torch.device import DeviceLike, resolve_device
 from karpenter_tpu_torch.ops.consolidate_kernel import (
     MIN_SAVINGS_DOLLARS,
@@ -44,7 +44,7 @@ from karpenter_tpu_torch.ops.consolidate_kernel import (
     solve_counterfactuals,
     split_eager,
 )
-from karpenter_tpu_torch.ops.pack_kernel import bucket_size, pad_to
+from karpenter_tpu_torch.ops.pack_kernel import bucket_size, device_resident, pad_to
 
 ACTION_NONE = 0
 ACTION_DELETE = 1
@@ -148,8 +148,9 @@ def _padded(problem: ConsolidationProblem) -> Tuple:
     """Bucket-pad every axis to powers of two, as the reference does, so the
     kernel sees a small ladder of shapes. Padded candidates carry zero
     counts, padded bins a False mask, padded types a False validity column.
-    The type arrays are uploaded with every sweep (the reference keeps them
-    in device_resident handles)."""
+    The type-catalog arrays (capacity, prices: RESIDENT below) ride the
+    device_resident cache at upload: back-to-back sweeps, and the provision
+    solve they follow, reuse the same content without a fresh transfer."""
     c_pad = bucket_size(max(problem.num_candidates, 1))
     g_pad = bucket_size(max(int(problem.pod_vectors.shape[1]), 1))
     n_pad = bucket_size(max(int(problem.headroom.shape[0]), 1))
@@ -169,6 +170,10 @@ def _padded(problem: ConsolidationProblem) -> Tuple:
     )
 
 
+# Which of _padded's arrays are the catalog's, kept resident on the device.
+_RESIDENT = (False, False, False, False, True, True, False, False, False)
+
+
 def solve_candidates(problem: ConsolidationProblem, device: DeviceLike = None) -> ConsolidationVerdicts:
     """Score every candidate's delete and replace counterfactuals in one
     batched dispatch + one SMALL device->host fetch — the [C] scalar
@@ -183,7 +188,8 @@ def solve_candidates(problem: ConsolidationProblem, device: DeviceLike = None) -
     num_bins = int(problem.headroom.shape[0])
     padded = _padded(problem)
     takes_dev, eager = solve_counterfactuals(
-        *upload_packed(padded, resolve_device(device)), axes=requested_axes(padded[0])
+        *device_resident(padded, _RESIDENT, resolve_device(device)),
+        axes=requested_axes(padded[0]),
     )
     LAST_FETCH_BYTES = eager.numel() * eager.element_size()
     c_pad, g_pad = padded[1].shape

@@ -42,11 +42,15 @@ All shapes are padded: G -> groups (counts 0), T -> types (valid mask).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+import math
+import threading
+from collections import OrderedDict
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.convert import upload_packed
 from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch
 
 _EPS = 1e-4
@@ -463,9 +467,11 @@ MAX_LEVELS = 8  # constraints.ladder.MAX_LEVELS: K6 runs one block a level
 # in windows of 32.
 _SUM_WINDOW = 32
 # XLA's vectorised dot on the CPU: 8 lanes by 4 accumulators, 32 groups a
-# step (see _weighted_sums).
+# step, except over 8 rows or fewer (see _weighted_sums).
 _DOT_LANES = 8
 _DOT_STEP = 32
+_NARROW_ROWS = 8
+_UNROLLED_GROUPS = 256
 
 
 class LevelPack(NamedTuple):
@@ -526,33 +532,59 @@ def _penalty_sums(fills: torch.Tensor, penalty: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _dot_plan(rows: int, num_groups: int) -> Tuple[int, int, bool]:
+    """(accumulators, steps, unrolled) of XLA's vectorised dot on the CPU
+    over `rows` rows of `num_groups` groups (see _weighted_sums). A step is
+    8 lanes by `accumulators` chunks of 8 groups; the groups past the last
+    step are a chain of fused multiply-adds."""
+    if num_groups < 2 * _DOT_STEP:
+        return 4, 0, True
+    if rows > _NARROW_ROWS:
+        steps = num_groups // _DOT_STEP
+        return 4, steps, steps < 4
+    if rows == 1:
+        return 4, num_groups // _DOT_STEP, num_groups <= _UNROLLED_GROUPS
+    # 2..8 rows read the fills with a stride: the vectorised loop keeps its
+    # last step for a scalar epilogue.
+    accumulators = 2 if num_groups <= 2 * _DOT_STEP else 4
+    steps = num_groups // (_DOT_LANES * accumulators) - 1
+    return accumulators, steps, num_groups <= _UNROLLED_GROUPS
+
+
 def _weighted_sums(fills: torch.Tensor, group_weight: torch.Tensor) -> torch.Tensor:
     """weighted = fills @ group_weight over the last axis, in the order the
     reference's XLA program on the CPU takes it. XLA emits the dot as a
     loop whose sum it marks reassociable, and LLVM vectorises that loop
-    over the groups, 8 lanes by 4 accumulators, 32 groups a step, every
-    multiply-add fused:
+    over the groups, 8 lanes by A accumulators (chunks of 8 groups), every
+    multiply-add fused. `_dot_plan` gives A, the number of whole steps and
+    whether LLVM unrolled them, from the rows (types, or levels x types)
+    and the groups:
       * under 64 groups: one chain of fused multiply-adds over ascending g;
-      * 64 groups (two steps, unrolled): each lane one chain over the
-        chunks of 8 groups 0, 4, 5, 1, 6, 2, 7, 3 (the unrolled adds
-        fused into one chain), then the lanes summed pairwise;
-      * 128 groups and more (a loop): per lane, accumulator u chains the
-        chunks 4i + u over the steps i; the four are added, the 8 lanes
-        summed pairwise ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7));
-      * groups past the last whole step: a chain of fused multiply-adds.
-    Exact for the padded group counts the port dispatches (powers of two
-    from 8) over 9 rows (types, or levels x types) or more; other counts
-    follow the same rules untested. Over 8 rows or fewer XLA orders the dot
-    another way from 64 groups on, which this does not copy yet. A chunk
-    that packs nothing adds exact zeros and is skipped."""
+      * unrolled (9 rows or more: 64 groups; 8 rows or fewer: up to 256):
+        each lane one chain over the chunks: accumulator 0's over the steps
+        in order, then each later accumulator's over the steps 1, 0, 2,
+        3, ...; then the lanes summed pairwise;
+      * a loop (past those): per lane, accumulator u chains the chunks of
+        its steps in order; the A chains are added, then the 8 lanes summed
+        pairwise ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7));
+      * groups past the last whole step: a chain of fused multiply-adds. One
+        row reads the fills in order and uses every step. From 2 to 8 rows
+        it reads them with a stride and keeps the last step for the chain,
+        with 2 accumulators at 64 groups and 4 past it.
+    Read from XLA's LLVM IR and object code, and held to the reference on
+    the padded group counts the port dispatches (powers of two from 8) at
+    1, 2, 4 and 8 rows and at 16 and 64; other counts follow the same rules
+    untested. A chunk that packs nothing adds exact zeros and is skipped."""
     num_groups = fills.shape[-1]
-    steps = num_groups // _DOT_STEP if num_groups >= 2 * _DOT_STEP else 0
     lead = fills.shape[:-1]
+    rows = math.prod(lead)
+    accumulators, steps, unrolled = _dot_plan(rows, num_groups)
+    step = _DOT_LANES * accumulators
     total = torch.zeros(lead, dtype=torch.float32, device=fills.device)
     if steps:
-        body = fills[..., : steps * _DOT_STEP].reshape(*lead, steps, 4, _DOT_LANES)
-        weight = group_weight[: steps * _DOT_STEP].reshape(steps, 4, _DOT_LANES)
-        live = body.reshape(-1, steps, 4, _DOT_LANES).any(dim=(0, 3)).tolist()
+        body = fills[..., : steps * step].reshape(*lead, steps, accumulators, _DOT_LANES)
+        weight = group_weight[: steps * step].reshape(steps, accumulators, _DOT_LANES)
+        live = body.reshape(-1, steps, accumulators, _DOT_LANES).any(dim=(0, 3)).tolist()
         zero = torch.zeros((*lead, _DOT_LANES), dtype=torch.float32, device=fills.device)
 
         def chain(acc, chunks):
@@ -561,18 +593,19 @@ def _weighted_sums(fills: torch.Tensor, group_weight: torch.Tensor) -> torch.Ten
                     acc = _fma32(body[..., i, u, :], weight[i, u].expand_as(acc), acc)
             return acc
 
-        if steps >= 4:
-            lanes = chain(zero, [(i, 0) for i in range(steps)])
-            for u in range(1, 4):
-                lanes = chain(zero, [(i, u) for i in range(steps)]) + lanes
-        else:
+        if unrolled:
+            later = [1, 0, *range(2, steps)] if steps >= 2 else [0]
             order = [(i, 0) for i in range(steps)]
-            order += [(i, u) for u in range(1, 4) for i in reversed(range(steps))]
+            order += [(i, u) for u in range(1, accumulators) for i in later]
             lanes = chain(zero, order)
+        else:
+            lanes = chain(zero, [(i, 0) for i in range(steps)])
+            for u in range(1, accumulators):
+                lanes = chain(zero, [(i, u) for i in range(steps)]) + lanes
         half = lanes[..., :4] + lanes[..., 4:]
         quarter = half[..., :2] + half[..., 2:]
         total = quarter[..., 0] + quarter[..., 1]
-    start = steps * _DOT_STEP
+    start = steps * step
     rest = fills[..., start:].reshape(-1, num_groups - start) if num_groups > start else fills[..., :0]
     for g in (torch.nonzero(rest.any(dim=0)).flatten() + start).tolist():
         total = _fma32(fills[..., g], group_weight[g].expand_as(total), total)
@@ -1085,3 +1118,69 @@ def decompact_plan(
         )
     feasible_any = take(num_groups).astype(bool)
     return plans[0], plans[1], feasible_any, ok
+
+
+# --- device-resident encode reuse --------------------------------------------
+
+# Content-keyed cache of device tensors for padded encode arrays (fleet
+# capacity/total/valid/prices, consolidation type arrays): back-to-back
+# sweeps in one reconcile turn (provision -> consolidate) re-derive the same
+# encoded state, and without the cache every dispatch pays a fresh
+# host->device transfer for it. Keyed by device and content, not object
+# identity, so a rebuilt-but-identical fleet still hits. No kernel writes
+# into its inputs, so a cached tensor is never modified.
+_DEVICE_RESIDENT: "OrderedDict[Tuple, torch.Tensor]" = OrderedDict()
+_DEVICE_RESIDENT_MAX = 64
+_device_resident_lock = threading.Lock()
+
+
+def _resident_key(array: np.ndarray, device: torch.device) -> Tuple:
+    return (str(device), array.shape, array.dtype.str, array.tobytes())
+
+
+def device_resident(arrays: Sequence, resident: Sequence[bool], device) -> Tuple[torch.Tensor, ...]:
+    """`arrays` on `device`: a tensor already there passes through; a numpy
+    array flagged `resident` comes from the content-keyed cache when it
+    holds it; every other array goes into ONE packed upload
+    (convert.upload_packed), and the resident ones among them are cached."""
+    device = torch.device(device)
+    out: list = [None] * len(arrays)
+    keys = {}
+    missing = []
+    for i, (array, keep) in enumerate(zip(arrays, resident)):
+        if isinstance(array, torch.Tensor):
+            if array.device != device:
+                raise ValueError(f"a tensor on {array.device} handed to a dispatch on {device}")
+            out[i] = array
+            continue
+        if keep:
+            key = _resident_key(np.ascontiguousarray(array), device)
+            with _device_resident_lock:
+                cached = _DEVICE_RESIDENT.get(key)
+                if cached is not None:
+                    _DEVICE_RESIDENT.move_to_end(key)
+            if cached is not None:
+                out[i] = cached
+                continue
+            keys[i] = key
+        missing.append(i)
+    if missing:
+        # The transfer runs outside the lock; a racing double upload is
+        # harmless (last writer wins).
+        for i, tensor in zip(missing, upload_packed([arrays[i] for i in missing], device)):
+            out[i] = tensor
+            if i in keys:
+                # On the CPU the tensor shares the caller's numpy memory.
+                held = tensor.clone() if device.type == "cpu" else tensor
+                with _device_resident_lock:
+                    while len(_DEVICE_RESIDENT) >= _DEVICE_RESIDENT_MAX:
+                        _DEVICE_RESIDENT.popitem(last=False)
+                    _DEVICE_RESIDENT[keys[i]] = held
+                out[i] = held
+    return tuple(out)
+
+
+def reset_device_resident() -> None:
+    """Test hook: drop every cached device tensor."""
+    with _device_resident_lock:
+        _DEVICE_RESIDENT.clear()

@@ -199,12 +199,21 @@ def _first_pick_of_a_sequential_chain(args):
     return int(torch.argmin(1.0 / weighted))
 
 
-@pytest.mark.parametrize("levels", [1, 4])
-@pytest.mark.parametrize("groups", [8, 16, 32, 64, 128, 256])
-def test_plain_k6_takes_the_weighted_sum_in_the_reference_order(groups, levels):
+_TIED_LEVEL_CASES = [
+    pytest.param(groups, levels, 16, id=f"{groups}-{levels}")
+    for levels in (1, 4) for groups in (8, 16, 32, 64, 128, 256)
+] + [
+    # 8 and 4 rows of levels x types: XLA orders the dot another way.
+    pytest.param(groups, 1, rows, id=f"{groups}-1-T{rows}")
+    for rows in chip_smoke.NARROW_ROWS for groups in (64, 128, 256)
+]
+
+
+@pytest.mark.parametrize("groups,levels,types", _TIED_LEVEL_CASES)
+def test_plain_k6_takes_the_weighted_sum_in_the_reference_order(groups, levels, types):
     chain_misses = 0
     for seed in range(12):
-        args = chip_smoke.tied_weight_levels_problem(seed, groups, levels)
+        args = chip_smoke.tied_weight_levels_problem(seed, groups, levels, types=types)
         ref = jax.device_get(ref_pack.pack_kernel_levels(*args, mode="cost"))
         port = _port_levels(args, "cost")
         assert int(ref.rounds.round_type[0]) == int(port.rounds.round_type[0]), seed

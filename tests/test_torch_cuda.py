@@ -559,3 +559,62 @@ def test_constrained_solve_on_card_equals_cpu(cuda_device):
     assert chip_smoke.placed_once_or_unschedulable(card, pods)
     assert chip_smoke.zone_skew(card)[1] <= 1
     np.testing.assert_allclose(card.projected_cost(), cpu.projected_cost(), rtol=1e-4)
+
+
+# --- K8: the incremental encode's scatter and gather ------------------------------
+
+K8_CASES = list(chip_smoke.k8_cases())
+
+
+@pytest.mark.parametrize("name,op,array,index,rows", K8_CASES, ids=[case[0] for case in K8_CASES])
+def test_incremental_kernels_equal_plain_versions(name, op, array, index, rows, cuda_device):
+    """K8 bit for bit against its plain version: sentinel-only index
+    vectors, a 1-element delta, the bool dtype and an empty permutation
+    included; the scatter leaves its input untouched."""
+    from karpenter_tpu_torch.convert import upload_packed
+    from karpenter_tpu_torch.ops import incremental
+
+    if op == "scatter":
+        dst, idx, values = upload_packed([array, index, rows], cuda_device)
+        kept = dst.clone()
+        before = incremental.scatter.launches
+        got = incremental.scatter(dst, idx, values)
+        want = incremental._scatter_ref(dst, idx, values)
+        torch.cuda.synchronize()
+        assert incremental.scatter.launches == before + 1
+        assert chip_smoke.same_bits(dst, kept)
+    else:
+        src, perm = upload_packed([array, index], cuda_device)
+        before = incremental.gather.launches
+        got = incremental.gather(src, perm)
+        want = incremental._gather_ref(src, perm)
+        torch.cuda.synchronize()
+        assert incremental.gather.launches == before + (1 if got.numel() else 0)
+    assert chip_smoke.same_bits(got, want)
+
+
+def test_fast_path_dispatch_uploads_no_pod_tensor(cuda_device, monkeypatch):
+    """The fast path on the card: a DeviceClusterState hands the solver pod
+    tensors already there; with the fleet resident, the solve uploads
+    nothing, and its plan is the snapshot path's."""
+    from karpenter_tpu_torch.controllers.cluster import Cluster
+    from karpenter_tpu_torch.convert import upload_packed
+    from karpenter_tpu_torch.models.cluster_state import DeviceClusterState
+
+    monkeypatch.setenv("KARPENTER_HOST_SOLVE", "0")
+    pods, catalog = chip_smoke.make_workload(3000, 60)
+    cluster = Cluster()
+    state = DeviceClusterState(cluster)
+    for pod in pods:
+        cluster.apply_pod(pod)
+    pair = state.encode_schedule(pods, catalog, Constraints(), [])
+    assert pair[0].device_vectors.device.type == "cuda"
+    cost_solver = solver.CostSolver()
+    (first,) = list(cost_solver.solve_many_pipelined([pair]))
+    before = (upload_packed.copies, upload_packed.arrays)
+    (again,) = list(cost_solver.solve_many_pipelined([pair]))
+    assert (upload_packed.copies, upload_packed.arrays) == before
+    (snapshot,) = cost_solver.solve_many([(pods, catalog, Constraints(), ())])
+    assert chip_smoke.plan_signature(first) == chip_smoke.plan_signature(again)
+    assert chip_smoke.plan_signature(first) == chip_smoke.plan_signature(snapshot)
+    assert chip_smoke.all_pods_placed_once(first, pods)

@@ -55,6 +55,15 @@ def test_no_forbidden_import(path):
     assert _forbidden_imports(path.read_text()) == []
 
 
+def test_the_incremental_encode_modules_are_checked():
+    """The blocked-import check below covers every module of the port; the
+    incremental encode's among them."""
+    names = _module_names()
+    for name in ("karpenter_tpu_torch.ops.incremental", "karpenter_tpu_torch.models.cluster_state",
+                 "karpenter_tpu_torch.utils.faultpoints"):
+        assert name in names
+
+
 def test_every_module_imports_with_jax_blocked():
     script = textwrap.dedent(
         f"""

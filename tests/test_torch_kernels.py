@@ -284,11 +284,18 @@ class TestPackKernel:
         assert int(port.num_rounds) > 100 and not int(port.overflow)
         _assert_rounds_equal(port, ref)
 
-    @pytest.mark.parametrize("groups", [16, 32, 64, 128, 256])
-    def test_cost_mode_takes_the_weighted_sum_in_the_reference_order(self, groups):
+    @pytest.mark.parametrize(
+        "groups,types",
+        [pytest.param(groups, 16, id=str(groups)) for groups in (16, 32, 64, 128, 256)]
+        + [pytest.param(groups, rows, id=f"{groups}-T{rows}")
+           for rows in chip_smoke.NARROW_ROWS for groups in (64, 128, 256)],
+    )
+    def test_cost_mode_takes_the_weighted_sum_in_the_reference_order(self, groups, types):
+        """16 types, and 8 and 4 (XLA orders the dot over 8 rows or fewer
+        another way)."""
         chain_misses = 0
         for seed in range(12):
-            problem = chip_smoke.tied_weight_pack_problem(seed, groups)
+            problem = chip_smoke.tied_weight_pack_problem(seed, groups, num_types=types)
             ref = ref_pack.pack_kernel(*problem, mode="cost")
             port = port_pack.pack_kernel(*_torch_args(problem), mode="cost")
             _assert_rounds_equal(port, ref)
