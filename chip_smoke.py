@@ -90,6 +90,29 @@ limit, and as the last line {"ok": true, "device": {...}}:
               plain version; K2 at G 2,048 x T 512 and G 16 x T 8,192, K3
               at G 2,048 x T 512, G 16 x T 8,192 and G 2,048 x T 2,048 (its
               tables in global scratch) against their plain versions
+ 10b. provision_storm  the provisioning controllers under a live spot
+              market, through the port's Manager (runtime.Manager) on the
+              card: a seeded MarketFeed over the catalog's 1,200 spot pools
+              attached to the FakeCloudProvider and folded by the market
+              sweep, the six cheapest spot pools given an observed
+              interruption, a spot-only provisioner, then the main path's 50,000
+              pods (in a seeded random order) applied and reconciled by
+              selection, drained by worker passes in 2,000-pod windows with
+              the host gate off (KARPENTER_HOST_SOLVE=0), the market
+              repricing (a spike on eight pools, one feed step) before pass
+              13. Every pod bound exactly once in 25 passes, K1-K4 launched
+              once a pass, the fleet arrays uploaded once after the reprice
+              and never while the market is calm; build_fleet's [T] prices
+              bit-identical to forecast.penalize_prices and to K10 (csrc/
+              forecast.cu, run beside every column a pass publishes), the
+              risked types' prices and their pools' [T, Z] entries above the
+              calm prices and every other entry unchanged, a calm book the
+              bits of no book; total $/hr equal to the same storm on the CPU
+              within 1e-4; then make_solver("ffd") (K2 in one mode, once a
+              pass) on the card and the CPU with the same nodes, and no
+              solve sent to the host FFD. Pass p50 and
+              max, the first and last bind, pods bound a second, the market
+              sweep, which passes took the incremental encode's fast path
  11. timing   each kernel's device time per call (torch.profiler: the
               kernels' own time, `ms`) and its time between CUDA events
               around the wrapper (host enqueue included, `event_ms`), its
@@ -97,12 +120,20 @@ limit, and as the last line {"ok": true, "device": {...}}:
               shapes; K3's time per Adam step and at every cluster size,
               K2's time per round of each mode; K6 at the constrained
               path's shapes; K8 on one steady-state sweep's scatters and
-              gathers; K2 and K3 at padded G 2,048
+              gathers; K10 on the storm fleet's [T] column, beside
+              torch.addcmul; K2 and K3 at padded G 2,048
  12. layers   one warm solve layer by layer (each bracketed by device syncs),
               and torch.profiler's device time against the solve's wall time
+ 13. storm_profile  the card storm run again to its pass 2, which runs under
+              torch.profiler: its device time against its wall time. Last,
+              because a profiler session over a storm pass (its bind and
+              overlap threads) makes later sessions drop a kernel record
 
-The kernels phase also holds K6, the constrained [L, G', T] dispatch, bit
-for bit to its plain version on 22 seeded cases (both modes; conflicts, node
+The kernels phase also holds K10, the forecast penalty, bit for bit to the
+numpy column and to its plain version (the reference's magnitudes at 257
+and 4,096 types, one type, zero risk, the catalog's spot prices), and K6,
+the constrained [L, G', T] dispatch, bit for bit to its plain version on 22
+seeded cases (both modes; conflicts, node
 caps, penalties, padded levels, T 300 ragged, T 1,500, G' up to 2,048 with
 its tables in global scratch).
 
@@ -929,21 +960,26 @@ def layer_breakdown(groups, fleet, device, reps: int = 5) -> dict:
     return {name: float(np.median(values)) for name, values in samples.items()}
 
 
-def device_busy(cost_solver, groups, fleet) -> dict:
-    """torch.profiler over one warm solve: device time summed over kernels
-    and copies, against the solve's wall time."""
+def profile_call(fn) -> dict:
+    """torch.profiler over one call of `fn`: device time summed over every
+    kernel and copy it ran (an upper bound on the time the card was busy:
+    work on two streams at once counts twice), against the call's wall
+    time, which includes the profiler's own cost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        cost_solver.solve_encoded(groups, fleet)
+        result = fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    check(events and device_ms > 0, "the profiled call shows no device time")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
     return {
+        "result": result,
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "busy_share": device_ms / wall_ms,
@@ -1888,6 +1924,446 @@ def oom_ladder_phase(cost_solver, encoded, clean) -> None:
           **{key: value for key, value in counted.items()})
 
 
+# --- provision_storm: the provisioning controllers under a live spot market --
+
+STORM_WINDOW = 2_000  # karpenter_tpu/controllers/provisioning.py:39 MAX_PODS_PER_BATCH
+STORM_FEED_SEED = 13
+STORM_FEED_STEPS = 5  # feed steps folded before the storm (one a second)
+STORM_RISKY_POOLS = 6  # the cheapest spot pools given an observed interruption
+STORM_SPIKE_POOLS = 8  # pools whose price spikes mid-storm
+STORM_SPIKE_FACTOR = 1.6
+STORM_REPRICE_PASS = 13  # the market reprices just before this pass (1-based)
+STORM_PROFILE_PASS = 2  # the storm pass traced by torch.profiler, in a run of its own (a calm pass)
+
+
+def spot_provisioner(provisioner_module, requirements_module, wellknown):
+    """The storm's provisioner, from either package's modules: capacity type
+    spot only (the reference's ProvisionerSpec requirement), so every node
+    bought is a spot pool's, priced by the market and chosen by the
+    risk-ranked [T, Z] pools."""
+    requirement = requirements_module.Requirement.in_(
+        wellknown.CAPACITY_TYPE_LABEL, [wellknown.CAPACITY_TYPE_SPOT])
+    constraints = provisioner_module.Constraints(
+        requirements=requirements_module.Requirements([requirement]))
+    return provisioner_module.Provisioner(
+        name="default", spec=provisioner_module.ProvisionerSpec(constraints=constraints))
+
+
+def storm_workload(num_pods: int = NUM_PODS, num_types: int = NUM_TYPES, seed: int = 0):
+    """The main path's pods and catalog, the pods in a seeded random order:
+    a storm of many deployments arrives interleaved, so every batch window
+    holds every shape (and so the same fleet)."""
+    pods, catalog = make_workload(num_pods, num_types, seed)
+    order = np.random.default_rng(seed + 17).permutation(len(pods))
+    return [pods[i] for i in order], catalog
+
+
+def k10_cases_list():
+    """K10's cases: the reference's magnitudes (prices 0.01-64, risks in
+    steps of 1/32) at 257 and 4,096 types, one type, zero risk, and the main
+    path's catalog spot prices at full risk."""
+    rng = np.random.default_rng(9)
+    cases = []
+    for size in (257, 4096, 1):
+        prices = rng.uniform(0.01, 64.0, size=size).astype(np.float32)
+        risks = (np.floor(rng.uniform(0.0, 1.0, size=size) * 32.0) / 32.0).astype(np.float32)
+        cases.append((prices, risks))
+    cases.append((cases[0][0], np.zeros(257, np.float32)))
+    spot = np.array([o.price for it in make_catalog() for o in it.offerings if o.capacity_type == "spot"],
+                    np.float32)
+    cases.append((spot, np.full(spot.shape, 31.0 / 32.0, np.float32)))
+    return cases
+
+
+def same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal shapes, dtypes and bytes: numpy arrays bit for bit."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def cheapest_spot_pools(fleet, count: int, skip=()):
+    """The `count` cheapest spot pools (type, zone) of the fleet's types, by
+    advertised price, leaving out `skip`."""
+    rows = sorted(
+        (offering.price, it.name, offering.zone)
+        for it in fleet.instance_types
+        for offering in it.offerings
+        if offering.capacity_type == "spot" and (it.name, offering.zone) not in skip
+    )
+    return [(name, zone) for _, name, zone in rows[:count]]
+
+
+def storm_world(catalog, device, solver_name: str, feed_steps: int = STORM_FEED_STEPS):
+    """A fake cluster and cloud with a seeded market feed over every spot pool
+    of the catalog, a Manager on `device`, and the feed's first steps folded
+    by the market sweep (timed)."""
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.cluster import Cluster
+    from karpenter_tpu_torch.market.feed import MarketFeed, catalog_pools
+    from karpenter_tpu_torch.runtime import Manager
+    from karpenter_tpu_torch.utils.clock import FakeClock
+    from karpenter_tpu_torch.utils.obs import OBS
+    from karpenter_tpu_torch.utils.options import Options
+
+    OBS.reset()
+    clock = FakeClock()
+    cluster = Cluster(clock=clock)
+    cloud = FakeCloudProvider(instance_types=catalog, clock=clock)
+    pools = catalog_pools(catalog)
+    feed = MarketFeed(pools, seed=STORM_FEED_SEED)
+    cloud.attach_market_feed(feed)
+    manager = Manager(cluster, cloud, Options(cluster_name="storm", solver=solver_name), device=device)
+    clock.advance(feed_steps * feed.tick_interval_s)
+    start = time.perf_counter()
+    manager.market.reconcile()
+    sweep_ms = (time.perf_counter() - start) * 1e3
+    return SimpleNamespace(clock=clock, cluster=cluster, cloud=cloud, feed=feed, pools=pools,
+                           manager=manager, book=manager.price_book, sweep_ms=sweep_ms)
+
+
+def storm_price_checks(world, pods, device) -> dict:
+    """The market hooks at the storm's fleet, with the world's book active:
+    build_fleet's [T] column equals forecast.penalize_prices of the calm
+    column bit for bit, and K10's output too; the risked types' prices and
+    their pools' [T, Z] entries rise, every other entry is unchanged bit for
+    bit; a calm book (one snapshot tick a pool: no trend, no interruption)
+    gives the bits of no book at all."""
+    import torch
+
+    from karpenter_tpu_torch.market import forecast
+    from karpenter_tpu_torch.market.pricebook import PriceBook, set_active_book
+    from karpenter_tpu_torch.models.solver import _pool_price_matrix, _pool_zones
+    from karpenter_tpu_torch.ops import forecast_kernel
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    constraints = world.manager.provisioning.workers["default"].provisioner.spec.constraints
+    advertised = world.cloud.get_instance_types(constraints)
+    need = group_pods(pods).vectors.max(axis=0)
+
+    def fleet_under(book):
+        set_active_book(book)
+        try:
+            fleet = build_fleet(advertised, constraints, [], pods_need=need)
+            return fleet, _pool_price_matrix(fleet)[1]
+        finally:
+            set_active_book(world.book)
+
+    risky, risky_matrix = fleet_under(world.book)
+    plain, plain_matrix = fleet_under(None)
+    calm_book = PriceBook(clock=world.clock)
+    for tick in world.feed.ticks_after(0)[: len(world.pools)]:
+        calm_book.apply(tick)
+    check(not calm_book.has_risk() and world.book.has_risk(), "the calm book carries risk, or the storm's none")
+    calm, calm_matrix = fleet_under(calm_book)
+    check(risky.capacity_type == "spot", f"the storm's fleet is {risky.capacity_type}, not spot")
+    check(same_bytes(calm.prices, plain.prices) and same_bytes(calm_matrix, plain_matrix),
+          "a calm book changed the fleet's prices")
+    names = [it.name for it in risky.instance_types]
+    check(names == [it.name for it in plain.instance_types], "the market hook changed the fleet's types")
+    risks = forecast.type_risks(names, [[z for z in it.zones() if z in risky.allowed_zones]
+                                        for it in risky.instance_types], world.book)
+    published = forecast.penalize_prices(plain.prices, risks)
+    check(same_bytes(published, risky.prices), "build_fleet's prices differ from forecast.penalize_prices")
+    got = forecast.penalize_prices_torch(torch.from_numpy(plain.prices).to(device), risks)
+    plain_k10 = forecast_kernel._penalize_prices_ref(
+        torch.from_numpy(plain.prices).to(device), torch.from_numpy(risks).to(device),
+        forecast.RISK_PRICE_WEIGHT)
+    synchronize(device)
+    check(same_bytes(got.cpu().numpy(), published), "K10 differs from the numpy column")
+    check(same_bytes(plain_k10.cpu().numpy(), published), "K10's plain version differs from the numpy column")
+    risked = risks > 0
+    check(risked.any() and (risky.prices[risked] > plain.prices[risked]).all()
+          and same_bytes(risky.prices[~risked], plain.prices[~risked]),
+          "the risked types' prices did not rise alone")
+    pool_risk = forecast.risk_matrix(names, _pool_zones(risky), world.book) > 0
+    offered = np.isfinite(plain_matrix)
+    check((pool_risk & offered).any()
+          and (risky_matrix[pool_risk & offered] > plain_matrix[pool_risk & offered]).all()
+          and same_bytes(risky_matrix[~pool_risk], plain_matrix[~pool_risk])
+          and np.array_equal(np.isinf(risky_matrix), ~offered),
+          "the risked pools' [T, Z] entries did not rise alone")
+    return {"types": len(names), "risked_types": int(risked.sum()),
+            "risked_pools": int((pool_risk & offered).sum()), "prices": plain.prices, "risks": risks,
+            "max_abs_err": float(np.abs(got.cpu().numpy() - published).max())}
+
+
+def run_storm(device, solver_name: str, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYPES,
+              reprice_pass=STORM_REPRICE_PASS, market_pools=None, tripwire: bool = True,
+              profile_pass=None, stop_after=None) -> dict:
+    """The storm through the port's Manager on `device`, on pods made anew
+    (a bind writes into the stored pod): the market folded,
+    the risky pools' interruptions noted, a provisioner applied, every pod
+    applied and reconciled by selection (as tests/harness.Harness.provision
+    does), then worker passes until the backlog drains, the market
+    repricing just before pass `reprice_pass`. Each pass: its time, the
+    fleet arrays it uploaded (device_resident's misses), whether the
+    incremental encode's fast path took it, and the K10 tripwire on every
+    [T] column build_fleet published in it. Pass `profile_pass` runs under
+    torch.profiler (profile_call); the drain stops after pass `stop_after`."""
+    import threading
+    from collections import Counter
+
+    import torch
+
+    from karpenter_tpu_torch.api import provisioner as provisioner_module
+    from karpenter_tpu_torch.api import requirements as requirements_module
+    from karpenter_tpu_torch.api import wellknown
+    from karpenter_tpu_torch.market import forecast
+    from karpenter_tpu_torch.market.pricebook import set_active_book
+    from karpenter_tpu_torch.ops import encode, forecast_kernel, pack_kernel
+
+    k10_start = forecast_kernel.penalize_prices.launches
+    pods, catalog = storm_workload(num_pods, num_types)
+    world = storm_world(catalog, device, solver_name)
+    manager, cluster, book = world.manager, world.cluster, world.book
+    cluster.apply_provisioner(spot_provisioner(provisioner_module, requirements_module, wellknown))
+    manager.provisioning.reconcile("default")
+    constraints = manager.provisioning.workers["default"].provisioner.spec.constraints
+    if market_pools is None:
+        fleet = encode.build_fleet(world.cloud.get_instance_types(constraints), constraints, [],
+                                   pods_need=encode.group_pods(pods).vectors.max(axis=0))
+        risky_pools = cheapest_spot_pools(fleet, STORM_RISKY_POOLS)
+        spike_pools = cheapest_spot_pools(fleet, STORM_SPIKE_POOLS, skip=set(risky_pools))
+    else:
+        risky_pools, spike_pools = market_pools
+    for pool in risky_pools:
+        book.note_interruption(pool)
+    prices = storm_price_checks(world, pods, device) if tripwire else None
+
+    binds = Counter()
+    bind_times = []
+    lock = threading.Lock()
+
+    def on_delta(verb, kind, obj):
+        if verb == "bind" and kind == "pod":
+            stamp = time.perf_counter()
+            with lock:
+                binds[obj.uid] += 1
+                bind_times.append(stamp)
+
+    cluster.watch_deltas(on_delta)
+    start = time.perf_counter()
+    for pod in pods:
+        cluster.apply_pod(pod)
+        manager.selection.reconcile(pod.namespace, pod.name)
+    select_s = time.perf_counter() - start
+
+    fast_path = []
+    original_encode = manager.cluster_state.encode_schedule
+
+    def encode_schedule(*args, **kwargs):
+        encoded = original_encode(*args, **kwargs)
+        fast_path.append(encoded is not None)
+        return encoded
+
+    manager.cluster_state.encode_schedule = encode_schedule
+    columns = []
+    original_penalize = forecast.penalize_prices
+
+    def penalize_prices(prices_col, risks):
+        out = original_penalize(prices_col, risks)
+        columns.append((prices_col.copy(), risks.copy(), out.copy()))
+        return out
+
+    forecast.penalize_prices = penalize_prices
+    from karpenter_tpu_torch.controllers import provisioning
+
+    stages = {"schedule": provisioning.SCHEDULING_DURATION, "solve": provisioning.SOLVE_DURATION,
+              "bind": provisioning.BIND_DURATION}
+    stage_start = {name: hist._sums.get((), 0.0) for name, hist in stages.items()}
+    passes = []
+    reprices = []
+    nodes_seen = set()
+    cost_per_hr = 0.0
+    k10_err = 0.0
+    profiled = None
+    drain_start = time.perf_counter()
+    try:
+        while manager.provisioning.workers["default"].queue_depth() and len(passes) != stop_after:
+            index = len(passes) + 1
+            if index == reprice_pass:
+                world.feed.force_spike(spike_pools, STORM_SPIKE_FACTOR)
+                world.clock.advance(world.feed.tick_interval_s)
+                generation = book.generation
+                requeues = manager.reprice_requeues
+                manager.market.reconcile()
+                reprices.append((book.generation - generation, manager.reprice_requeues - requeues))
+            del columns[:]
+            uploads = pack_kernel.device_resident.uploads
+            encodes = len(fast_path)
+            if index == profile_pass:
+                profiled = profile_call(manager.provisioning.workers["default"].provision)
+                stats, pass_ms = profiled["result"], profiled["wall_ms"]
+            else:
+                t0 = time.perf_counter()
+                stats = manager.provisioning.workers["default"].provision()
+                synchronize(device)
+                pass_ms = (time.perf_counter() - t0) * 1e3
+            price_of = {(it.name, o.zone, o.capacity_type): o.price
+                        for it in world.cloud.get_instance_types() for o in it.offerings}
+            for node in cluster.list_nodes():
+                if node.name not in nodes_seen:
+                    nodes_seen.add(node.name)
+                    cost_per_hr += price_of[(node.instance_type, node.zone, node.capacity_type)]
+            if tripwire:
+                for prices_col, risks, published in columns:
+                    got = forecast.penalize_prices_torch(torch.from_numpy(prices_col).to(device), risks)
+                    synchronize(device)
+                    check(same_bytes(got.cpu().numpy(), published),
+                          f"pass {index}: K10 differs from the column build_fleet published")
+                    k10_err = max(k10_err, float(np.abs(got.cpu().numpy() - published).max()))
+            passes.append({
+                "ms": pass_ms, "scheduled": stats.scheduled_pods, "nodes": stats.launched_nodes,
+                "unschedulable": stats.unschedulable_pods, "errors": len(stats.launch_errors),
+                "fleet_uploads": pack_kernel.device_resident.uploads - uploads,
+                "fast_path": any(fast_path[encodes:]), "columns": len(columns),
+            })
+    finally:
+        forecast.penalize_prices = original_penalize
+        manager.cluster_state.encode_schedule = original_encode
+        set_active_book(None)
+    drain_s = time.perf_counter() - drain_start
+    stage_ms = {name: (hist._sums.get((), 0.0) - stage_start[name]) * 1e3 / max(len(passes), 1)
+                for name, hist in stages.items()}
+    pods_on = Counter(p.node_name for p in cluster.list_pods() if p.node_name)
+    nodes = Counter(
+        (n.instance_type, n.zone, n.capacity_type, pods_on[n.name]) for n in cluster.list_nodes()
+    )
+    return {
+        "world": world, "pods": pods, "passes": passes, "reprices": reprices, "binds": binds,
+        "first_bind_s": (min(bind_times) - drain_start) if bind_times else None,
+        "last_bind_s": (max(bind_times) - drain_start) if bind_times else None,
+        "drain_s": drain_s, "select_s": select_s, "stage_ms": stage_ms, "nodes": nodes, "cost_per_hr": cost_per_hr,
+        "market_pools": (risky_pools, spike_pools), "prices": prices, "profiled": profiled,
+        "k10_launches": forecast_kernel.penalize_prices.launches - k10_start, "k10_err": k10_err,
+        "bound": sum(1 for p in cluster.list_pods() if p.node_name),
+    }
+
+
+def storm_checks(storm, label: str) -> None:
+    """Every pod bound exactly once, in full windows, with no launch error."""
+    pods = storm["pods"]
+    check(len(storm["binds"]) == len(pods) and set(storm["binds"].values()) == {1}
+          and set(storm["binds"]) == {p.uid for p in pods} and storm["bound"] == len(pods),
+          f"{label}: not every pod was bound exactly once")
+    expected_passes = -(-len(pods) // STORM_WINDOW)
+    check(len(storm["passes"]) == expected_passes,
+          f"{label}: {len(storm['passes'])} passes, not {expected_passes}")
+    check(all(p["unschedulable"] == 0 and p["errors"] == 0 for p in storm["passes"]),
+          f"{label}: a pass left pods unschedulable or failed a launch")
+    check(all(node[2] == "spot" for node in storm["nodes"]), f"{label}: a node bought is not spot")
+    check(sum(p["scheduled"] for p in storm["passes"]) == len(pods), f"{label}: scheduled counts do not add up")
+
+
+def provision_storm_phase(device) -> dict:
+    """The provisioning controllers under a live spot market, through the
+    port's Manager on the card: 50,000 pending pods drained in 2,000-pod
+    windows by CostSolver with the host gate off, then the same storm on the
+    CPU, and make_solver("ffd") (K2 in one mode) on the card and the CPU."""
+    from karpenter_tpu_torch.models import solver as solver_mod
+    from karpenter_tpu_torch.ops import cuda_kernels, forecast_kernel, incremental, pack_kernel, score_kernel
+
+    os.environ["KARPENTER_HOST_SOLVE"] = "0"
+    counters = (cuda_kernels.dominance_prices, pack_kernel.pack_kernel, score_kernel.lp_relax,
+                pack_kernel.compact_plan, forecast_kernel.penalize_prices, incremental.scatter,
+                incremental.gather)
+    for counter in counters:
+        counter.launches = 0
+    pack_kernel.reset_device_resident()
+    host_before = solver_mod.SOLVE_DISPATCH_TOTAL.get("host")
+    card = run_storm(device, "cost")
+    pods = card["pods"]
+    launches = {counter.__name__: counter.launches for counter in counters}
+    storm_checks(card, "card storm")
+    num_passes = len(card["passes"])
+    check(all(launches[name] == num_passes
+              for name in ("dominance_prices", "pack_kernel", "lp_relax", "compact_plan")),
+          f"the storm's {num_passes} passes did not each launch K1-K4 once: {launches}")
+    check(solver_mod.SOLVE_DISPATCH_TOTAL.get("host") == host_before, "a storm pass solved on the host")
+    check(launches["penalize_prices"] == card["k10_launches"] > 0, "the storm launched no K10 tripwire")
+    # The Manager's encoder reaches the card only when a pass takes the fast
+    # path: its first flush there is a full upload, then K8 gathers the
+    # sorted groups. The scatters run on later flushes (the churn cell).
+    check(launches["gather"] >= 2 * sum(p["fast_path"] for p in card["passes"]) > 0,
+          f"the fast-path passes did not gather their groups with K8 on the card: {launches}")
+    check(all(p["columns"] >= 1 for p in card["passes"]), "a pass published no penalised column")
+    uploads = [p["fleet_uploads"] for p in card["passes"]]
+    calm = uploads[1 : STORM_REPRICE_PASS - 1] + uploads[STORM_REPRICE_PASS:]
+    check(uploads[0] >= 1 and uploads[STORM_REPRICE_PASS - 1] == 1 and not any(calm),
+          f"fleet uploads a pass {uploads}: not one after the reprice and none while calm")
+    (gen_bump, requeues), = card["reprices"]
+    check(gen_bump >= 1 and requeues >= 1, "the mid-storm spike did not reprice and requeue")
+    pass_ms = [p["ms"] for p in card["passes"]]
+
+    cpu = run_storm("cpu", "cost", market_pools=card["market_pools"])
+    storm_checks(cpu, "CPU storm")
+    rel = abs(card["cost_per_hr"] - cpu["cost_per_hr"]) / cpu["cost_per_hr"]
+    check(rel <= 1e-4, f"the storm's $/hr differs between the card ({card['cost_per_hr']}) "
+                       f"and the CPU ({cpu['cost_per_hr']})")
+
+    for counter in counters:
+        counter.launches = 0
+    fallbacks = solver_mod.TPUSolver.host_fallbacks
+    ffd_card = run_storm(device, "ffd", market_pools=card["market_pools"], tripwire=False)
+    ffd_launches = {counter.__name__: counter.launches for counter in counters}
+    storm_checks(ffd_card, "ffd storm")
+    check(solver_mod.TPUSolver.host_fallbacks == fallbacks,
+          "an ffd storm pass ran out of K2's rounds and solved on the host FFD")
+    check(ffd_launches["pack_kernel"] == len(ffd_card["passes"])
+          and ffd_launches["dominance_prices"] == ffd_launches["lp_relax"] == 0,
+          f"the ffd storm did not run K2 alone, once a pass: {ffd_launches}")
+    ffd_cpu = run_storm("cpu", "ffd", market_pools=card["market_pools"], tripwire=False)
+    storm_checks(ffd_cpu, "CPU ffd storm")
+    check(ffd_card["nodes"] == ffd_cpu["nodes"], "the ffd storm's nodes differ between the card and the CPU")
+    phase(
+        "provision_storm", pods=len(pods), types=NUM_TYPES, pools=len(card["world"].pools),
+        window=STORM_WINDOW, passes=num_passes, host_solve_env=os.environ["KARPENTER_HOST_SOLVE"],
+        device_passes=f"{launches['pack_kernel']}/{num_passes}",
+        fast_path_passes=",".join(str(i + 1) for i, p in enumerate(card["passes"]) if p["fast_path"]) or "none",
+        pass_p50_ms=f"{np.percentile(pass_ms, 50):.3f}", pass_max_ms=f"{max(pass_ms):.3f}",
+        first_bind_s=f"{card['first_bind_s']:.3f}", last_bind_s=f"{card['last_bind_s']:.3f}",
+        pods_per_s=f"{len(pods) / card['last_bind_s']:.1f}", select_s=f"{card['select_s']:.3f}",
+        market_sweep_ms=f"{card['world'].sweep_ms:.3f}", ticks=card["world"].book.last_seq,
+        fleet_uploads=",".join(map(str, uploads)), reprice_generations=gen_bump,
+        risked_types=card["prices"]["risked_types"], risked_pools=card["prices"]["risked_pools"],
+        nodes=sum(card["nodes"].values()), cost_per_hr=f"{card['cost_per_hr']:.6f}",
+        cpu_cost_per_hr=f"{cpu['cost_per_hr']:.6f}", cost_rel_diff=f"{rel:.3e}",
+        schedule_ms_per_pass=f"{card['stage_ms']['schedule']:.3f}",
+        solve_ms_per_pass=f"{card['stage_ms']['solve']:.3f}",
+        bind_ms_per_pass=f"{card['stage_ms']['bind']:.3f}",
+        cpu_pass_p50_ms=f"{np.percentile([p['ms'] for p in cpu['passes']], 50):.3f}",
+        ffd_nodes=sum(ffd_card["nodes"].values()), ffd_nodes_equal="yes",
+        ffd_pass_p50_ms=f"{np.percentile([p['ms'] for p in ffd_card['passes']], 50):.3f}",
+        k10_launches=card["k10_launches"], k2_single_launches=ffd_launches["pack_kernel"],
+        k8_scatter_launches=launches["scatter"], k8_gather_launches=launches["gather"],
+        ffd_host_fallbacks=solver_mod.TPUSolver.host_fallbacks - fallbacks,
+        spot_nodes=f"{sum(c for k, c in card['nodes'].items() if k[2] == 'spot')}/{sum(card['nodes'].values())}",
+    )
+    return {"launches": launches, "k10_launches": card["k10_launches"], "k10_err": card["k10_err"],
+            "prices": card["prices"], "k2_single_launches": ffd_launches["pack_kernel"],
+            "market_pools": card["market_pools"], "pass_ms": pass_ms}
+
+
+def storm_profile_phase(device, storm: dict) -> None:
+    """The card storm again, with the same market, to its pass
+    STORM_PROFILE_PASS, which runs under torch.profiler: its device time
+    summed over kernels and copies against its wall time, the card's busy
+    share of a storm pass."""
+    profiled = run_storm(device, "cost", market_pools=storm["market_pools"], tripwire=False,
+                         profile_pass=STORM_PROFILE_PASS, stop_after=STORM_PROFILE_PASS)
+    busy = profiled["profiled"]
+    check(len(profiled["passes"]) == STORM_PROFILE_PASS and busy is not None,
+          f"the storm did not reach its pass {STORM_PROFILE_PASS} under the profiler")
+    phase("storm_profile", pass_index=STORM_PROFILE_PASS, wall_ms=f"{busy['wall_ms']:.3f}",
+          storm_pass_p50_ms=f"{np.percentile(storm['pass_ms'], 50):.3f}",
+          device_ms=f"{busy['device_ms']:.3f}", busy_share=f"{busy['busy_share']:.4f}",
+          device_launches=busy["device_launches"])
+    for key, count, ms in busy["top"]:
+        print(f"  device {ms:9.3f} ms  x{count:<6d} {key}")
+
+
 def main() -> int:
     import torch
 
@@ -1898,8 +2374,10 @@ def main() -> int:
     from karpenter_tpu_torch.api.provisioner import Constraints
     from karpenter_tpu_torch.convert import fused_args_from_numpy, upload_packed
     from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.market import forecast
     from karpenter_tpu_torch.ops import (
-        consolidate_kernel, cuda_build, cuda_kernels, incremental, native, pack_kernel, score_kernel,
+        consolidate_kernel, cuda_build, cuda_kernels, forecast_kernel, incremental, native,
+        pack_kernel, score_kernel,
     )
     from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
 
@@ -1919,7 +2397,7 @@ def main() -> int:
     libraries = [
         cuda_kernels.LIBRARY, pack_kernel.LIBRARY, score_kernel.LIBRARY,
         pack_kernel.COMPACT_LIBRARY, consolidate_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
-        incremental.LIBRARY,
+        incremental.LIBRARY, forecast_kernel.LIBRARY,
     ]
     build_s = cuda_build.build_all(libraries)
     for library in libraries:
@@ -2087,8 +2565,21 @@ def main() -> int:
             check(level_packs_equal(got, again), f"two launches of K6 differ on {name}")
     # K8 on every case of k8_cases, bit for bit.
     k8 = k8_check(device)
+    # K10 on every case of k10_cases: bit for bit to the numpy column and
+    # to its plain version.
+    k10_cases = 0
+    for prices_np, risks_np in k10_cases_list():
+        want = forecast.penalize_prices(prices_np, risks_np)
+        got = forecast.penalize_prices_torch(torch.from_numpy(prices_np).to(device), risks_np)
+        plain = forecast_kernel._penalize_prices_ref(
+            torch.from_numpy(prices_np).to(device), torch.from_numpy(risks_np).to(device),
+            forecast.RISK_PRICE_WEIGHT)
+        torch.cuda.synchronize()
+        check(same_bytes(got.cpu().numpy(), want), f"K10 differs from the numpy column at T={len(want)}")
+        check(same_bits(got, plain), f"K10 differs from its plain version at T={len(want)}")
+        k10_cases += 1
     phase("kernels", k1_cases=k1_cases, k2_cases=k2_cases, k3_cases=k3_cases, k4_cases=k4_cases,
-          k6_cases=k6_cases_run, k8_cases=k8["cases"], k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
+          k6_cases=k6_cases_run, k8_cases=k8["cases"], k10_cases=k10_cases, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
           k3_max_abs_err=k3_err, k4_max_abs_err=k4_err, k6_max_abs_err=k6_err, k8_max_abs_err=0,
           k3_objective_rel_err=f"{k3_obj_err:.3e}", k3_main_objective_rel_err=f"{main_obj_err:.3e}")
 
@@ -2212,6 +2703,10 @@ def main() -> int:
           f"K2 at T 8192: {pack_kernel.pack_launch_plan(16, 8192, 8)}, "
           f"K3 at G 2048 T 2048: {score_kernel.lp_launch_plan(2048, 2048, 8)}")
 
+    # 10b. the provisioning controllers under a live spot market: 50,000
+    # pods through the port's Manager in 2,000-pod windows.
+    storm = provision_storm_phase(device)
+
     # 11. kernel timing at the main path's shapes.
     num_types, dims = capacity.shape
     num_groups = vectors.shape[0]
@@ -2333,6 +2828,7 @@ def main() -> int:
             "ms": k2_ms, "event_ms": k2_event_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
             "bound_by": k2_by, "library_ms": None,
             "us_per_round": k2_mode_us[k2_slow_mode][1], "slower_mode": k2_slow_mode,
+            "launches_single_mode": storm["k2_single_launches"],
         },
         {
             "name": "lp_relax", "route": "cuda",
@@ -2403,6 +2899,31 @@ def main() -> int:
         "flushes": churn["flushes"], "cases": k8["cases"],
         "bytes": k8_bytes,
     })
+    # K10 on the storm fleet's own [T] column and risks.
+    k10_prices = torch.from_numpy(storm["prices"]["prices"]).to(device)
+    k10_risks = torch.from_numpy(storm["prices"]["risks"]).to(device)
+    weight = forecast.RISK_PRICE_WEIGHT
+    k10_call = functools.partial(forecast_kernel.penalize_prices, k10_prices, k10_risks, weight)
+    k10_event_ms = time_cuda(k10_call, reps=200)
+    k10_ms = device_ms_per_call(k10_call, ["penalize_kernel"], reps=200)
+    k10_plain_ms = time_cuda(
+        lambda: forecast_kernel._penalize_prices_ref(k10_prices, k10_risks, weight), reps=200)
+    library_call = functools.partial(torch.addcmul, k10_prices, k10_prices, k10_risks, value=weight)
+    k10_library_ms = time_cuda(library_call, reps=200)
+    library_same = same_bits(library_call(), k10_call())
+    k10_types = k10_prices.shape[0]
+    k10_bound, k10_by = bound(3 * 4 * k10_types, 3 * k10_types)
+    print(f"  K10 at T={k10_types}: torch.addcmul {k10_library_ms:.4f} ms, "
+          f"{'the same bits' if library_same else 'other bits'} than K10")
+    kernels.append({
+        "name": "penalize_prices", "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/forecast.cu",
+        "replaces": "karpenter_tpu/market/forecast.py:77",
+        "launches": storm["k10_launches"], "max_abs_err": storm["k10_err"],
+        "ms": k10_ms, "event_ms": k10_event_ms, "plain_ms": k10_plain_ms, "bound_ms": k10_bound,
+        "bound_by": k10_by, "library_ms": k10_library_ms, "library_same_bits": library_same,
+        "cases": k10_cases, "types": k10_types,
+    })
     # K2 and K3 at the many-shapes schedule's padded G 2,048: milliseconds
     # a launch, so CUDA events around the wrapper.
     big_args = large["args"]
@@ -2419,13 +2940,16 @@ def main() -> int:
     # busy share of a solve.
     layers = layer_breakdown(groups, fleet, device)
     phase("layers", **{name: f"{ms:.3f}" for name, ms in layers.items()})
-    busy = device_busy(cost_solver, groups, fleet)
+    busy = profile_call(lambda: cost_solver.solve_encoded(groups, fleet))
     phase("profile", wall_ms=f"{busy['wall_ms']:.3f}", device_ms=f"{busy['device_ms']:.3f}",
           busy_share=f"{busy['busy_share']:.4f}", device_launches=busy["device_launches"])
     for key, count, ms in busy["top"]:
         print(f"  device {ms:9.3f} ms  x{count:<6d} {key}")
     check(solver.SOLVER_BATCH_SPLIT_TOTAL.get("floor") == 0,
           "a solve reached the device-memory ladder's floor")
+
+    # 13. the card's busy share of a storm pass, last (see the docstring).
+    storm_profile_phase(device, storm)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

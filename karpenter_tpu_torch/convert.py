@@ -6,12 +6,15 @@ padded numpy arrays; `fused_args_from_numpy` places them on a torch device
 with the dtypes the fused solve takes, and `fused_outputs_to_numpy` brings the
 fused solve's four outputs back as numpy, so a test compares like with like.
 `upload_packed` is the one way numpy arrays reach a device: for the card, one
-pinned buffer and one copy, counted.
+pinned buffer and one copy, counted. The market's state crosses too:
+`market_ticks` rebuilds a feed's ticks from their wire form, and
+`pricebook_state` / `pricebook_from_state` carry a PriceBook's fold.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import copy
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,3 +98,52 @@ def upload_packed(arrays, device) -> Tuple[torch.Tensor, ...]:
 upload_packed.copies = 0
 upload_packed.arrays = 0
 upload_packed.bytes = 0
+
+
+# --- market state -----------------------------------------------------------
+#
+# Both packages fold the same market history: the feed's ticks cross as their
+# canonical wire form (MarketTick.encode), and a PriceBook's whole fold state
+# as a plain dict.
+
+_BOOK_FIELDS = (
+    "_generation", "_risk_generation", "_last_seq", "_discount", "_depth", "_anchor",
+    "_closed", "_closed_at", "_trend", "_risk_q", "_interruptions", "_last_tick_at",
+)
+
+
+def market_ticks(encoded: Sequence[str]) -> List:
+    """The port's MarketTicks from their wire form (`MarketTick.encode()` of
+    either package): the same seq, kind, pool, and float bits."""
+    from karpenter_tpu_torch.market.feed import MarketTick
+
+    ticks = []
+    for line in encoded:
+        seq, kind, instance_type, zone, discount, depth, at = line.split("|")
+        ticks.append(MarketTick(
+            seq=int(seq), kind=kind, instance_type=instance_type, zone=zone,
+            discount=float(discount), depth=float(depth), at=float(at),
+        ))
+    return ticks
+
+
+def pricebook_state(book) -> Dict[str, object]:
+    """A PriceBook's fold state (either package's: they share the layout) as
+    a dict of copies, read under the book's lock."""
+    with book._lock:
+        state = {name: copy.copy(getattr(book, name)) for name in _BOOK_FIELDS}
+    state["reprice_threshold"] = book.reprice_threshold
+    return state
+
+
+def pricebook_from_state(state: Dict[str, object], clock=None):
+    """The port's PriceBook holding `state` (from pricebook_state), on `clock`
+    (the system clock by default): its generations, risks and the prices it
+    advertises are the source book's."""
+    from karpenter_tpu_torch.market.pricebook import PriceBook
+
+    book = PriceBook(clock=clock, reprice_threshold=state["reprice_threshold"])
+    with book._lock:
+        for name in _BOOK_FIELDS:
+            setattr(book, name, copy.copy(state[name]))
+    return book

@@ -1,5 +1,5 @@
-"""Solver models: the cost solver on the card and the host FFD solvers."""
+"""Solver models: the cost solver on the card, K2 alone (TPUSolver) and the host FFD solvers."""
 
-from karpenter_tpu_torch.models.solver import CostSolver, GreedySolver, NativeSolver, Solver
+from karpenter_tpu_torch.models.solver import CostSolver, GreedySolver, NativeSolver, Solver, TPUSolver
 
-__all__ = ["CostSolver", "GreedySolver", "NativeSolver", "Solver"]
+__all__ = ["CostSolver", "GreedySolver", "NativeSolver", "Solver", "TPUSolver"]

@@ -842,15 +842,20 @@ class DeviceClusterState:
         between sweeps. Any content drift (price/ICE churn, new types,
         daemonset change) misses and rebuilds."""
         need_key = pods_need.tobytes() if pods_need is not None else b""
-        # The reference keys the live market's fingerprint in here too; the
-        # port has no market yet, so it keys None: the reference's "no
-        # active book", a static market.
+        # The market fingerprint keys the live price surface into the cache:
+        # a reprice (generation) or a forecast-risk move (risk_generation)
+        # rebuilds the fleet — whose changed price bytes then also miss the
+        # content-keyed device_resident cache at dispatch, so the offering
+        # arrays re-upload exactly when the market moved. None (no active
+        # book) keys a static market, the pre-market behavior.
+        from karpenter_tpu_torch.market.pricebook import active_fingerprint
+
         key = (
             _constraints_fingerprint(constraints),
             _catalog_fingerprint(instance_types),
             tuple(sorted(p.uid for p in daemons)),
             need_key,
-            None,
+            active_fingerprint(),
         )
         with self._lock:
             fleet = self._fleet_cache.get(key)

@@ -17,9 +17,9 @@ device_resident cache; the pipelined solve hands results back one schedule
 at a time; and the batched paths survive device-memory exhaustion by
 pre-splitting and bisecting the batch.
 
-Left out of this slice, against the reference: the sharded and mesh path,
-break-even calibration, tracing spans, TPUSolver and the market hooks in the
-pool-price matrix.
+TPUSolver runs K2 in one mode (make_solver("ffd")). Left out of this
+slice, against the reference: the sharded and mesh path, break-even
+calibration and tracing spans.
 """
 
 from __future__ import annotations
@@ -34,9 +34,11 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.pods import PodSpec
 from karpenter_tpu_torch.api.provisioner import Constraints
 from karpenter_tpu_torch.cloudprovider import InstanceType
+from karpenter_tpu_torch.convert import fused_args_from_numpy
 from karpenter_tpu_torch.device import resolve_device
 from karpenter_tpu_torch.ops import ffd
 from karpenter_tpu_torch.ops import mix_pack
@@ -48,6 +50,7 @@ from karpenter_tpu_torch.ops.pack_kernel import (
     compact_plan,
     decompact_plan,
     max_rounds,
+    pack_kernel,
     pack_kernel_pair,
     device_resident,
     pad_to,
@@ -442,6 +445,33 @@ def pad_kernel_args(vectors, counts, capacity, total, prices):
     )
 
 
+def run_kernel_dense(vectors, counts, capacity, total, prices, mode: str, quirk: bool,
+                     device=None):
+    """K2 in one mode on the six padded dense inputs, on `device` (the card
+    for None)."""
+    return pack_kernel(
+        *fused_args_from_numpy(
+            *pad_kernel_args(vectors, counts, capacity, total, prices),
+            device=resolve_device(device),
+        ),
+        quirk=quirk,
+        mode=mode,
+    )
+
+
+def _run_kernel(groups: PodGroups, fleet: InstanceFleet, mode: str, quirk: bool, device=None):
+    return run_kernel_dense(
+        groups.vectors,
+        groups.counts,
+        fleet.capacity,
+        fleet.total,
+        fleet.prices,
+        mode,
+        quirk,
+        device,
+    )
+
+
 # Row budget for one launch request: the reference offers MAX_INSTANCE_TYPES
 # types, each crossed with ~3 zone subnets (instance.go:173-207) — we spend
 # the same number of override rows on individually price-ranked pools.
@@ -466,10 +496,10 @@ def _pool_zones(fleet: InstanceFleet) -> List[str]:
 def _pool_price_matrix(fleet: InstanceFleet) -> Tuple[List[str], np.ndarray]:
     """[T, Z] price of each type's pool per zone at the fleet's capacity type
     (inf where not offered), computed once per solve so per-round option
-    ranking is pure vectorized numpy. (The reference also folds a spot
-    interruption-risk penalty in when a market PriceBook is active; the port
-    has no market layer yet, and with no active book the reference's matrix
-    is exactly this one.)"""
+    ranking is pure vectorized numpy. Spot matrices carry the interruption-
+    forecast penalty per POOL (price += price * risk * weight), so pinned
+    launch rows rank away from pools trending toward interruption — the
+    [T, Z] analogue of build_fleet's [T] penalty column."""
     zones = _pool_zones(fleet)
     matrix = np.full((fleet.num_types, len(zones)), np.inf, dtype=np.float64)
     zone_index = {zone: j for j, zone in enumerate(zones)}
@@ -480,6 +510,22 @@ def _pool_price_matrix(fleet: InstanceFleet) -> Tuple[List[str], np.ndarray]:
             j = zone_index.get(offering.zone)
             if j is not None:
                 matrix[ti, j] = min(matrix[ti, j], offering.price)
+    if fleet.capacity_type == wellknown.CAPACITY_TYPE_SPOT:
+        from karpenter_tpu_torch.market.pricebook import active_book
+
+        book = active_book()
+        if book is not None and book.has_risk():
+            from karpenter_tpu_torch.market.forecast import (
+                RISK_PRICE_WEIGHT,
+                risk_matrix,
+            )
+
+            risks = risk_matrix(
+                [it.name for it in fleet.instance_types], zones, book
+            )
+            # Multiplicative form so inf (unoffered) rows stay inf — the
+            # additive prices + prices*risk*w form would produce inf*0=nan.
+            matrix = matrix * (1.0 + risks * RISK_PRICE_WEIGHT)
     return zones, matrix
 
 
@@ -651,6 +697,54 @@ def _kernel_rounds_to_list(host_rounds: PackRounds, num_groups: int):
         )
         for r in range(num_rounds)
     ]
+
+
+def _to_host(rounds: PackRounds) -> PackRounds:
+    """Device->host in ONE copy per kernel invocation: the rounds' int32
+    leaves go down as one flat tensor and come back as numpy views."""
+    leaves = [leaf.reshape(-1).to(torch.int32) for leaf in rounds]
+    flat = torch.cat(leaves).cpu().numpy()
+    out, cursor = [], 0
+    for leaf, original in zip(leaves, rounds):
+        out.append(flat[cursor : cursor + leaf.numel()].reshape(tuple(original.shape)))
+        cursor += leaf.numel()
+    return PackRounds(*out)
+
+
+class TPUSolver(Solver):
+    """Batched solve on the card via ops.pack_kernel (K2 in one mode).
+
+    mode="ffd" reproduces the reference packing; mode="cost" picks
+    price-efficient types each round. quirk=True (the reference's fits()
+    early exit) exists only in K2's plain version, so on the card it raises.
+    The device is explicit: device=None runs on the CUDA card and raises
+    without one; device="cpu" runs the plain version. `host_fallbacks`
+    counts the solves that K2's round budget sent to the host FFD.
+    """
+
+    needs_device_warmup = True
+    host_fallbacks = 0
+
+    def __init__(self, mode: str = "ffd", quirk: bool = False, device=None):
+        self.mode = mode
+        self.quirk = quirk
+        self.device = resolve_device(device)
+
+    def solve_encoded(self, groups: PodGroups, fleet: InstanceFleet) -> ffd.PackResult:
+        if fleet.num_types == 0 or groups.num_groups == 0:
+            return ffd.pack_groups(fleet, groups)
+        rounds = _to_host(_run_kernel(groups, fleet, self.mode, self.quirk, self.device))
+        if bool(rounds.overflow):
+            # Defensive: static round budget exhausted — fall back to host FFD
+            # rather than return a partial packing.
+            TPUSolver.host_fallbacks += 1
+            return ffd.pack_groups(fleet, groups)
+        return _decode_rounds(
+            _kernel_rounds_to_list(rounds, groups.num_groups),
+            rounds.unschedulable[: groups.num_groups],
+            groups,
+            fleet,
+        )
 
 
 @dataclass

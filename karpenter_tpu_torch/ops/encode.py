@@ -348,10 +348,8 @@ def build_fleet(
             allowed_zones=zone_values,
             capacity_type=capacity_type,
         )
-    # The reference applies its spot-market forecast penalty here; with no
-    # active PriceBook that hook returns the prices untouched, and the port
-    # has no market layer yet, so the column is the offerings' own minimum.
     prices = np.array([item[3] for item in kept], dtype=np.float32)
+    prices = _forecast_penalized(prices, kept, allowed_zones, capacity_type)
     return InstanceFleet(
         instance_types=[item[0] for item in kept],
         capacity=np.stack([item[1] for item in kept]),
@@ -361,3 +359,28 @@ def build_fleet(
         capacity_type=capacity_type,
     )
 
+
+def _forecast_penalized(
+    prices: np.ndarray, kept, allowed_zones, capacity_type: str
+) -> np.ndarray:
+    """Interruption-forecast penalty on the [T] price column (spot fleets
+    only): prices += prices * risk * weight, computed host-side in float32
+    BEFORE dispatch so the device kernel and every numpy mirror consume the
+    same bits (karpenter_tpu/market/forecast.py). A fleet with no active
+    PriceBook — or one whose every pool is calm — is returned untouched,
+    bit-identical to the pre-market behavior."""
+    if capacity_type != wellknown.CAPACITY_TYPE_SPOT:
+        return prices
+    from karpenter_tpu_torch.market.pricebook import active_book
+
+    book = active_book()
+    if book is None or not book.has_risk():
+        return prices
+    from karpenter_tpu_torch.market import forecast
+
+    risks = forecast.type_risks(
+        [item[0].name for item in kept],
+        forecast.fleet_zone_lists(kept, allowed_zones),
+        book,
+    )
+    return forecast.penalize_prices(prices, risks)

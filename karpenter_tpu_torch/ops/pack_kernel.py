@@ -1165,6 +1165,8 @@ def device_resident(arrays: Sequence, resident: Sequence[bool], device) -> Tuple
             keys[i] = key
         missing.append(i)
     if missing:
+        if keys:
+            device_resident.uploads += 1
         # The transfer runs outside the lock; a racing double upload is
         # harmless (last writer wins).
         for i, tensor in zip(missing, upload_packed([arrays[i] for i in missing], device)):
@@ -1178,6 +1180,12 @@ def device_resident(arrays: Sequence, resident: Sequence[bool], device) -> Tuple
                     _DEVICE_RESIDENT[keys[i]] = held
                 out[i] = held
     return tuple(out)
+
+
+# Calls that uploaded at least one array flagged resident (a fleet or
+# catalog re-upload: a cache miss). A run reads it to show that the fleet
+# re-uploads exactly when prices moved.
+device_resident.uploads = 0
 
 
 def reset_device_resident() -> None:

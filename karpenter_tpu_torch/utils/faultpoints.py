@@ -187,8 +187,13 @@ def draw(site: str) -> Optional[Fault]:
             _fired[site] = _fired.get(site, 0) + 1
             winner = fault
             break
-    # The reference also records every injected fault in its flight
-    # recorder; the port has no flight recorder yet.
+    if winner is not None:
+        # Chaos is only diagnosable if the black box saw it: every injected
+        # fault lands in the flight recorder (outside the site lock), so a
+        # storm postmortem can line faults up against retries and launches.
+        from karpenter_tpu_torch.utils.obs import RECORDER
+
+        RECORDER.record("fault", site=site, fault=winner.kind)
     return winner
 
 

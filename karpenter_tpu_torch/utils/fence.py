@@ -97,6 +97,9 @@ class WriteFence:
                 return
             generation = self._generation
         LEADER_FENCE_REJECTED_TOTAL.inc(verb)
+        from karpenter_tpu_torch.utils.obs import RECORDER
+
+        RECORDER.record("fence-reject", verb=verb, generation=generation)
         raise FencedWriteError(verb, generation)
 
     def revoked(self) -> bool:

@@ -618,3 +618,38 @@ def test_fast_path_dispatch_uploads_no_pod_tensor(cuda_device, monkeypatch):
     assert chip_smoke.plan_signature(first) == chip_smoke.plan_signature(again)
     assert chip_smoke.plan_signature(first) == chip_smoke.plan_signature(snapshot)
     assert chip_smoke.all_pods_placed_once(first, pods)
+
+
+# --- K10: the forecast penalty -------------------------------------------------
+
+K10_CASES = chip_smoke.k10_cases_list()
+
+
+@pytest.mark.parametrize("case", K10_CASES, ids=[f"T{c[0].shape[0]}-{i}" for i, c in enumerate(K10_CASES)])
+def test_forecast_kernel_bit_identical_to_numpy_and_plain(case, cuda_device):
+    from karpenter_tpu_torch.market import forecast
+    from karpenter_tpu_torch.ops import forecast_kernel
+
+    prices, risks = case
+    want = forecast.penalize_prices(prices, risks)
+    before = forecast_kernel.penalize_prices.launches
+    got = forecast.penalize_prices_torch(torch.from_numpy(prices).to(cuda_device), risks)
+    plain = forecast_kernel._penalize_prices_ref(
+        torch.from_numpy(prices).to(cuda_device), torch.from_numpy(risks).to(cuda_device),
+        forecast.RISK_PRICE_WEIGHT)
+    torch.cuda.synchronize()
+    assert forecast_kernel.penalize_prices.launches == before + 1
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+
+
+def test_forecast_kernel_rejects_bad_arguments(cuda_device):
+    from karpenter_tpu_torch.ops import forecast_kernel
+
+    prices = torch.ones(8, device=cuda_device)
+    with pytest.raises(TypeError):
+        forecast_kernel.penalize_prices(prices.double(), prices.double(), 1.0)
+    with pytest.raises(ValueError):
+        forecast_kernel.penalize_prices(prices, torch.ones(4, device=cuda_device), 1.0)
+    with pytest.raises(ValueError):
+        forecast_kernel.penalize_prices(prices[::2], prices[::2], 1.0)

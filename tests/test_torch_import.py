@@ -64,6 +64,32 @@ def test_the_incremental_encode_modules_are_checked():
         assert name in names
 
 
+def test_the_market_and_controller_modules_are_checked():
+    """The blocked-import check below covers every module of the port; the
+    provisioning pass's controllers, the market and K10's among them."""
+    names = _module_names()
+    for name in (
+        "karpenter_tpu_torch.runtime",
+        "karpenter_tpu_torch.controllers.provisioning",
+        "karpenter_tpu_torch.controllers.selection",
+        "karpenter_tpu_torch.controllers.market",
+        "karpenter_tpu_torch.cloudprovider.fake",
+        "karpenter_tpu_torch.cloudprovider.market",
+        "karpenter_tpu_torch.market",
+        "karpenter_tpu_torch.market.feed",
+        "karpenter_tpu_torch.market.pricebook",
+        "karpenter_tpu_torch.market.forecast",
+        "karpenter_tpu_torch.ops.forecast_kernel",
+        "karpenter_tpu_torch.utils.tracing",
+        "karpenter_tpu_torch.utils.obs",
+        "karpenter_tpu_torch.utils.options",
+        "karpenter_tpu_torch.utils.cache",
+        "karpenter_tpu_torch.api.validation",
+        "karpenter_tpu_torch.drift",
+    ):
+        assert name in names
+
+
 def test_every_module_imports_with_jax_blocked():
     script = textwrap.dedent(
         f"""

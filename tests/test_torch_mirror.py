@@ -41,15 +41,27 @@ VERBATIM = [
     "constraints/ladder.py",
     "constraints/mirror.py",
     "constraints/compiler.py",
+    "ops/encode.py",
+    "utils/faultpoints.py",
+    "utils/fence.py",
+    "utils/cache.py",
+    "api/validation.py",
+    "drift/__init__.py",
+    "cloudprovider/market.py",
+    "cloudprovider/fake.py",
+    "market/feed.py",
+    "controllers/market.py",
+    "controllers/provisioning.py",
+    "controllers/selection.py",
 ]
 _DOCSTRING = "docstring only: names the port's files and devices"
 _NO_MESH = "one device: no mesh, no sharded variant, no tracing spans"
 _PORT_ONLY = "the port's own helper"
+_HISTORY = "docstring only: without the reference's history of which change added what"
 # Trimmed copies: {module: {adapted definition: why}}.
 TRIMMED = {
     "ops/ffd.py": {},
     "ops/mix_pack.py": {},
-    "ops/encode.py": {"build_fleet": "no market hook: the port has no PriceBook yet"},
     "ops/native.py": {
         "_library_path": "the port builds csrc/host/ffd.cc into its own build directory",
         "_build": "g++ directly, without the reference's Makefile",
@@ -82,15 +94,34 @@ TRIMMED = {
                                              "the delta rows and index vectors, then K8's "
                                              "scatters",
         "DeviceClusterState.pending_groups": "uploads the permutation, then K8's gathers",
-        "DeviceClusterState.encode_fleet": "no market fingerprint: the port has no "
-                                           "PriceBook yet, so it keys None (no active book)",
+        "DeviceClusterState.encode_fleet": _HISTORY,
     },
-    "utils/faultpoints.py": {
-        "draw": "records no flight-recorder event: the port has no flight recorder",
+    "utils/tracing.py": {
+        "_SpanContext": "enters torch.profiler.record_function in place of "
+                        "jax.profiler.TraceAnnotation",
+        "_ProfileSession": "a torch.profiler capture exported as a Chrome trace in place of "
+                           "jax.profiler.start_trace",
     },
-    "utils/fence.py": {
-        "WriteFence": "check records no flight-recorder event: the port has no flight "
-                      "recorder, and no leader election arms a fence yet",
+    "utils/obs.py": {
+        "stacks_snapshot": "no sampled hot-path profile: utils/stackprof is not ported",
+    },
+    "utils/options.py": {
+        "LAUNCH_GRACE_SECONDS": "a copy of controllers/instancegc's constant, which "
+                                "Options validates against: the GC controller is not ported",
+    },
+    "market/__init__.py": {},
+    "market/pricebook.py": {"stamp_epoch": _HISTORY},
+    "market/forecast.py": {
+        "penalize_prices_torch": "the torch mirror of penalize_prices_jnp: K10 on the card, "
+                                 "its plain version on the CPU",
+    },
+    "runtime.py": {
+        "make_solver": "places the device solvers on a device the caller picks; the sidecar "
+                       "(remote) is not ported and raises",
+        "Manager": "builds the encoder, the tracker, provisioning, selection and the market "
+                   "on a device the caller picks; no reconcile loops, readiness, leader "
+                   "election or the other controllers; the reprice requeue reconciles the "
+                   "provisioners",
     },
     "constraints/solve.py": {
         "_dispatch_kernel": "no mesh hook or quarantine (one device); one packed upload, "
@@ -114,7 +145,11 @@ TRIMMED = {
         "device_pod_args": _DOCSTRING,
         "_HostOverlap": _DOCSTRING,
         "pad_kernel_args": "pads pod tensors already on the device with torch; " + _NO_MESH,
-        "_pool_price_matrix": "no market hook: the port has no PriceBook yet",
+        "run_kernel_dense": "uploads the padded inputs to a device the caller picks",
+        "_run_kernel": "passes the solver's device",
+        "_to_host": "one flat int32 copy of the rounds to the host in place of device_get",
+        "TPUSolver": "runs on a device the caller picks and raises without a card; quirk=True "
+                     "has no CUDA kernel; counts its host FFD fallbacks",
         "sort_pool_rows": _DOCSTRING,
         "_cheapest_feasible_pools": _DOCSTRING,
         "_decode_rounds": _DOCSTRING,
