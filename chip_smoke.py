@@ -24,7 +24,19 @@ limit, and as the last line {"ok": true, "device": {...}}:
               give the same bits; K8 the incremental encode's scatter and
               gather on float32 rows, int32 and bool values (a delta, a
               1-element delta, sentinel-only index vectors, an empty
-              permutation), bit for bit, the scatter's input untouched
+              permutation), bit for bit, the scatter's input untouched; K2q
+              (K2 with the reference's fits() quirk) on the reference's
+              four parity shapes (the 1.5-pod then 0.5-pod exact-fit case
+              among them), random problems over the launch plans, the main
+              path's problem and padded G 2,048 and 8,192 (the fills, then
+              the tables, in global scratch), bit for bit
+ 3b. go_parity  TPUSolver(mode="ffd", quirk=True) on the card against
+              GreedySolver node for node (canonical nodes, unschedulable
+              pods, instance options) on the main path's 50,000 pods (the
+              greedy side computed in `chip_smoke.py --greedy-signature`, a
+              process of its own started after the build) and on the
+              reference's four parity shapes; K2q launched once a solve, no
+              host FFD fallback
   4. solve    the main path: 50,000 pending pods over 400 instance types
               through CostSolver(device="cuda").solve with the host gate off
               (KARPENTER_HOST_SOLVE=0); every pod placed exactly once, each
@@ -113,6 +125,26 @@ limit, and as the last line {"ok": true, "device": {...}}:
               solve sent to the host FFD. Pass p50 and
               max, the first and last bind, pods bound a second, the market
               sweep, which passes took the incremental encode's fast path
+ 10c. controller  the controller process, in `chip_smoke.py --phase
+              controller` (a fresh process, so its boot warmup pays the first
+              launches; started after the build, it runs beside phases
+              3-10b, its control loops on one host core): cmd/controller.main with the cost solver, leader
+              election on the in-memory lease, the storm's fake cloud
+              registered as a provider factory (--cloud-provider
+              chip-smoke-storm), the metrics and probe ports on free loopback
+              ports, KARPENTER_HOST_SOLVE unset (the card's default: no
+              host route); /healthz 200 at once, /readyz
+              503 until the warmup ends and 200 after, no rung failed, the
+              calibrated break-even printed; then through the threaded loops
+              alone: the first 2,000-pod window (its pass the first solve
+              after ready, within 2x of the warm p50), the rest of the
+              50,000-pod storm with a spike on eight pools, every pod bound
+              once, K1-K4 once a device solve, no host solve; the nodes'
+              kubelets join, 40% of the pods are deleted, the consolidation
+              loop launches K7, deletes or replaces nodes, termination
+              drains them, every evicted pod is bound again and the fleet's
+              $/hr falls; /metrics parses, /debug/stacks has profile
+              samples; after the stop /healthz answers 503
  11. timing   each kernel's device time per call (torch.profiler: the
               kernels' own time, `ms`) and its time between CUDA events
               around the wrapper (host enqueue included, `event_ms`), its
@@ -121,7 +153,8 @@ limit, and as the last line {"ok": true, "device": {...}}:
               K2's time per round of each mode; K6 at the constrained
               path's shapes; K8 on one steady-state sweep's scatters and
               gathers; K10 on the storm fleet's [T] column, beside
-              torch.addcmul; K2 and K3 at padded G 2,048
+              torch.addcmul; K2q at the main path's shape; K2 and K3 at
+              padded G 2,048
  12. layers   one warm solve layer by layer (each bracketed by device syncs),
               and torch.profiler's device time against the solve's wall time
  13. storm_profile  the card storm run again to its pass 2, which runs under
@@ -1077,32 +1110,48 @@ def k6_needed(operands, mode: str = "cost"):
     return read + written, ops
 
 
-def device_ms_per_call(fn, kernel_names, reps: int = 20, launches_per_call: int = 0) -> float:
-    """torch.profiler's device time of the named kernels per call of `fn`
-    (which launches each once, or `launches_per_call` of them in all): the
-    kernels' own time on the card, without the host's enqueue. The
-    profiler now and then drops a few kernel records of a window; a window
-    that did not see every launch is measured again, up to three times."""
+def device_ms_per_call(fn, kernels, reps: int = 20) -> float:
+    """torch.profiler's device time of the named kernels per call of `fn`:
+    the kernels' own time on the card, without the host's enqueue.
+    `kernels` is a list of names that `fn` launches once each, or a dict of
+    each name's launches per call. The profiler now and then drops a kernel
+    record of a window. A window that saw every launch gives the time as it
+    is; else the window is measured again, up to three times, and then the
+    one that saw most gives each name's mean time per recorded launch times
+    its launches per call, provided no name lost more than
+    max(2, 1%) of its records. More records than launches fail."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    per_call = kernels if isinstance(kernels, dict) else {name: 1 for name in kernels}
     fn()
     torch.cuda.synchronize()
-    expected = reps * (launches_per_call or len(kernel_names))
+    best = None
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [
-            e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and any(name in e.key for name in kernel_names)
-        ]
-        launches = sum(e.count for e in events)
-        if launches == expected:
-            return sum(e.self_device_time_total for e in events) / 1e3 / reps
-        print(f"  the profiler saw {launches} launches of {kernel_names}, not {expected}: again")
-    check(False, f"the profiler saw {launches} launches of {kernel_names}, not {expected}")
+        seen = {name: [0, 0.0] for name in per_call}
+        for event in prof.key_averages():
+            if event.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for name in per_call:
+                if name in event.key:
+                    seen[name][0] += event.count
+                    seen[name][1] += event.self_device_time_total
+        short = {name: reps * per_call[name] - seen[name][0] for name in per_call}
+        check(all(lost >= 0 for lost in short.values()),
+              f"the profiler saw more launches of {list(per_call)} than {reps} calls make: {short}")
+        if not any(short.values()):
+            return sum(us for _, us in seen.values()) / 1e3 / reps
+        print(f"  the profiler dropped records of {list(per_call)} (launches not seen: {short})")
+        if best is None or sum(short.values()) < sum(best[1].values()):
+            best = (seen, short)
+    seen, short = best
+    check(all(0 < seen[name][0] and short[name] <= max(2, reps * per_call[name] // 100) for name in per_call),
+          f"the profiler dropped too many records of {list(per_call)}: launches not seen {short}")
+    return sum(seen[name][1] / seen[name][0] * per_call[name] for name in per_call) / 1e3
 
 
 def consolidate_phase(catalog, device) -> dict:
@@ -1374,10 +1423,12 @@ def constrained_phase(catalog, device, num_pods: int = NUM_PODS, mirror_modes=("
 
 def large_shapes_phase(catalog, device, num_pods: int = 12_000, num_shapes: int = 1_100) -> dict:
     """CostSolver on `device` over a schedule of many distinct shapes (padded
-    G 2,048 at the defaults): every pod placed once; K2's rounds equal the
-    plain version's on the CPU (the same dispatch with device="cpu"), K3's
-    objective within the LP tolerance of its plain version on the card.
-    Returns the padded main-path operands."""
+    G 2,048 at the defaults): every pod placed once; K2's ffd rounds equal
+    the plain version's on the CPU (the cost rounds' check at this size is
+    the sparse G 2,048 case of the launch-plan checks: the plain version
+    takes minutes over 1,182 rounds of 1,100 groups), K3's objective within
+    the LP tolerance of its plain version on the card. Returns the padded
+    main-path operands."""
     import torch
 
     from karpenter_tpu_torch.api.provisioner import Constraints
@@ -1395,13 +1446,12 @@ def large_shapes_phase(catalog, device, num_pods: int = 12_000, num_shapes: int 
     fleet = build_fleet(catalog, Constraints(), pods, pods_need=groups.vectors.max(axis=0))
     args = (groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
     card = solver.fetch_plan(solver.cost_solve_dispatch(*args, device=device))
-    cpu = solver.fetch_plan(solver.cost_solve_dispatch(*args, device="cpu"))
-    for name in ("rounds_ffd", "rounds_cost"):
-        for a, b in zip(getattr(card, name), getattr(cpu, name)):
-            check(np.array_equal(np.asarray(a), np.asarray(b)),
-                  f"K2 {name} differs from the plain version on the many-shapes schedule")
     padded = solver.pad_kernel_args(*args)
     vectors, counts, capacity, total, valid, prices = fused_args_from_numpy(*padded, device=device)
+    got = pack_kernel.pack_kernel(vectors, counts, capacity, total, valid, prices, mode="ffd")
+    plain = pack_kernel._pack_kernel_ref(*fused_args_from_numpy(*padded, device="cpu"), mode="ffd")
+    check(rounds_equal(tuple(x.cpu() for x in got), plain),
+          "K2's ffd rounds differ from the plain version on the many-shapes schedule")
     effective = cuda_kernels._dominance_prices_ref(capacity, torch.where(valid, prices, torch.inf))
     solvable = torch.where(score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1), counts, 0)
     lp_args = (vectors, solvable, capacity, valid, effective)
@@ -2364,12 +2414,752 @@ def storm_profile_phase(device, storm: dict) -> None:
         print(f"  device {ms:9.3f} ms  x{count:<6d} {key}")
 
 
-def main() -> int:
+# --- the Go-parity solver: TPUSolver(mode="ffd", quirk=True) and K2q --------
+
+GO_PARITY_EXACT_FIT_NODES = 5  # tests/test_pack_kernel.py:60: the quirk's node count
+
+
+def fixture_pods(count: int, cpu: str = "1", memory: str = "512Mi", prefix: str = "fixture"):
+    """tests/fixtures.pods in the port's types: `count` pending pods of one
+    shape."""
+    from karpenter_tpu_torch.api.pods import PodSpec
+
+    return [PodSpec(name=f"{prefix}-{i}", requests={"cpu": cpu, "memory": memory}, unschedulable=True)
+            for i in range(count)]
+
+
+def fixture_instance(name: str, cpu: float, mem_gib: float, price=None):
+    """tests/fixtures.cpu_instance in the port's types: 110 pods, three test
+    zones, on-demand at `price` (0.05 a core by default) and spot at 0.7 of
+    it."""
+    from karpenter_tpu_torch.cloudprovider import InstanceType, Offering
+
+    price = cpu * 0.05 if price is None else price
+    offerings = []
+    for zone in ("test-zone-1", "test-zone-2", "test-zone-3"):
+        offerings.append(Offering(zone=zone, capacity_type="on-demand", price=price))
+        offerings.append(Offering(zone=zone, capacity_type="spot", price=price * 0.7))
+    return InstanceType(name=name, capacity={"cpu": cpu, "memory": f"{mem_gib}Gi", "pods": 110},
+                        architecture="amd64", offerings=offerings)
+
+
+def fixture_ladder(count: int):
+    """tests/fixtures.size_ladder: `count` types growing linearly in size
+    and price."""
+    return [fixture_instance(f"ladder-{i + 1}", 2 * (i + 1), 4 * (i + 1), 0.05 * (i + 1))
+            for i in range(count)]
+
+
+def go_parity_cases():
+    """The reference's parity shapes (tests/test_pack_kernel.py:42-62):
+    (name, pods, catalog). The last is the quirk's exact-fit case: a 1.5-pod
+    pairs with a 0.5-pod on a 2-core node (karpenter_tpu/ops/
+    pack_kernel.py:184-193)."""
+    return [
+        ("homogeneous", fixture_pods(100, prefix="homogeneous"), [fixture_instance("only", 16, 64)]),
+        ("size_ladder", fixture_pods(50, prefix="ladder"), fixture_ladder(10)),
+        ("mixed_shapes", fixture_pods(40, "1500m", "1Gi", "mixed-a") + fixture_pods(40, "500m", "3Gi", "mixed-b")
+         + fixture_pods(7, "4", "8Gi", "mixed-c"), fixture_ladder(8)),
+        ("exact_fit", fixture_pods(4, "1500m", prefix="exact-a") + fixture_pods(4, "500m", prefix="exact-b"),
+         [fixture_instance("two", 2, 8)]),
+    ]
+
+
+def go_parity_signature(result):
+    """What the reference's parity test compares (tests/test_pack_kernel.py:
+    13-40), as JSON-ready lists: the canonical node list (each node's first
+    instance option and its pods' sorted (cpu, memory)), the unschedulable
+    pods' names, and each packing's instance options."""
+    nodes = []
+    for packing in result.packings:
+        head = packing.instance_type_options[0].name
+        for node_pods in packing.pods_per_node:
+            nodes.append([head, sorted([p.requests["cpu"], p.requests["memory"]] for p in node_pods)])
+    return {
+        "nodes": sorted(nodes),
+        "unschedulable": sorted(p.name for p in result.unschedulable),
+        "options": sorted([it.name for it in p.instance_type_options] for p in result.packings),
+    }
+
+
+def greedy_signature(num_pods: int = NUM_PODS, num_types: int = NUM_TYPES) -> dict:
+    """GreedySolver (the host FFD oracle) on the main path's workload. It
+    takes about a minute at 50,000 pods, so chip_smoke runs it in a process
+    of its own while the card works (`chip_smoke.py --greedy-signature`)."""
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.models.solver import GreedySolver
+
+    pods, catalog = make_workload(num_pods, num_types)
+    return go_parity_signature(GreedySolver().solve(pods, catalog, Constraints()))
+
+
+def encoded_problem(pods, catalog):
+    """The six padded dense inputs K2 takes for one schedule, as TPUSolver
+    builds them (group_pods, build_fleet, pad_kernel_args)."""
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.models.solver import _groups_need
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    groups = group_pods(list(pods))
+    fleet = build_fleet(catalog, Constraints(), pods, (), pods_need=_groups_need(groups))
+    return solver.pad_kernel_args(groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
+
+
+def k2q_cases(main_problem):
+    """K2q's cases, (label, six numpy inputs, modes): the reference's four
+    parity shapes (the exact-fit 1.5-pod then 0.5-pod case among them),
+    random problems over the launch plans (one and two types a thread, a
+    ragged last warp, the fills in shared memory and in global scratch), the
+    main path's encoded problem (G 16, T 512), padded G 2,048 (the fills in
+    global scratch) and padded G 8,192 (the tables too), the last two in ffd
+    mode alone."""
+    cases = [(name, encoded_problem(pods, catalog), ("ffd", "cost")) for name, pods, catalog in go_parity_cases()]
+    rng = np.random.default_rng(29)
+    for g, t in ((8, 8), (16, 64), (16, 300), (32, 512), (64, 1024), (64, 2048)):
+        for seed in range(2):
+            cases.append((f"random G{g} T{t} #{seed}", random_pack_problem(rng, g, t), ("ffd", "cost")))
+    cases.append(("main path", main_problem, ("ffd", "cost")))
+    cases.append(("G 2048", sparse_pack_problem(3, 2048, 512, 200), ("ffd",)))
+    cases.append(("G 8192", sparse_pack_problem(4, 8192, 64, 40), ("ffd",)))
+    return cases
+
+
+def go_parity_phase(device, greedy) -> dict:
+    """TPUSolver(mode="ffd", quirk=True) on the card against GreedySolver,
+    node for node, on the main path's workload (`greedy` is its signature,
+    computed in a process of its own) and on the reference's four parity
+    shapes; K2q launched once a solve and no solve sent to the host FFD."""
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.models.solver import GreedySolver, TPUSolver
+    from karpenter_tpu_torch.ops import pack_kernel
+
+    fallbacks = TPUSolver.host_fallbacks
+    tpu = TPUSolver(mode="ffd", quirk=True, device=device)
+    pods, catalog = make_workload()
+    pack_kernel.pack_kernel.quirk_launches = 0
+    synchronize(device)
+    start = time.perf_counter()
+    result = tpu.solve(pods, catalog, Constraints())
+    solve_ms = (time.perf_counter() - start) * 1e3
+    launches = pack_kernel.pack_kernel.quirk_launches
+    check(launches == 1, f"the Go-parity solve launched K2q {launches} times, not once")
+    check(go_parity_signature(result) == greedy,
+          "TPUSolver(mode='ffd', quirk=True) differs from GreedySolver on the main path's 50,000 pods")
+    shapes = []
+    for name, case_pods, case_catalog in go_parity_cases():
+        got = tpu.solve(case_pods, case_catalog, Constraints())
+        want = GreedySolver().solve(case_pods, case_catalog, Constraints())
+        check(go_parity_signature(got) == go_parity_signature(want),
+              f"TPUSolver(mode='ffd', quirk=True) differs from GreedySolver on {name}")
+        shapes.append(f"{name}:{got.node_count}")
+        if name == "exact_fit":
+            check(got.node_count == GO_PARITY_EXACT_FIT_NODES,
+                  f"the exact-fit case took {got.node_count} nodes, not the quirk's {GO_PARITY_EXACT_FIT_NODES}")
+    launches = pack_kernel.pack_kernel.quirk_launches
+    check(launches == 1 + len(shapes), f"the Go-parity solves launched K2q {launches} times")
+    check(TPUSolver.host_fallbacks == fallbacks, "a Go-parity solve ran out of K2's rounds and took the host FFD")
+    phase("go_parity", pods=len(pods), types=len(catalog), nodes=result.node_count,
+          unschedulable=len(result.unschedulable), solve_ms=f"{solve_ms:.3f}", shapes=",".join(shapes),
+          k2q_launches=launches, host_fallbacks=TPUSolver.host_fallbacks - fallbacks, greedy="identical")
+    return {"launches": launches, "solve_ms": solve_ms}
+
+
+# --- the controller process: cmd/controller.main on the card ---------------
+
+CONTROLLER_CLOUD = "chip-smoke-storm"  # the factory chip_smoke registers for the storm's cloud
+CONTROLLER_DELETE_FRACTION = 0.4  # of the bound pods, deleted before consolidation
+CONTROLLER_DELETE_SEED = 23
+CONTROLLER_MAX_DISRUPTION = 32  # consolidation actions in flight (and the fleet's budget)
+# Consolidation runs this long; then the fleet's disruption budget goes to
+# 0 (no new voluntary disruption, as --disruption-budget 0 would set it)
+# and the in-flight actions finish. With 40% of 50,000 pods gone the sweeps
+# find work for far longer than a run can watch.
+CONTROLLER_WATCH_S = 30.0
+# The market sweep's cadence: the EC2 provider's own default (karpenter_tpu/
+# cloudprovider/ec2/__init__.py:360). The fake provider's 1 s folds the 1,200
+# pools' ticks and, on a reprice, requeues provisioning, consolidation and
+# drift every second, which at 50,000 pods starves the storm's passes of the
+# interpreter.
+CONTROLLER_MARKET_POLL_S = 15.0
+# Selection's reconcile threads. Under the interpreter lock more threads buy
+# nothing (the reference's note at karpenter_tpu/runtime.py:711-719): at
+# 50,000 pods the default 8 convoy on the store's lock with the bind
+# fan-out and the O(cluster) counter and metrics reconciles
+# (run_controller("cpu") at full width, selection_concurrency 1 against 8:
+# PERF.md).
+CONTROLLER_SELECTION_CONCURRENCY = 1
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_get(url: str, timeout: float = 5.0):
+    """(status, body) of one GET; (None, b"") when nothing listens."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as response:
+            return response.status, response.read()
+    except urllib.error.HTTPError as error:
+        return error.code, error.read()
+    except OSError:
+        return None, b""
+
+
+def parse_exposition(text: str) -> int:
+    """Every non-comment line of a /metrics page is `name[{labels}] value`
+    (the reference's tests/test_runtime.py _parse_exposition); the series
+    count."""
+    import re
+
+    series = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        match = re.fullmatch(
+            r'([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[a-zA-Z_][a-zA-Z0-9_]*='
+            r'"(?:[^"\\\n]|\\.)*",?)*\})? ([0-9eE+.\-naif]+)',
+            line,
+        )
+        check(match is not None, f"malformed exposition line: {line!r}")
+        series += 1
+    return series
+
+
+def wait_for(condition, timeout_s: float, poll_s: float = 0.05) -> bool:
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        if condition():
+            return True
+        time.sleep(poll_s)
+    return bool(condition())
+
+
+def fleet_cost(cluster, price_of) -> float:
+    """$/hr of the live nodes at the prices in `price_of`."""
+    return sum(price_of[(n.instance_type, n.zone, n.capacity_type)]
+               for n in cluster.list_nodes() if n.deletion_timestamp is None)
+
+
+def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYPES,
+                   delete_fraction: float = CONTROLLER_DELETE_FRACTION,
+                   max_disruption: int = CONTROLLER_MAX_DISRUPTION, watch_s: float = CONTROLLER_WATCH_S,
+                   market_poll_s: float = CONTROLLER_MARKET_POLL_S,
+                   selection_concurrency: int = CONTROLLER_SELECTION_CONCURRENCY,
+                   storm_timeout_s: float = 600.0, settle_timeout_s: float = 240.0) -> dict:
+    """The controller process through its entry point: cmd/controller.main
+    with the cost solver, leader election on the in-memory lease, the storm's
+    fake cloud (registered as a provider factory, with a seeded market feed
+    over every spot pool) and the metrics and probe ports on free loopback
+    ports. Then, through the threaded loops alone: the storm (the spot-only
+    provisioner, `num_pods` pods applied, a spike on eight pools once half
+    are bound), the nodes' kubelets joining, a seeded `delete_fraction` of
+    the pods deleted, consolidation and termination until the cluster
+    settles (consolidation runs `watch_s` seconds, then the disruption budget
+    is set to 0 and the in-flight actions finish), the HTTP endpoints, and
+    the stop. `device` None is the card. It prints a line after the boot,
+    the storm and consolidation.
+    Returns the measurements; the checks that need no card are made here."""
+    import threading
+    from collections import Counter
+
+    from karpenter_tpu_torch.api import provisioner as provisioner_module
+    from karpenter_tpu_torch.api import requirements as requirements_module
+    from karpenter_tpu_torch.api import wellknown
+    from karpenter_tpu_torch.cloudprovider import registry
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.cmd import controller
+    from karpenter_tpu_torch.controllers import consolidation as consolidation_mod
+    from karpenter_tpu_torch.controllers import provisioning
+    from karpenter_tpu_torch.controllers.cluster import Cluster
+    from karpenter_tpu_torch.market.feed import MarketFeed, catalog_pools
+    from karpenter_tpu_torch.market.pricebook import set_active_book
+    from karpenter_tpu_torch.models import solver as solver_mod
+    from karpenter_tpu_torch.models import warmup
+    from karpenter_tpu_torch.ops import consolidate, consolidate_kernel, encode
+    from karpenter_tpu_torch import runtime as port_runtime
+    from karpenter_tpu_torch.runtime import RECONCILE_TOTAL
+
+    pods, catalog = storm_workload(num_pods, num_types)
+    world = {}
+
+    def storm_cloud():
+        cloud = FakeCloudProvider(instance_types=catalog)
+        feed = MarketFeed(catalog_pools(catalog), seed=STORM_FEED_SEED)
+        cloud.attach_market_feed(feed)
+        world.update(cloud=cloud, feed=feed)
+        return cloud
+
+    registry.register_factory(CONTROLLER_CLOUD, storm_cloud)
+    metrics_port, probe_port = free_port(), free_port()
+    while probe_port == metrics_port:
+        probe_port = free_port()
+    probe = f"http://127.0.0.1:{probe_port}"
+    metrics = f"http://127.0.0.1:{metrics_port}"
+    argv = [
+        "--cluster-name", "chip-smoke", "--solver", "cost", "--cloud-provider", CONTROLLER_CLOUD,
+        "--metrics-port", str(metrics_port), "--health-probe-port", str(probe_port),
+        "--consolidation-cooldown", "1", "--consolidation-max-disruption", str(max_disruption),
+        "--disruption-budget", str(max_disruption), "--market-poll-interval", str(market_poll_s),
+        "--selection-concurrency", str(selection_concurrency),
+    ]
+
+    # Each provisioning pass the batch loop runs: its wall time and its
+    # solve stage (the controller's own histogram, summed over the pass).
+    passes = []
+    original_provision = provisioning.ProvisionerWorker.provision
+
+    def timed_provision(worker):
+        solve_before = provisioning.SOLVE_DURATION._sums.get((), 0.0)
+        start = time.perf_counter()
+        stats = original_provision(worker)
+        passes.append({"at": start, "ms": (time.perf_counter() - start) * 1e3,
+                       "solve_ms": (provisioning.SOLVE_DURATION._sums.get((), 0.0) - solve_before) * 1e3,
+                       "scheduled": stats.scheduled_pods})
+        return stats
+
+    # Each consolidation sweep's counterfactual solve: its problem, its time
+    # and the K7 launches it made.
+    sweeps = []
+    original_candidates = consolidate.solve_candidates
+
+    def timed_candidates(problem, device=None):
+        launched = consolidate_kernel.solve_counterfactuals.launches
+        start = time.perf_counter()
+        verdicts = original_candidates(problem, device=device)
+        sweeps.append({"problem": problem, "ms": (time.perf_counter() - start) * 1e3, "at": start,
+                       "k7": consolidate_kernel.solve_counterfactuals.launches - launched})
+        return verdicts
+
+    readyz = []
+    polling = threading.Event()
+    polling.set()
+
+    def poll_readyz():
+        while polling.is_set():
+            status, _ = http_get(probe + "/readyz", timeout=2.0)
+            if status is not None:
+                readyz.append((time.perf_counter(), status))
+                if status == 200:
+                    return
+            time.sleep(0.02)
+
+    provisioning.ProvisionerWorker.provision = timed_provision
+    consolidate.solve_candidates = timed_candidates
+    poller = threading.Thread(target=poll_readyz, name="readyz-poll", daemon=True)
+    kubelets = threading.Event()
+    manager = None
+    try:
+        poller.start()
+        boot = time.perf_counter()
+        manager = controller.main(argv, cluster=Cluster(), block=False, device=device)
+        main_s = time.perf_counter() - boot
+        healthz, _ = http_get(probe + "/healthz")
+        check(healthz == 200, f"/healthz answered {healthz} right after boot, not 200")
+        # Alone (--phase controller) the warmup builds every kernel (~90 s).
+        check(wait_for(lambda: manager.ready.is_set() or manager.warmup_error is not None, 300.0)
+              and manager.warmup_error is None,
+              f"the controller never became ready (warmup error: {manager.warmup_error!r})")
+        check(manager.solver.device.type == "cpu" or not manager.solver.host_fallback_available(),
+              "the host solve route is open on the card by default")
+        poller.join(timeout=10.0)
+        polling.clear()
+        statuses = [status for _, status in readyz]
+        check(statuses and statuses[-1] == 200 and 503 in statuses and set(statuses) <= {503, 200},
+              f"/readyz did not answer 503 before the warmup ended and 200 after: {sorted(set(statuses))}")
+        ready_s = readyz[-1][0] - boot
+        check(warmup.WARMUP_RUNG_FAILURES.get() == 0,
+              f"{warmup.WARMUP_RUNG_FAILURES.get():.0f} warmup rungs failed")
+        calibration = solver_mod.break_even()
+        check(calibration is not None, "the boot warmup did not calibrate the break-even")
+        phase("controller_boot", main_s=f"{main_s:.3f}", ready_s=f"{ready_s:.3f}",
+              warmup_s=f"{manager.warmup_s:.3f}", readyz_polls=len(statuses),
+              fetch_floor_ms=f"{calibration.fetch_floor_ms:.4f}",
+              host_ms_per_pod=f"{calibration.host_ms_per_pod:.6f}",
+              device_compute_ms=f"{solver_mod.BREAK_EVEN_GAUGE.get('device_compute_ms'):.3f}",
+              max_pods=calibration.max_pods, max_pods_batched=calibration.max_pods_batched)
+        cluster, book = manager.cluster, manager.price_book
+        cloud, feed = world["cloud"], world["feed"]
+        check(manager.cloud is cloud, "main did not build the registered cloud")
+
+        # The storm, through the loops alone.
+        host_before = solver_mod.SOLVE_DISPATCH_TOTAL.get("host")
+        device_before = solver_mod.SOLVE_DISPATCH_TOTAL.get("device")
+        launches_before = kernel_launches()
+        cluster.apply_provisioner(spot_provisioner(provisioner_module, requirements_module, wellknown))
+        check(wait_for(lambda: manager.provisioning.worker("default") is not None, 30.0),
+              "the provisioning loop never reconciled the provisioner")
+        constraints = manager.provisioning.worker("default").provisioner.spec.constraints
+        fleet = encode.build_fleet(cloud.get_instance_types(constraints), constraints, [],
+                                   pods_need=encode.group_pods(pods).vectors.max(axis=0))
+        risky_pools = cheapest_spot_pools(fleet, STORM_RISKY_POOLS)
+        spike_pools = cheapest_spot_pools(fleet, STORM_SPIKE_POOLS, skip=set(risky_pools))
+        for pool in risky_pools:
+            book.note_interruption(pool)
+        binds = Counter()
+        bind_times = {}
+        reschedules = Counter()
+        lock = threading.Lock()
+
+        def on_delta(verb, kind, obj):
+            if kind != "pod" or verb not in ("bind", "reschedule"):
+                return
+            stamp = time.perf_counter()
+            with lock:
+                if verb == "bind":
+                    binds[obj.uid] += 1
+                    bind_times.setdefault(obj.uid, []).append(stamp)
+                else:
+                    reschedules[obj.uid] += 1
+
+        cluster.watch_deltas(on_delta)
+        # The first window arrives alone: its pass is the first solve after
+        # /readyz (the reference's test_first_solve_after_ready_is_steady_
+        # state); the rest of the storm follows it.
+        storm_start = time.perf_counter()
+        for pod in pods[:STORM_WINDOW]:
+            cluster.apply_pod(pod)
+        check(wait_for(lambda: len(binds) >= min(STORM_WINDOW, len(pods)), storm_timeout_s),
+              "the first window was not bound")
+        window_s = time.perf_counter() - storm_start
+        for pod in pods[STORM_WINDOW:]:
+            cluster.apply_pod(pod)
+        applied_s = time.perf_counter() - storm_start
+        check(wait_for(lambda: len(binds) >= len(pods) // 2, storm_timeout_s),
+              f"the storm bound {len(binds)} of {len(pods)} pods")
+        half_s = time.perf_counter() - storm_start
+        generation = book.generation
+        requeues = manager.reprice_requeues
+        feed.force_spike(spike_pools, STORM_SPIKE_FACTOR)
+
+        def scheduled():
+            return sum(p["scheduled"] for p in passes if p["at"] >= storm_start)
+
+        check(wait_for(lambda: len(binds) >= len(pods) and scheduled() >= len(pods), storm_timeout_s),
+              f"the storm bound {len(binds)} of {len(pods)} pods, its passes scheduled {scheduled()}, "
+              f"failed passes {dict((k, v) for k, v in port_runtime.SWEEP_FAILURES_TOTAL._values.items())}")
+        check(wait_for(lambda: book.generation > generation and manager.reprice_requeues > requeues, 30.0),
+              "the market loop did not fold the spike into a reprice")
+        storm_end = time.perf_counter()
+        uids = {p.uid for p in pods}
+        check(set(binds) == uids and set(binds.values()) == {1} and not reschedules,
+              "the storm did not bind every pod exactly once")
+        storm_passes = [p for p in passes if storm_start <= p["at"] < storm_end and p["scheduled"]]
+        storm_launches = {name: count - launches_before[name] for name, count in kernel_launches().items()}
+        device_solves = solver_mod.SOLVE_DISPATCH_TOTAL.get("device") - device_before
+        host_solves = solver_mod.SOLVE_DISPATCH_TOTAL.get("host") - host_before
+        check(host_solves == 0, f"{host_solves:.0f} solves took the host path after the controller was ready")
+        check(sum(p["scheduled"] for p in storm_passes) == len(pods),
+              f"the storm's passes scheduled {sum(p['scheduled'] for p in storm_passes)} of {len(pods)} pods")
+        check(len(storm_passes) >= 2, "the storm took fewer than two passes")
+        warm_solve = float(np.percentile([p["solve_ms"] for p in storm_passes[1:]], 50))
+        first_solve = storm_passes[0]["solve_ms"]
+        check(first_solve <= 2.0 * warm_solve,
+              f"the first solve after /readyz took {first_solve:.1f} ms against a warm p50 of {warm_solve:.1f} ms")
+        first_bind = min(t[0] for t in bind_times.values()) - storm_start
+        last_bind = max(t[0] for t in bind_times.values()) - storm_start
+        phase("controller_storm", pods=len(pods), passes=len(storm_passes), window_s=f"{window_s:.3f}",
+              applied_s=f"{applied_s:.3f}", half_bound_s=f"{half_s:.3f}", first_bind_s=f"{first_bind:.3f}",
+              last_bind_s=f"{last_bind:.3f}", first_solve_ms=f"{first_solve:.3f}",
+              warm_solve_p50_ms=f"{warm_solve:.3f}", device_solves=int(device_solves),
+              launches=json.dumps(storm_launches, separators=(",", ":")))
+
+        # The kubelets join: every node reports ready; the node loop strips
+        # the not-ready taint.
+        def join():
+            while kubelets.is_set():
+                for node in cluster.list_nodes():
+                    if not node.ready and node.deletion_timestamp is None:
+                        cluster.heartbeat_node(node.name, ready=True)
+                time.sleep(0.2)
+
+        kubelets.set()
+        threading.Thread(target=join, name="kubelets", daemon=True).start()
+
+        def not_joined():
+            return [n for n in cluster.list_nodes()
+                    if not n.ready or any(t.key == wellknown.NOT_READY_TAINT_KEY for t in n.taints)]
+
+        # At 50,000 pods the node loop strips the taints slowly (each
+        # node-ready edge lists every pod to stamp its bound ones): some
+        # 7,400 nodes take minutes, and a slow poll keeps this walk off the
+        # store's lock.
+        check(wait_for(lambda: not not_joined(), 480.0, poll_s=0.5),
+              f"{len(not_joined())} of {len(cluster.list_nodes())} nodes never became ready "
+              f"({sum(not n.ready for n in not_joined())} of them not reported ready)")
+        joined_s = time.perf_counter() - storm_end
+
+        # Consolidation: a seeded share of the pods goes away.
+        price_of = {(it.name, o.zone, o.capacity_type): o.price
+                    for it in cloud.get_instance_types() for o in it.offerings}
+        nodes_before = len(cluster.list_nodes())
+        cost_before = fleet_cost(cluster, price_of)
+        rng = np.random.default_rng(CONTROLLER_DELETE_SEED)
+        doomed = set(rng.choice(len(pods), int(delete_fraction * len(pods)), replace=False).tolist())
+        remaining = [pod for i, pod in enumerate(pods) if i not in doomed]
+        remaining_uids = {pod.uid for pod in remaining}
+        sweeps_before = sum(RECONCILE_TOTAL.get("consolidation", r) for r in ("success", "requeue", "error"))
+        actions_before = {kind: consolidation_mod.CONSOLIDATION_ACTIONS_TOTAL.get(kind, "executed")
+                          for kind in ("delete", "replace")}
+        launches_before = kernel_launches()
+        device_before = solver_mod.SOLVE_DISPATCH_TOTAL.get("device")
+        consolidation_start = time.perf_counter()
+        for i in sorted(doomed):
+            cluster.delete_pod(pods[i].namespace, pods[i].name)
+        manager.loops["consolidation"].enqueue("sweep")
+        claim_keys = (wellknown.CONSOLIDATION_ACTION_ANNOTATION, wellknown.DRIFT_ACTION_ANNOTATION)
+
+        def executed():
+            return sum(consolidation_mod.CONSOLIDATION_ACTIONS_TOTAL.get(kind, "executed") - actions_before[kind]
+                       for kind in actions_before)
+
+        check(wait_for(lambda: executed() > 0, settle_timeout_s),
+              "the consolidation loop executed no action")
+        time.sleep(max(0.0, watch_s - (time.perf_counter() - consolidation_start)))
+        manager.disruption_ledger.budget = 0
+        stopped_at = time.perf_counter()
+
+        def settled():
+            live = {n.name for n in cluster.list_nodes()
+                    if n.deletion_timestamp is None and not any(k in n.annotations for k in claim_keys)}
+            if len(live) != len(cluster.list_nodes()):
+                return False
+            with lock:
+                # Every move of a remaining pod is followed by its bind.
+                if any(binds[uid] != 1 + reschedules[uid] for uid in remaining_uids):
+                    return False
+            return all(getattr(cluster.try_get_pod(p.namespace, p.name), "node_name", None) in live
+                       for p in remaining)
+
+        def unsettled():
+            nodes = cluster.list_nodes()
+            live = {n.name for n in nodes if n.deletion_timestamp is None}
+            stored = [cluster.try_get_pod(p.namespace, p.name) for p in remaining]
+            with lock:
+                bound_twice = sum(1 for uid in remaining_uids if binds[uid] > 1 + reschedules[uid])
+                unbound_moves = sum(1 for uid in remaining_uids if binds[uid] < 1 + reschedules[uid])
+            return {
+                "claimed": sum(1 for n in nodes if any(k in n.annotations for k in claim_keys)),
+                "deleting": len(nodes) - len(live),
+                "gone": sum(1 for pod in stored if pod is None),
+                "terminating": sum(1 for pod in stored if pod is not None and pod.deletion_timestamp is not None),
+                "pending": sum(1 for pod in stored if pod is not None and pod.node_name is None),
+                "on_dead_nodes": sum(1 for pod in stored
+                                     if pod is not None and pod.node_name and pod.node_name not in live),
+                "moves_not_rebound": unbound_moves,
+                "bound_without_a_move": bound_twice,
+            }
+
+        check(wait_for(settled, settle_timeout_s, poll_s=0.2),
+              f"consolidation did not settle after the budget went to 0: {executed():.0f} actions executed, "
+              f"{unsettled()}")
+        settle_s = time.perf_counter() - stopped_at
+        consolidation_launches = {name: count - launches_before[name] for name, count in kernel_launches().items()}
+        live_nodes = {n.name for n in cluster.list_nodes()}
+        check(all(getattr(cluster.try_get_pod(p.namespace, p.name), "node_name", None) in live_nodes
+                  for p in remaining)
+              and len(cluster.list_pods()) == len(remaining),
+              "not every remaining pod is bound to a live node exactly once")
+        with lock:
+            moved = {uid: count for uid, count in reschedules.items() if uid in remaining_uids}
+            rebind_times = [t for uid in moved for t in bind_times[uid] if t >= consolidation_start]
+            check(all(binds[uid] == 1 + reschedules[uid] for uid in remaining_uids),
+                  "a pod was bound again without being evicted first")
+        cost_after = fleet_cost(cluster, price_of)
+        check(cost_after < cost_before, f"consolidation did not lower the fleet's $/hr: {cost_before} -> {cost_after}")
+        swept = [sweep for sweep in sweeps if sweep["at"] >= consolidation_start]
+        check(swept, "no consolidation sweep solved its counterfactuals")
+        actions = {kind: consolidation_mod.CONSOLIDATION_ACTIONS_TOTAL.get(kind, "executed") - actions_before[kind]
+                   for kind in actions_before}
+        phase("controller_consolidation", joined_s=f"{joined_s:.3f}", deleted=len(doomed), actions=json.dumps(actions),
+              solve_candidates=len(swept), evicted=len(moved), settle_s=f"{settle_s:.3f}",
+              cost_before=f"{cost_before:.6f}", cost_after=f"{cost_after:.6f}",
+              nodes=f"{nodes_before}->{len(live_nodes)}")
+
+        # The HTTP surface.
+        status, body = http_get(metrics + "/metrics")
+        check(status == 200, f"/metrics answered {status}")
+        series = parse_exposition(body.decode())
+        status, body = http_get(metrics + "/debug/stacks", timeout=10.0)
+        check(status == 200, f"/debug/stacks answered {status}")
+        profile_samples = json.loads(body)["profile_samples"]
+        check(profile_samples > 0, "/debug/stacks took no profile sample")
+        sweep_count = sum(RECONCILE_TOTAL.get("consolidation", r) for r in ("success", "requeue", "error")) - sweeps_before
+        consolidation_solves = solver_mod.SOLVE_DISPATCH_TOTAL.get("device") - device_before
+    finally:
+        kubelets.clear()
+        polling.clear()
+        provisioning.ProvisionerWorker.provision = original_provision
+        consolidate.solve_candidates = original_candidates
+        if manager is not None:
+            manager.stop()
+            manager.elector.release()
+        set_active_book(None)
+    stopped = [http_get(url + "/healthz")[0] for url in (probe, metrics)]
+    check(stopped == [503, 503], f"/healthz answered {stopped} after the stop, not 503")
+    storm_ms = [p["ms"] for p in storm_passes]
+    return {
+        "pods": pods, "nodes_after_storm": nodes_before, "main_s": main_s, "ready_s": ready_s,
+        "warmup_s": manager.warmup_s, "readyz": statuses, "calibration": calibration,
+        "device_compute_ms": solver_mod.BREAK_EVEN_GAUGE.get("device_compute_ms"),
+        "applied_s": applied_s, "first_bind_s": first_bind, "last_bind_s": last_bind,
+        "pass_p50_ms": float(np.percentile(storm_ms, 50)), "pass_max_ms": max(storm_ms),
+        "passes": len(storm_passes), "first_solve_ms": first_solve, "warm_solve_p50_ms": warm_solve,
+        "stage_means_ms": {name: hist._sums.get((), 0.0) / max(hist.count(), 1) * 1e3
+                           for name, hist in (("schedule", provisioning.SCHEDULING_DURATION),
+                                              ("solve", provisioning.SOLVE_DURATION),
+                                              ("bind", provisioning.BIND_DURATION))},
+        "storm_launches": storm_launches, "device_solves": device_solves, "host_solves": host_solves,
+        "reprice_generations": book.generation - generation,
+        "deleted": len(doomed), "remaining": len(remaining), "sweeps": sweep_count,
+        "solve_candidates": len(swept), "sweep_ms": [s["ms"] for s in swept],
+        "sweep_k7": [s["k7"] for s in swept],
+        "last_problem": swept[-1]["problem"], "actions": actions,
+        "consolidation_launches": consolidation_launches, "consolidation_solves": consolidation_solves,
+        "evicted": len(moved), "rebound_s": (max(rebind_times) - consolidation_start) if rebind_times else 0.0,
+        "joined_s": joined_s, "settle_s": settle_s, "cost_before": cost_before, "cost_after": cost_after,
+        "nodes_after": len(live_nodes), "series": series, "profile_samples": profile_samples,
+    }
+
+
+def kernel_launches() -> dict:
+    """Every kernel wrapper's launch count, by name."""
+    from karpenter_tpu_torch.ops import consolidate_kernel, cuda_kernels, incremental, pack_kernel, score_kernel
+
+    counters = {
+        "dominance_prices": cuda_kernels.dominance_prices, "pack_kernel": pack_kernel.pack_kernel,
+        "lp_relax": score_kernel.lp_relax, "compact_plan": pack_kernel.compact_plan,
+        "solve_counterfactuals": consolidate_kernel.solve_counterfactuals,
+        "scatter": incremental.scatter, "gather": incremental.gather,
+    }
+    counts = {name: counter.launches for name, counter in counters.items()}
+    counts["pack_kernel_quirk"] = pack_kernel.pack_kernel.quirk_launches
+    return counts
+
+
+def controller_phase() -> dict:
+    """The `controller` phase on the card, in a process of its own (so the
+    boot warmup pays the first launches, as a deployment's would): run by
+    `chip_smoke.py --phase controller`, which prints this phase's line and
+    a `controller_result` JSON line the parent reads."""
     import torch
 
+    from karpenter_tpu_torch.ops import consolidate, consolidate_kernel
+
+    # The deployment as shipped: on the card the host route is closed
+    # unless asked for (models/solver.host_route_open).
+    os.environ.pop("KARPENTER_HOST_SOLVE", None)
+    device = torch.device("cuda", 0)
+    run = run_controller(None)
+    launches = run["storm_launches"]
+    solves = int(run["device_solves"])
+    check(all(launches[name] == solves for name in ("dominance_prices", "pack_kernel", "lp_relax", "compact_plan"))
+          and solves >= run["passes"],
+          f"the storm's {solves} device solves did not each launch K1-K4 once: {launches}")
+    k7 = sum(run["sweep_k7"])
+    check(run["sweep_k7"] and set(run["sweep_k7"]) == {1},
+          f"the consolidation loop's sweeps did not each launch K7 once: {run['sweep_k7']}")
+    problem = run["last_problem"]
+    k7_ms = device_ms_per_call(lambda: consolidate.solve_candidates(problem, device=device),
+                               ["counterfactual_kernel", "winner_kernel"], reps=10)
+    calibration = run["calibration"]
+    phase(
+        "controller", pods=len(run["pods"]), types=NUM_TYPES, main_s=f"{run['main_s']:.3f}",
+        ready_s=f"{run['ready_s']:.3f}", warmup_s=f"{run['warmup_s']:.3f}",
+        readyz=",".join(f"{s}x{run['readyz'].count(s)}" for s in sorted(set(run["readyz"]))),
+        fetch_floor_ms=f"{calibration.fetch_floor_ms:.4f}",
+        host_ms_per_pod=f"{calibration.host_ms_per_pod:.6f}",
+        device_compute_ms=f"{run['device_compute_ms']:.3f}", max_pods=calibration.max_pods,
+        max_pods_batched=calibration.max_pods_batched,
+        host_solve_env=os.environ.get("KARPENTER_HOST_SOLVE", "unset"), applied_s=f"{run['applied_s']:.3f}", first_bind_s=f"{run['first_bind_s']:.3f}",
+        last_bind_s=f"{run['last_bind_s']:.3f}", pods_per_s=f"{len(run['pods']) / run['last_bind_s']:.1f}",
+        passes=run["passes"], pass_p50_ms=f"{run['pass_p50_ms']:.3f}", pass_max_ms=f"{run['pass_max_ms']:.3f}",
+        first_solve_ms=f"{run['first_solve_ms']:.3f}", warm_solve_p50_ms=f"{run['warm_solve_p50_ms']:.3f}",
+        **{f"{name}_mean_ms": f"{ms:.3f}" for name, ms in run["stage_means_ms"].items()},
+        device_solves=solves, host_solves_after_ready=int(run["host_solves"]),
+        k1_k4_launches=launches["pack_kernel"], k8_gathers=launches["gather"],
+        reprice_generations=run["reprice_generations"],
+        nodes_after_storm=run["nodes_after_storm"], deleted=run["deleted"], sweeps=run["sweeps"],
+        k7_launches=k7, k7_device_ms=f"{k7_ms:.4f}",
+        sweep_p50_ms=f"{np.percentile(run['sweep_ms'], 50):.3f}",
+        delete_actions=int(run["actions"]["delete"]), replace_actions=int(run["actions"]["replace"]),
+        consolidation_solves=int(run["consolidation_solves"]), evicted=run["evicted"],
+        joined_s=f"{run['joined_s']:.3f}", rebound_s=f"{run['rebound_s']:.3f}", settle_s=f"{run['settle_s']:.3f}",
+        cost_before=f"{run['cost_before']:.6f}", cost_after=f"{run['cost_after']:.6f}",
+        nodes_after=run["nodes_after"], metrics_series=run["series"], profile_samples=run["profile_samples"],
+    )
+    return {"k7_launches": k7, "k7_ms": k7_ms, "storm_launches": launches, "device_solves": solves}
+
+
+def run_child(args, timeout_s: float):
+    """Start `chip_smoke.py <args>` in a process of its own on the same card;
+    its output is read when the caller asks for it (child_result)."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), timeout_s
+
+
+def child_result(child, marker: str):
+    """Wait for a child, echo its phase lines, and parse its `marker` JSON
+    line; a failed child fails the run with its error's tail."""
+    process, timeout_s = child
+    try:
+        out, err = process.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        process.kill()
+        process.communicate()
+        raise RuntimeError(f"check failed: chip_smoke.py {marker} did not finish in {timeout_s:.0f} s")
+    result = None
+    for line in out.splitlines():
+        if line.startswith(marker + " "):
+            result = json.loads(line[len(marker) + 1:])
+        else:
+            print(line)
+    errors = "\n".join(line for line in err.splitlines() if "\tINFO\t" not in line)
+    check(process.returncode == 0 and result is not None,
+          f"chip_smoke.py {marker} failed (rc {process.returncode}):\n{errors[-4000:]}")
+    return result
+
+
+def main(argv=None) -> int:
+    """With no arguments, every phase. `--greedy-signature` and `--phase
+    controller` are the two parts the full run starts in processes of their
+    own."""
+    import torch
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the card", file=sys.stderr)
         return 2
+    if argv == ["--greedy-signature"]:
+        print("greedy_signature " + json.dumps(greedy_signature()))
+        return 0
+    if argv == ["--phase", "controller"]:
+        print("controller_result " + json.dumps(controller_phase()))
+        return 0
+    if argv:
+        print("usage: python3 chip_smoke.py", file=sys.stderr)
+        return 2
+    children = []
+    try:
+        return smoke(children)
+    finally:
+        for process, _ in children:
+            if process.poll() is None:
+                process.kill()
+                process.communicate()
+
+
+def smoke(children) -> int:
+    """Every phase in turn; `children` collects the processes it starts, for
+    the caller to stop."""
+    import torch
 
     from karpenter_tpu_torch.api.provisioner import Constraints
     from karpenter_tpu_torch.convert import fused_args_from_numpy, upload_packed
@@ -2394,11 +3184,7 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel source, started together; the host
     # library (g++) meanwhile.
-    libraries = [
-        cuda_kernels.LIBRARY, pack_kernel.LIBRARY, score_kernel.LIBRARY,
-        pack_kernel.COMPACT_LIBRARY, consolidate_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
-        incremental.LIBRARY, forecast_kernel.LIBRARY,
-    ]
+    libraries = cuda_build.port_libraries()
     build_s = cuda_build.build_all(libraries)
     for library in libraries:
         library.load()
@@ -2407,6 +3193,15 @@ def main() -> int:
                 print(f"  ptxas {library.source.name}: {line.strip()}")
     check(native.available(), "host library csrc/host/ffd.cc did not build")
     phase("build", seconds=f"{build_s:.2f}", sources=",".join(lib.source.name for lib in libraries))
+    # GreedySolver on the main path's 50,000 pods takes about a minute of
+    # host time: a process of its own computes it while the card works. The
+    # controller phase (10c) is a process of its own too (a fresh one, so
+    # that its boot warmup pays the first launches), and bound by its
+    # control loops on one host core: it runs beside phases 3-10b.
+    greedy_child = run_child(["--greedy-signature"], 900.0)
+    children.append(greedy_child)
+    controller_child = run_child(["--phase", "controller"], 1100.0)
+    children.append(controller_child)
 
     # Encode the main path's workload once (host work, timed).
     pods, catalog = make_workload()
@@ -2563,6 +3358,24 @@ def main() -> int:
             again = pack_kernel.pack_kernel_levels(*tensors, mode=mode)
             torch.cuda.synchronize()
             check(level_packs_equal(got, again), f"two launches of K6 differ on {name}")
+    # K2q (the quirk) on every case of k2q_cases, bit for bit; two launches
+    # alike.
+    k2q_cases_run = 0
+    k2q_err = 0.0
+    for label, problem, modes in k2q_cases(tuple(padded)):
+        args = fused_args_from_numpy(*problem, device=device)
+        for mode in modes:
+            got = pack_kernel.pack_kernel(*args, quirk=True, mode=mode)
+            plain = pack_kernel._pack_kernel_ref(*args, quirk=True, mode=mode)
+            torch.cuda.synchronize()
+            check(rounds_equal(got, plain), f"K2q {mode} differs from its plain version on {label}")
+            k2q_err = max(k2q_err, rounds_abs_err(got, plain))
+            k2q_cases_run += 1
+        if label == "main path":
+            again = pack_kernel.pack_kernel(*args, quirk=True, mode="ffd")
+            torch.cuda.synchronize()
+            check(rounds_equal(pack_kernel._pack_kernel_ref(*args, quirk=True, mode="ffd"), again),
+                  "two launches of K2q differ on the main path")
     # K8 on every case of k8_cases, bit for bit.
     k8 = k8_check(device)
     # K10 on every case of k10_cases: bit for bit to the numpy column and
@@ -2578,10 +3391,14 @@ def main() -> int:
         check(same_bytes(got.cpu().numpy(), want), f"K10 differs from the numpy column at T={len(want)}")
         check(same_bits(got, plain), f"K10 differs from its plain version at T={len(want)}")
         k10_cases += 1
-    phase("kernels", k1_cases=k1_cases, k2_cases=k2_cases, k3_cases=k3_cases, k4_cases=k4_cases,
+    phase("kernels", k1_cases=k1_cases, k2_cases=k2_cases, k2q_cases=k2q_cases_run, k2q_max_abs_err=k2q_err,
+          k3_cases=k3_cases, k4_cases=k4_cases,
           k6_cases=k6_cases_run, k8_cases=k8["cases"], k10_cases=k10_cases, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
           k3_max_abs_err=k3_err, k4_max_abs_err=k4_err, k6_max_abs_err=k6_err, k8_max_abs_err=0,
           k3_objective_rel_err=f"{k3_obj_err:.3e}", k3_main_objective_rel_err=f"{main_obj_err:.3e}")
+
+    # 3b. the Go-parity solver (K2q) against GreedySolver.
+    go = go_parity_phase(device, child_result(greedy_child, "greedy_signature"))
 
     # 4. the main path, through the entry point a user calls.
     os.environ["KARPENTER_HOST_SOLVE"] = "0"
@@ -2679,7 +3496,7 @@ def main() -> int:
 
     # 9. the constrained path: the main path's pods under a zonal spread
     # and two preferences, through Scheduler and solve_constrained.
-    levels = constrained_phase(catalog, device)
+    levels = constrained_phase(catalog, device, mirror_modes=("cost",))
 
     # 10. many shapes: K2 and K3 past the sizes they once refused.
     large = large_shapes_phase(catalog, device)
@@ -2706,6 +3523,10 @@ def main() -> int:
     # 10b. the provisioning controllers under a live spot market: 50,000
     # pods through the port's Manager in 2,000-pod windows.
     storm = provision_storm_phase(device)
+
+    # 10c. the controller process (cmd/controller.main), started after the
+    # build.
+    controller = child_result(controller_child, "controller_result")
 
     # 11. kernel timing at the main path's shapes.
     num_types, dims = capacity.shape
@@ -2806,6 +3627,26 @@ def main() -> int:
     k7_ops = int(k7_bins * (5 * requested.sum() + 9 * requested.size)
                  + c_pad * k7_types * (2 * dims_c + 2) + 2 * c_pad * g_pad * dims_c)
 
+    # K2q, the Go-parity mode (ffd with the quirk), at the main path's
+    # shape: its rounds, and the operations they need (K2's count, plus the
+    # quirk's compare on every axis of every scanned group).
+    quirk_call = functools.partial(pack_kernel.pack_kernel, *main_args, quirk=True, mode="ffd")
+    k2q_event_ms = time_cuda(quirk_call, reps=50)
+    k2q_ms = device_ms_per_call(quirk_call, ["pack_rounds_kernel"], reps=50)
+    k2q_plain_ms = time_cuda(
+        lambda: pack_kernel._pack_kernel_ref(*main_args, quirk=True, mode="ffd"), reps=5, warmup=1)
+    quirk_rounds = solver._to_host(quirk_call())
+    scan_q = valid_types * (4 * (vectors[: groups.num_groups] > 0).sum(dim=1) + 2 + dims).long().cpu().numpy()
+    k2q_ops = 0
+    remaining = groups.counts.astype(np.int64).copy()
+    for r in range(int(quirk_rounds.num_rounds)):
+        k2q_ops += int(scan_q[remaining > 0].sum())
+        remaining -= quirk_rounds.round_repl[r] * quirk_rounds.round_fill[r, : groups.num_groups]
+    k2q_bytes = (4 * (num_groups * dims + num_groups + 2 * num_types * dims + num_types) + num_types
+                 + 4 * words)
+    k2q_bound, k2q_by = bound(k2q_bytes, k2q_ops)
+    print(f"  K2q at the main path: {int(quirk_rounds.num_rounds)} rounds, "
+          f"{k2q_ms * 1e3 / max(int(quirk_rounds.num_rounds), 1):.3f} us a round")
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     k3_bound, k3_by = bound(k3_bytes, k3_ops)
@@ -2817,6 +3658,7 @@ def main() -> int:
             "source": "karpenter_tpu_torch/csrc/dominance.cu",
             "replaces": "karpenter_tpu/ops/pallas_kernels.py:63",
             "launches": launches["dominance_prices"], "max_abs_err": k1_err,
+            "launches_controller": controller["storm_launches"]["dominance_prices"],
             "ms": k1_ms, "event_ms": k1_event_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
             "bound_by": k1_by, "library_ms": None,
         },
@@ -2829,12 +3671,23 @@ def main() -> int:
             "bound_by": k2_by, "library_ms": None,
             "us_per_round": k2_mode_us[k2_slow_mode][1], "slower_mode": k2_slow_mode,
             "launches_single_mode": storm["k2_single_launches"],
+            "launches_controller": controller["storm_launches"]["pack_kernel"],
+        },
+        {
+            "name": "pack_kernel_quirk", "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/pack_rounds.cu",
+            "replaces": "karpenter_tpu/ops/pack_kernel.py:141",
+            "launches": go["launches"], "max_abs_err": k2q_err,
+            "ms": k2q_ms, "event_ms": k2q_event_ms, "plain_ms": k2q_plain_ms, "bound_ms": k2q_bound,
+            "bound_by": k2q_by, "library_ms": None, "cases": k2q_cases_run,
+            "rounds": int(quirk_rounds.num_rounds),
         },
         {
             "name": "lp_relax", "route": "cuda",
             "source": "karpenter_tpu_torch/csrc/lp_relax.cu",
             "replaces": "karpenter_tpu/ops/score_kernel.py:77",
             "launches": launches["lp_relax"], "max_abs_err": k3_err,
+            "launches_controller": controller["storm_launches"]["lp_relax"],
             "ms": k3_ms, "event_ms": k3_event_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
             "bound_by": k3_by, "library_ms": None,
             "us_per_step": k3_ms * 1e3 / lp_steps, "cluster": k3_rule.cluster,
@@ -2844,6 +3697,7 @@ def main() -> int:
             "source": "karpenter_tpu_torch/csrc/compact.cu",
             "replaces": "karpenter_tpu/ops/pack_kernel.py:616",
             "launches": launches["compact_plan"], "max_abs_err": k4_err,
+            "launches_controller": controller["storm_launches"]["compact_plan"],
             "ms": k4_ms, "event_ms": k4_event_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
             "bound_by": k4_by, "library_ms": None,
         },
@@ -2854,6 +3708,7 @@ def main() -> int:
             "launches": sweep["launches"], "max_abs_err": sweep["max_abs_err"],
             "ms": k7_ms, "event_ms": k7_event_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound,
             "bound_by": k7_by, "library_ms": None,
+            "launches_controller": controller["k7_launches"], "ms_controller": controller["k7_ms"],
         },
     ]
     # K6 at the constrained path's shapes, in the mode the solve runs.
@@ -2882,8 +3737,8 @@ def main() -> int:
         for src, perm in k8_gathers:
             gather(src, perm)
 
-    k8_ms = device_ms_per_call(k8_call, ["scatter_kernel", "gather_kernel"], reps=50,
-                               launches_per_call=len(k8_scatters) + len(k8_gathers))
+    k8_ms = device_ms_per_call(
+        k8_call, {"scatter_kernel": len(k8_scatters), "gather_kernel": len(k8_gathers)}, reps=50)
     k8_event_ms = time_cuda(k8_call, reps=50)
     k8_plain_ms = time_cuda(functools.partial(
         k8_call, incremental._scatter_ref, incremental._gather_ref), reps=20)

@@ -46,6 +46,13 @@ class AlreadyExistsError(Exception):
     status = 409
 
 
+class BindConflictError(Exception):
+    """In-memory analogue of the apiserver's 409 on a Binding for a pod
+    already assigned to another node."""
+
+    status = 409
+
+
 class Cluster:
     def __init__(self, clock: Optional[Clock] = None):
         self.clock = clock or SYSTEM_CLOCK
@@ -157,6 +164,13 @@ class Cluster:
             stored = self._pods.get((pod.namespace, pod.name))
             if stored is None:
                 raise NotFoundError(f"pod {pod.namespace}/{pod.name}")
+            if stored.node_name is not None and stored.node_name != node.name:
+                # Two binders raced for one pending pod (a provisioning pass
+                # drained it just before consolidation rebound it): the
+                # first binding stands, as the apiserver keeps it.
+                raise BindConflictError(
+                    f"pod {pod.namespace}/{pod.name} is already bound to {stored.node_name}"
+                )
             stored.node_name = node.name
             stored.unschedulable = False
         self._notify("pod", stored, verb="bind")
@@ -223,6 +237,9 @@ class Cluster:
             pod = self._pods.get((namespace, name))
             if pod is None:
                 return None
+            if pod.node_name is None:
+                # Displaced by another caller since reschedule_pod looked.
+                return pod
             pod.node_name = None
             pod.unschedulable = True
             # The epoch bump makes the replacement a DIFFERENT logical launch

@@ -1,8 +1,9 @@
 // K2: the pack round loop on Hopper (sm_90a), both candidate modes in one
-// launch.
+// launch, with or without the reference's fits() early exit (quirk).
 //
-// Replaces karpenter_tpu/ops/pack_kernel.py::pack_kernel (quirk=False) with
-// its per-type fill _fill_one_node: a data-dependent lax.while_loop whose
+// Replaces karpenter_tpu/ops/pack_kernel.py::pack_kernel (quirk=False and
+// quirk=True) with its per-type fill _fill_one_node: a data-dependent
+// lax.while_loop whose
 // every round greedily fills one empty node of every instance type (a
 // sequential scan over the G pod groups, vmapped over the T types), picks one
 // type, replicates its fill as often as the group counts allow, and stops
@@ -43,6 +44,17 @@
 //     ballot finds the first active group and a warp sum the total.
 // A round costs three block barriers in ffd mode and two in cost mode.
 //
+// The quirk (kQuirk, the reference's Go-parity mode, pack_kernel.py:79-110
+// and :183-193) changes two things and no layout: (a) while a type scans the
+// groups largest first, a placement that fails (n < count) stops the scan
+// when, on some axis with total > 0, remaining <= smallest + 1e-4, smallest
+// being the last active group's vector: each type keeps one `stopped` bit in
+// a register, its total > 0 axes as a bit mask in a register, and each
+// round warp 0 publishes the last active group, from which every thread
+// forms the eight limits once before its scan; (b) a partly packed group
+// replicates max((count - 1) / fill, 1) times and a fully packed one once,
+// in the round's min-reduction.
+//
 // Hazards for rounds that are bit-identical to the reference:
 //   * n_fit = floor(min_r(remaining / vec) + 1e-4) in IEEE fp32: the
 //     division is correctly rounded (__fdiv_rn; the build never passes
@@ -51,6 +63,8 @@
 //   * remaining - n * vec must not contract to an FMA: __fmul_rn and
 //     __fsub_rn, and the build passes --fmad=false besides. Skipping the
 //     update where vec == 0 keeps the bits: n * 0 = 0 and x - 0 = x.
+//   * the quirk's smallest + 1e-4 is its own rounded add (__fadd_rn) and
+//     the compare reads remaining after that two-operation update.
 //   * the float-to-int conversion of n_fit saturates (an all-zero vector
 //     gives +inf), as XLA's convert does.
 //   * cost mode's weighted = fills @ group_weight in the order of the
@@ -102,7 +116,8 @@ struct Control {
   unsigned long long key;  // cost mode's best (score, index)
   int selected;            // ffd mode's lowest type achieving the bound
   int largest_valid;
-  int first_active, any_active, proceed, pad;
+  int first_active, any_active, proceed;
+  int last_active;  // the quirk's smallest pod: the last group with pods
 };
 
 // Words of one block's tables: the group tables [G, R] vectors, [G]
@@ -224,12 +239,14 @@ __device__ inline unsigned long long warp_min_key(unsigned long long key) {
 // kTypesPerThread 1, 2 or 4 keeps each type's constants in registers; 0
 // streams them from global memory for ceil(T / threads) types a thread.
 // kTablesInShared is known at compile time so that the scan's table reads
-// are shared-memory loads, not generic ones.
-template <int kTypesPerThread, bool kTablesInShared>
+// are shared-memory loads, not generic ones. kQuirk is the fits() early
+// exit; total is read only under it.
+template <int kTypesPerThread, bool kTablesInShared, bool kQuirk>
 __global__ void __launch_bounds__(kMaxThreads)
 pack_rounds_kernel(const float* __restrict__ vectors,
                    const int* __restrict__ counts_in,
                    const float* __restrict__ capacity,
+                   const float* __restrict__ total,
                    const unsigned char* __restrict__ valid,
                    const float* __restrict__ prices, int groups, int types,
                    int dims, int first_mode, int* __restrict__ out,
@@ -286,6 +303,7 @@ pack_rounds_kernel(const float* __restrict__ vectors,
   float cap[kCached][kMaxDims];
   bool type_valid[kCached];
   float price[kCached];
+  int total_axes[kCached];  // the quirk's axes with total > 0, a bit each
   int largest = -1;
   if (kTypesPerThread > 0) {
 #pragma unroll
@@ -297,6 +315,12 @@ pack_rounds_kernel(const float* __restrict__ vectors,
 #pragma unroll
       for (int r = 0; r < kMaxDims; ++r) {
         cap[k][r] = in && r < dims ? capacity[size_t(t) * dims + r] : 0.0f;
+      }
+      total_axes[k] = 0;
+      if (kQuirk && in) {
+        for (int r = 0; r < dims; ++r) {
+          if (total[size_t(t) * dims + r] > 0.0f) total_axes[k] |= 1 << r;
+        }
       }
       if (type_valid[k]) largest = t;
     }
@@ -328,24 +352,27 @@ pack_rounds_kernel(const float* __restrict__ vectors,
   // Warp 0: the total of the counts, the first active group and whether
   // to go on; resets the selection words.
   auto publish_state = [&]() {
-    int total = 0;
+    int pods = 0;
     int first = -1;
+    int last = -1;
     for (int base = 0; base < groups; base += 32) {
       const int g = base + lane;
       const int count = g < groups ? s_counts[g] : 0;
-      total += count;
+      pods += count;
       const unsigned active = __ballot_sync(kFullMask, count > 0);
       if (first < 0 && active != 0) first = base + __ffs(active) - 1;
+      if (active != 0) last = base + 31 - __clz(active);
     }
-    total = __reduce_add_sync(kFullMask, total);
+    pods = __reduce_add_sync(kFullMask, pods);
     if (lane == 0) {
       control->first_active = first < 0 ? 0 : first;
+      control->last_active = last < 0 ? groups - 1 : last;
       control->any_active = first >= 0;
-      control->proceed = total > 0 && iters < max_rounds + groups;
+      control->proceed = pods > 0 && iters < max_rounds + groups;
       control->key = kNoKey;
       control->selected = INT_MAX;
     }
-    return total;
+    return pods;
   };
   if (warp == 0) publish_state();
   __syncthreads();
@@ -355,6 +382,13 @@ pack_rounds_kernel(const float* __restrict__ vectors,
     const bool any_active = control->any_active != 0;
     unsigned long long best = kNoKey;
     int packs_any = 0;
+    // The quirk's limits: smallest + 1e-4 on every axis, one rounded add.
+    float limit[kMaxDims];
+    if (kQuirk) {
+      const float* smallest = s_vectors + control->last_active * dims;
+#pragma unroll
+      for (int r = 0; r < kMaxDims; ++r) limit[r] = r < dims ? __fadd_rn(smallest[r], 1e-4f) : 0.0f;
+    }
 
 #pragma unroll
     for (int k = 0; k < per_thread; ++k) {
@@ -369,6 +403,12 @@ pack_rounds_kernel(const float* __restrict__ vectors,
         for (int r = 0; r < kMaxDims; ++r) {
           cap[0][r] = r < dims ? capacity[size_t(t) * dims + r] : 0.0f;
         }
+        total_axes[0] = 0;
+        if (kQuirk) {
+          for (int r = 0; r < dims; ++r) {
+            if (total[size_t(t) * dims + r] > 0.0f) total_axes[0] |= 1 << r;
+          }
+        }
       }
       int sum = 0;
       float weighted = 0.0f;
@@ -378,11 +418,14 @@ pack_rounds_kernel(const float* __restrict__ vectors,
         for (int r = 0; r < kMaxDims; ++r) remaining[r] = cap[slot][r];
         // A first active group that cannot place one pod aborts the fill;
         // every earlier group has count 0, so the fill is all zero then.
+        // Under the quirk a failed placement on an essentially full node
+        // stops the scan: later groups place nothing on this type.
         bool abort = false;
+        bool stopped = false;
         for (int g = 0; g < groups; ++g) {
           const int count = s_counts[g];
           int n = 0;
-          if (count > 0 && !abort) {
+          if (count > 0 && !abort && !stopped) {
             const float* vec = s_vectors + g * dims;
             const int axes = s_axes[g];
             float ratio = INFINITY;
@@ -400,6 +443,14 @@ pack_rounds_kernel(const float* __restrict__ vectors,
             for (int r = 0; r < kMaxDims; ++r) {
               if (r < dims && (axes >> (8 + r)) & 1) {
                 remaining[r] = __fsub_rn(remaining[r], __fmul_rn(packed, vec[r]));
+              }
+            }
+            if (kQuirk && n < count) {
+#pragma unroll
+              for (int r = 0; r < kMaxDims; ++r) {
+                if (r < dims && ((total_axes[slot] >> r) & 1) && remaining[r] <= limit[r]) {
+                  stopped = true;
+                }
               }
             }
           }
@@ -469,7 +520,13 @@ pack_rounds_kernel(const float* __restrict__ vectors,
         int repl = INT_MAX;
         for (int g = lane; g < groups; g += 32) {
           const int fill = fills[size_t(g) * types + t_sel];
-          if (fill > 0) repl = min(repl, s_counts[g] / fill);
+          if (fill > 0) {
+            const int count = s_counts[g];
+            // The quirk keeps a partly packed group partly packed: it
+            // replicates while its count stays above its fill.
+            const int safe = !kQuirk ? count / fill : fill == count ? 1 : max((count - 1) / fill, 1);
+            repl = min(repl, safe);
+          }
         }
         repl = max(__reduce_min_sync(kFullMask, repl), 1);
         const bool write = num_rounds < max_rounds;
@@ -507,49 +564,77 @@ pack_rounds_kernel(const float* __restrict__ vectors,
   }
 
   if (warp == 0) {
-    const int total = publish_state();
+    const int pods = publish_state();
     if (lane == 0) {
       o[layout.num_rounds] = min(num_rounds, max_rounds);
-      o[layout.overflow] = (total > 0 || num_rounds > max_rounds) ? 1 : 0;
+      o[layout.overflow] = (pods > 0 || num_rounds > max_rounds) ? 1 : 0;
     }
   }
 }
 
-template <int kTypesPerThread, bool kTablesInShared>
+template <int kTypesPerThread, bool kTablesInShared, bool kQuirk>
 int launch_variant(const void* vectors, const void* counts, const void* capacity,
-                   const void* valid, const void* prices, int groups, int types, int dims,
-                   int first_mode, int num_modes, int threads, void* out, void* fill_scratch,
-                   void* table_scratch, void* stream) {
+                   const void* total, const void* valid, const void* prices, int groups,
+                   int types, int dims, int first_mode, int num_modes, int threads, void* out,
+                   void* fill_scratch, void* table_scratch, void* stream) {
   const size_t bytes = shared_bytes(groups, types, dims, fill_scratch == nullptr, kTablesInShared);
   if (bytes > kDefaultSharedLimit) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pack_rounds_kernel<kTypesPerThread, kTablesInShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        pack_rounds_kernel<kTypesPerThread, kTablesInShared, kQuirk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  pack_rounds_kernel<kTypesPerThread, kTablesInShared>
+  pack_rounds_kernel<kTypesPerThread, kTablesInShared, kQuirk>
       <<<num_modes, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(vectors), static_cast<const int*>(counts),
-          static_cast<const float*>(capacity), static_cast<const unsigned char*>(valid),
+          static_cast<const float*>(capacity), static_cast<const float*>(total),
+          static_cast<const unsigned char*>(valid),
           static_cast<const float*>(prices), groups, types, dims, first_mode,
           static_cast<int*>(out), static_cast<int*>(fill_scratch),
           static_cast<int*>(table_scratch));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kTypesPerThread>
-int launch(const void* vectors, const void* counts, const void* capacity,
+template <int kTypesPerThread, bool kQuirk>
+int launch(const void* vectors, const void* counts, const void* capacity, const void* total,
            const void* valid, const void* prices, int groups, int types, int dims,
            int first_mode, int num_modes, int threads, void* out, void* fill_scratch,
            void* table_scratch, void* stream) {
   if (table_scratch == nullptr) {
-    return launch_variant<kTypesPerThread, true>(vectors, counts, capacity, valid, prices, groups,
-                                                 types, dims, first_mode, num_modes, threads, out,
-                                                 fill_scratch, table_scratch, stream);
+    return launch_variant<kTypesPerThread, true, kQuirk>(
+        vectors, counts, capacity, total, valid, prices, groups, types, dims, first_mode,
+        num_modes, threads, out, fill_scratch, table_scratch, stream);
   }
-  return launch_variant<kTypesPerThread, false>(vectors, counts, capacity, valid, prices, groups,
-                                                types, dims, first_mode, num_modes, threads, out,
-                                                fill_scratch, table_scratch, stream);
+  return launch_variant<kTypesPerThread, false, kQuirk>(
+      vectors, counts, capacity, total, valid, prices, groups, types, dims, first_mode,
+      num_modes, threads, out, fill_scratch, table_scratch, stream);
+}
+
+template <bool kQuirk>
+int launch_any(const void* vectors, const void* counts, const void* capacity, const void* total,
+               const void* valid, const void* prices, int groups, int types, int dims,
+               int first_mode, int num_modes, int threads, int types_per_thread, void* out,
+               void* fill_scratch, void* table_scratch, void* stream) {
+  switch (types_per_thread) {
+    case 1:
+      return launch<1, kQuirk>(vectors, counts, capacity, total, valid, prices, groups, types,
+                               dims, first_mode, num_modes, threads, out, fill_scratch,
+                               table_scratch, stream);
+    case 2:
+      return launch<2, kQuirk>(vectors, counts, capacity, total, valid, prices, groups, types,
+                               dims, first_mode, num_modes, threads, out, fill_scratch,
+                               table_scratch, stream);
+    case 4:
+      return launch<4, kQuirk>(vectors, counts, capacity, total, valid, prices, groups, types,
+                               dims, first_mode, num_modes, threads, out, fill_scratch,
+                               table_scratch, stream);
+    case 3:
+      return cudaErrorInvalidValue;
+    default:
+      return launch<0, kQuirk>(vectors, counts, capacity, total, valid, prices, groups, types,
+                               dims, first_mode, num_modes, threads, out, fill_scratch,
+                               table_scratch, stream);
+  }
 }
 
 }  // namespace
@@ -572,20 +657,21 @@ extern "C" long long ktt_pack_rounds_table_words(int groups, int types, int dims
   return static_cast<long long>(table_words(groups, types, dims));
 }
 
-// vectors [G, R] f32, counts [G] i32, capacity [T, R] f32, valid [T] bool
-// (one byte each), prices [T] f32, out [num_modes, words] i32; fill_scratch
-// is null to keep the fills in shared memory, else [num_modes, G, T] i32;
-// table_scratch is null to keep the tables in shared memory, else
-// [num_modes, ktt_pack_rounds_table_words] i32 (the fills are then in
-// global scratch too). Block b runs mode first_mode + b (0 = ffd, 1 = cost)
-// with `threads` threads, thread i owning the types i + k * threads for k <
-// types_per_thread (1, 2 or 4 cached in registers, more streamed). Returns
-// the launch's cudaGetLastError().
+// vectors [G, R] f32, counts [G] i32, capacity and total [T, R] f32, valid
+// [T] bool (one byte each), prices [T] f32, out [num_modes, words] i32;
+// fill_scratch is null to keep the fills in shared memory, else [num_modes,
+// G, T] i32; table_scratch is null to keep the tables in shared memory, else
+// [num_modes, ktt_pack_rounds_table_words] i32 (the fills are then in global
+// scratch too). Block b runs mode first_mode + b (0 = ffd, 1 = cost) with
+// `threads` threads, thread i owning the types i + k * threads for k <
+// types_per_thread (1, 2 or 4 cached in registers, more streamed); quirk 1
+// takes the reference's fits() early exit and its replication rule, and
+// reads total. Returns the launch's cudaGetLastError().
 extern "C" int ktt_pack_rounds(const void* vectors, const void* counts,
-                               const void* capacity, const void* valid,
+                               const void* capacity, const void* total, const void* valid,
                                const void* prices, int groups, int types,
                                int dims, int first_mode, int num_modes,
-                               int threads, int types_per_thread,
+                               int threads, int types_per_thread, int quirk,
                                void* out, void* fill_scratch, void* table_scratch,
                                void* stream) {
   if (groups <= 0 || types <= 0 || dims <= 0 || dims > kMaxDims ||
@@ -593,27 +679,16 @@ extern "C" int ktt_pack_rounds(const void* vectors, const void* counts,
       first_mode + num_modes - 1 > kModeCost || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 || types_per_thread < 1 ||
       static_cast<long long>(threads) * types_per_thread < types ||
-      (table_scratch != nullptr && fill_scratch == nullptr)) {
+      (table_scratch != nullptr && fill_scratch == nullptr) ||
+      (quirk != 0 && total == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  switch (types_per_thread) {
-    case 1:
-      return launch<1>(vectors, counts, capacity, valid, prices, groups, types, dims,
-                       first_mode, num_modes, threads, out, fill_scratch, table_scratch,
-                       stream);
-    case 2:
-      return launch<2>(vectors, counts, capacity, valid, prices, groups, types, dims,
-                       first_mode, num_modes, threads, out, fill_scratch, table_scratch,
-                       stream);
-    case 4:
-      return launch<4>(vectors, counts, capacity, valid, prices, groups, types, dims,
-                       first_mode, num_modes, threads, out, fill_scratch, table_scratch,
-                       stream);
-    case 3:
-      return cudaErrorInvalidValue;
-    default:
-      return launch<0>(vectors, counts, capacity, valid, prices, groups, types, dims,
-                       first_mode, num_modes, threads, out, fill_scratch, table_scratch,
-                       stream);
+  if (quirk != 0) {
+    return launch_any<true>(vectors, counts, capacity, total, valid, prices, groups, types, dims,
+                            first_mode, num_modes, threads, types_per_thread, out, fill_scratch,
+                            table_scratch, stream);
   }
+  return launch_any<false>(vectors, counts, capacity, total, valid, prices, groups, types, dims,
+                           first_mode, num_modes, threads, types_per_thread, out, fill_scratch,
+                           table_scratch, stream);
 }

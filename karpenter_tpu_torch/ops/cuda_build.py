@@ -139,6 +139,25 @@ def build_all(libraries: Sequence[CudaLibrary]) -> float:
     return time.perf_counter() - start
 
 
+def port_libraries() -> List[CudaLibrary]:
+    """Every kernel source of the port, one library each: K1, K2, K3, K4,
+    K7, K6, K8 and K10."""
+    from karpenter_tpu_torch.ops import (
+        consolidate_kernel,
+        cuda_kernels,
+        forecast_kernel,
+        incremental,
+        pack_kernel,
+        score_kernel,
+    )
+
+    return [
+        cuda_kernels.LIBRARY, pack_kernel.LIBRARY, score_kernel.LIBRARY,
+        pack_kernel.COMPACT_LIBRARY, consolidate_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
+        incremental.LIBRARY, forecast_kernel.LIBRARY,
+    ]
+
+
 def check_launch(status: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if status != 0:

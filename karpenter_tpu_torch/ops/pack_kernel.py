@@ -22,11 +22,11 @@ Two selection modes:
 The round loop is data-dependent, so on the card it is one hand-written
 kernel (csrc/pack_rounds.cu) that runs the whole loop with no host sync, both
 modes in one launch (`pack_kernel_pair`), one type per thread as
-`pack_launch_plan` lays it out. `_pack_kernel_ref` is its plain
-PyTorch version, which tests the loop condition on the host every round. A
-CPU tensor goes to the plain version, a CUDA tensor to the kernel; quirk=True
-exists only in the plain version (the cost solve never uses it), and asking
-the kernel for it raises. The plan compaction after it is K4
+`pack_launch_plan` lays it out, and quirk=True (the Go-parity solver's
+mode) is a compile-time variant of the same kernel. `_pack_kernel_ref` is its
+plain PyTorch version, which tests the loop condition on the host every
+round. A CPU tensor goes to the plain version, a CUDA tensor to the kernel.
+The plan compaction after it is K4
 (csrc/compact.cu, `compact_plan`): one launch writes the whole payload, and
 `_compact_plan_ref` is its plain version.
 
@@ -70,8 +70,8 @@ LIBRARY = CudaLibrary(
         "ktt_pack_rounds_table_words": (ctypes.c_longlong, [ctypes.c_int] * 3),
         "ktt_pack_rounds": (
             ctypes.c_int,
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 6
+            + [ctypes.c_int] * 8
             + [ctypes.c_void_p] * 4,
         ),
     },
@@ -336,16 +336,18 @@ def _check_args(vectors, counts, capacity, total, valid_types, prices) -> None:
         raise ValueError("pack_kernel: inconsistent shapes")
 
 
-def _launch(vectors, counts, capacity, valid_types, prices, first_mode: int, num_modes: int):
-    """One launch of the round-loop kernel: block b runs mode first_mode + b.
-    Returns [num_modes, words] int32 in the reference's dense layout."""
+def _launch(vectors, counts, capacity, total, valid_types, prices, first_mode: int,
+            num_modes: int, quirk: bool = False):
+    """One launch of the round-loop kernel: block b runs mode first_mode + b,
+    with the fits() early exit when quirk. Returns [num_modes, words] int32 in
+    the reference's dense layout."""
     num_groups, dims = vectors.shape
     num_types = capacity.shape[0]
     if num_groups == 0 or num_types == 0 or dims == 0:
         raise ValueError("pack_kernel kernel takes G, T, R >= 1")
     if dims > MAX_DIMS:
         raise ValueError(f"pack_kernel kernel takes at most {MAX_DIMS} axes")
-    tensors = (vectors, counts, capacity, valid_types, prices)
+    tensors = (vectors, counts, capacity, total, valid_types, prices)
     if not all(tensor.is_contiguous() for tensor in tensors):
         raise ValueError("pack_kernel kernel takes contiguous tensors")
     plan = pack_launch_plan(num_groups, num_types, dims)
@@ -367,12 +369,14 @@ def _launch(vectors, counts, capacity, valid_types, prices, first_mode: int, num
         status = lib.ktt_pack_rounds(
             *(tensor.data_ptr() for tensor in tensors),
             num_groups, num_types, dims, first_mode, num_modes,
-            plan.threads, plan.types_per_thread, out.data_ptr(),
+            plan.threads, plan.types_per_thread, int(quirk), out.data_ptr(),
             0 if scratch is None else scratch.data_ptr(),
             0 if tables is None else tables.data_ptr(), stream,
         )
     check_launch(status, "pack_kernel")
     pack_kernel.launches += 1
+    if quirk:
+        pack_kernel.quirk_launches += 1
     return out
 
 
@@ -419,13 +423,14 @@ def pack_kernel(
         )
     if vectors.device.type != "cuda":
         raise ValueError(f"pack_kernel: unsupported device {vectors.device}")
-    if quirk:
-        raise ValueError("pack_kernel: quirk=True has no CUDA kernel; the cost solve never uses it")
-    out = _launch(vectors, counts, capacity, valid_types, prices, _MODES.index(mode), 1)
+    out = _launch(
+        vectors, counts, capacity, total, valid_types, prices, _MODES.index(mode), 1, quirk
+    )
     return rounds_from_words(out[0], vectors.shape[0])
 
 
 pack_kernel.launches = 0
+pack_kernel.quirk_launches = 0  # of them, the quirk's (K2q)
 
 
 def pack_kernel_pair(
@@ -443,7 +448,7 @@ def pack_kernel_pair(
         )
     if vectors.device.type != "cuda":
         raise ValueError(f"pack_kernel: unsupported device {vectors.device}")
-    out = _launch(vectors, counts, capacity, valid_types, prices, 0, 2)
+    out = _launch(vectors, counts, capacity, total, valid_types, prices, 0, 2)
     num_groups = vectors.shape[0]
     return rounds_from_words(out[0], num_groups), rounds_from_words(out[1], num_groups)
 

@@ -658,9 +658,8 @@ OBS.evaluator.recorder = RECORDER
 
 
 def stacks_snapshot(sample_s: float = 0.2) -> dict:
-    """Every thread's current stack. The reference adds a short sampled
-    hot-path profile from utils/stackprof, which the port does not have yet:
-    here `hot` stays empty and `profile_samples` 0 whatever `sample_s`."""
+    """Every thread's current stack plus a short sampled hot-path profile
+    (StackProf-backed — the same sampler the benchmarks use)."""
     import sys
     import traceback
 
@@ -669,12 +668,25 @@ def stacks_snapshot(sample_s: float = 0.2) -> dict:
     for ident, frame in sys._current_frames().items():
         name = names.get(ident, str(ident))
         threads[f"{name}-{ident}"] = traceback.format_stack(frame)
+    hot: List[dict] = []
+    samples = 0
+    if sample_s > 0:
+        from karpenter_tpu_torch.utils.stackprof import StackProf
+
+        profiler = StackProf(interval_s=0.004).start()
+        SYSTEM_CLOCK.sleep(sample_s)
+        profiler.stop()
+        samples = profiler.samples
+        hot = [
+            {"thread": thread, "frame": sig, "count": count}
+            for (thread, sig), count in profiler.frames2.most_common(20)
+        ]
     return {
         "pid": os.getpid(),
         "thread_count": len(threads),
         "threads": threads,
-        "profile_samples": 0,
-        "hot": [],
+        "profile_samples": samples,
+        "hot": hot,
     }
 
 

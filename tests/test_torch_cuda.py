@@ -139,10 +139,54 @@ def test_pack_kernel_is_deterministic(shape, cuda_device):
         assert chip_smoke.rounds_equal(a, b)
 
 
-def test_pack_kernel_refuses_quirk(cuda_device):
-    args = fused_args_from_numpy(*_pack_problem(0, 8, 8), device=cuda_device)
-    with pytest.raises(ValueError):
-        pack_kernel.pack_kernel(*args, quirk=True)
+def _quirk_problem(name):
+    """K2q's card cases: the exact-fit case (a 1.5-pod pairs with a 0.5-pod,
+    the reason for the quirk's replication rule), random problems at G 16,
+    padded G 2,048 (the fills in global scratch) and padded G 8,192 (the
+    tables too)."""
+    if name == "exact_fit":
+        pods, catalog = [(p, c) for n, p, c in chip_smoke.go_parity_cases() if n == "exact_fit"][0]
+        return chip_smoke.encoded_problem(pods, catalog)
+    if name == "G2048":
+        return chip_smoke.sparse_pack_problem(3, 2048, 512, 200)
+    if name == "G8192":
+        return chip_smoke.sparse_pack_problem(4, 8192, 64, 40)
+    return _pack_problem(int(name[-1]), 16, 512)
+
+
+# Padded G 2,048 and 8,192 in ffd mode alone, the Go-parity solver's.
+QUIRK_CASES = [(name, mode) for name in ("exact_fit", "G16-seed0", "G16-seed1") for mode in ("ffd", "cost")]
+QUIRK_CASES += [("G2048", "ffd"), ("G8192", "ffd")]
+
+
+@pytest.mark.parametrize("name,mode", QUIRK_CASES, ids=[f"{n}-{m}" for n, m in QUIRK_CASES])
+def test_pack_kernel_quirk_equals_plain_version(name, mode, cuda_device):
+    args = fused_args_from_numpy(*_quirk_problem(name), device=cuda_device)
+    before = pack_kernel.pack_kernel.quirk_launches
+    got = pack_kernel.pack_kernel(*args, quirk=True, mode=mode)
+    want = pack_kernel._pack_kernel_ref(*args, quirk=True, mode=mode)
+    torch.cuda.synchronize()
+    assert pack_kernel.pack_kernel.quirk_launches == before + 1
+    for field, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), field
+    if name == "G2048":
+        assert not pack_kernel.pack_launch_plan(2048, 512, 8).fills_in_shared
+    if name == "G8192":
+        assert not pack_kernel.pack_launch_plan(8192, 64, 8).tables_in_shared
+
+
+@pytest.mark.parametrize("name", ["homogeneous", "size_ladder", "mixed_shapes", "exact_fit"])
+def test_go_parity_solver_matches_greedy_on_the_card(name, cuda_device):
+    """The reference's tests/test_pack_kernel.py parity shapes: the Go-parity
+    solver on the card (K2q) places node for node what GreedySolver does."""
+    pods, catalog = [(p, c) for n, p, c in chip_smoke.go_parity_cases() if n == name][0]
+    fallbacks = solver.TPUSolver.host_fallbacks
+    got = solver.TPUSolver(mode="ffd", quirk=True, device=cuda_device).solve(pods, catalog, Constraints())
+    want = solver.GreedySolver().solve(pods, catalog, Constraints())
+    assert chip_smoke.go_parity_signature(got) == chip_smoke.go_parity_signature(want)
+    assert solver.TPUSolver.host_fallbacks == fallbacks
+    if name == "exact_fit":
+        assert got.node_count == chip_smoke.GO_PARITY_EXACT_FIT_NODES
 
 
 def _workload(num_pods=2000, num_types=40, seed=0):

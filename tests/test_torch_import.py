@@ -90,6 +90,33 @@ def test_the_market_and_controller_modules_are_checked():
         assert name in names
 
 
+def test_the_controller_process_modules_are_checked():
+    """The blocked-import check below covers every module of the port; the
+    controller process's among them: the entry point, the runtime's loops,
+    warmup, the backend probe and the controllers the Manager's loops
+    drive."""
+    names = _module_names()
+    for name in (
+        "karpenter_tpu_torch.cmd",
+        "karpenter_tpu_torch.cmd.controller",
+        "karpenter_tpu_torch.cloudprovider.registry",
+        "karpenter_tpu_torch.models.warmup",
+        "karpenter_tpu_torch.utils.backend_health",
+        "karpenter_tpu_torch.utils.backoff",
+        "karpenter_tpu_torch.utils.workqueue",
+        "karpenter_tpu_torch.utils.stackprof",
+        "karpenter_tpu_torch.utils.gctune",
+        "karpenter_tpu_torch.controllers.eligibility",
+        "karpenter_tpu_torch.controllers.termination",
+        "karpenter_tpu_torch.controllers.counter",
+        "karpenter_tpu_torch.controllers.metrics",
+        "karpenter_tpu_torch.controllers.drift",
+        "karpenter_tpu_torch.controllers.node",
+        "karpenter_tpu_torch.controllers.consolidation",
+    ):
+        assert name in names
+
+
 def test_every_module_imports_with_jax_blocked():
     script = textwrap.dedent(
         f"""

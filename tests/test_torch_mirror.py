@@ -34,7 +34,6 @@ VERBATIM = [
     "utils/crashpoints.py",
     "controllers/__init__.py",
     "controllers/errors.py",
-    "controllers/cluster.py",
     "controllers/scheduling.py",
     "constraints/__init__.py",
     "constraints/terms.py",
@@ -53,6 +52,18 @@ VERBATIM = [
     "controllers/market.py",
     "controllers/provisioning.py",
     "controllers/selection.py",
+    "utils/obs.py",
+    "utils/backoff.py",
+    "utils/workqueue.py",
+    "utils/stackprof.py",
+    "utils/gctune.py",
+    "controllers/eligibility.py",
+    "controllers/termination.py",
+    "controllers/counter.py",
+    "controllers/metrics.py",
+    "controllers/drift.py",
+    "controllers/node.py",
+    "cmd/__init__.py",
 ]
 _DOCSTRING = "docstring only: names the port's files and devices"
 _NO_MESH = "one device: no mesh, no sharded variant, no tracing spans"
@@ -60,6 +71,14 @@ _PORT_ONLY = "the port's own helper"
 _HISTORY = "docstring only: without the reference's history of which change added what"
 # Trimmed copies: {module: {adapted definition: why}}.
 TRIMMED = {
+    "controllers/cluster.py": {
+        "BindConflictError": _PORT_ONLY + ": the apiserver's 409 on a second Binding",
+        "Cluster.bind_pod": "refuses a pod already bound to another node, as the apiserver "
+                            "does (the threaded Manager's provisioning and consolidation "
+                            "raced to bind one pod twice on the card)",
+        "Cluster._reschedule_local": "re-checks under the lock that the pod is still bound, "
+                                     "so two displacements of one pod notify once",
+    },
     "ops/ffd.py": {},
     "ops/mix_pack.py": {},
     "ops/native.py": {
@@ -102,9 +121,6 @@ TRIMMED = {
         "_ProfileSession": "a torch.profiler capture exported as a Chrome trace in place of "
                            "jax.profiler.start_trace",
     },
-    "utils/obs.py": {
-        "stacks_snapshot": "no sampled hot-path profile: utils/stackprof is not ported",
-    },
     "utils/options.py": {
         "LAUNCH_GRACE_SECONDS": "a copy of controllers/instancegc's constant, which "
                                 "Options validates against: the GC controller is not ported",
@@ -118,10 +134,48 @@ TRIMMED = {
     "runtime.py": {
         "make_solver": "places the device solvers on a device the caller picks; the sidecar "
                        "(remote) is not ported and raises",
-        "Manager": "builds the encoder, the tracker, provisioning, selection and the market "
-                   "on a device the caller picks; no reconcile loops, readiness, leader "
-                   "election or the other controllers; the reprice requeue reconciles the "
-                   "provisioners",
+        "LeaderLock.__init__": "the lock file lies in the process's temporary directory",
+        "Manager.__init__": "places the solver, encoder and consolidation solve on a device "
+                            "the caller picks; no podgc, instancegc, interruption or health "
+                            "controllers or loops; keeps the error of a failed card warmup",
+        "Manager._reprice_requeue": "counts its calls (reprice_requeues)",
+        "Manager.start": "no podgc, instancegc, interruption or health seed enqueues; refuses "
+                         "after a failed card warmup",
+        "Manager.start_standby": "docstring only: the warmup's debt is the kernels' builds "
+                                 "and first launches",
+        "Manager._kick_warmup": "probes the solver's device; a DEGRADED verdict stops the "
+                                "Manager and raises (no CPU pin, no host routing)",
+        "Manager._warmup": "warms the solver's device; on the card a failed warmup stops the "
+                           "Manager (no serving from a card that cannot solve)",
+    },
+    "cmd/controller.py": {
+        "build_cluster": "the in-memory store only: kubeapi is not ported",
+        "main": "takes the device the Manager runs on; hands the elector to a caller that "
+                "does not block; no JAX donation advisory to suppress; a Manager stopped by a "
+                "failed card warmup ends the blocking process with its error",
+    },
+    "cloudprovider/registry.py": {
+        "_register_builtins": "registers fake; asking for ec2 raises KeyError (not ported)",
+    },
+    "utils/backend_health.py": {
+        "BackendHealth.ensure_backend": "settles HEALTHY for a CPU device without a probe, "
+                                        "else takes the verdict; no CPU pin",
+        "ensure_backend": "passes the device asked for",
+    },
+    "models/warmup.py": {
+        "WARMUP_RUNG_FAILURES": _PORT_ONLY + ": counts the rungs that failed",
+        "warmup_ladder": "builds every kernel source first, then the ladder and the "
+                         "calibration on a device the caller picks; on the card a failed "
+                         "build, rung or calibration raises",
+        "_compile_shapes": "passes the device; counts a failed rung, and raises it on the card",
+        "_timed_device_solve_ms": "device pods are torch tensors already on the device; "
+                                  "the solve runs on a device the caller picks and counts on "
+                                  "the dispatch metric; finish=True finishes the plan with its "
+                                  "host half (the LP solver's first import) at boot",
+    },
+    "controllers/consolidation.py": {
+        "ConsolidationController.__init__": "takes the device K7 runs on",
+        "ConsolidationController._solve_group": "passes that device to solve_candidates",
     },
     "constraints/solve.py": {
         "_dispatch_kernel": "no mesh hook or quarantine (one device); one packed upload, "
@@ -148,17 +202,24 @@ TRIMMED = {
         "run_kernel_dense": "uploads the padded inputs to a device the caller picks",
         "_run_kernel": "passes the solver's device",
         "_to_host": "one flat int32 copy of the rounds to the host in place of device_get",
-        "TPUSolver": "runs on a device the caller picks and raises without a card; quirk=True "
-                     "has no CUDA kernel; counts its host FFD fallbacks",
+        "TPUSolver": "runs on a device the caller picks and raises without a card; counts "
+                     "its host FFD fallbacks",
         "sort_pool_rows": _DOCSTRING,
         "_cheapest_feasible_pools": _DOCSTRING,
         "_decode_rounds": _DOCSTRING,
         "_kernel_rounds_to_list": "annotation names a class the port imports",
         "cost_solve_dense": "runs on a device the caller picks; " + _NO_MESH,
         "compute_mix_candidate": _DOCSTRING,
-        "host_solve_enabled": "no mesh: the gate is the pod count alone",
+        "_probe_fetch_floor_ms": "one flat int32 copy from a device the caller picks",
+        "host_route_open": _PORT_ONLY + ": the host route is open on the CPU by default and "
+                           "on the card only when asked for (KARPENTER_HOST_SOLVE=1 or auto)",
+        "host_solve_enabled": "takes the solver's device and asks host_route_open first; no "
+                              "degraded-backend host routing (the port has no fallback) and "
+                              "no mesh",
         "cost_solve_dispatch": "K1-K4 on a torch device, the fleet resident and the rest in "
-                               "one packed upload; " + _NO_MESH,
+                               "one packed upload; every dispatch counts on the dispatch "
+                               "metric (no count= option: boot warmup ends before ready); "
+                               + _NO_MESH,
         "_collect_candidates": "takes fetched plans only (no host-tuple candidates)",
         "cost_solve_finish": _DOCSTRING,
         "_is_resource_exhausted": "also takes torch.cuda.OutOfMemoryError",
@@ -166,7 +227,8 @@ TRIMMED = {
         "_presplit_for_hbm": "reads the budget of the solver's device",
         "CostSolver": "runs on a device the caller picks and raises without a card; the "
                       "floor answers from the host path with no backend pin; no tracing "
-                      "spans; no warmup",
+                      "spans; no warmup; the host route is opt-in on the card "
+                      "(host_fallback_available reads host_route_open)",
         "decode_dense_result": _DOCSTRING,
     },
 }
