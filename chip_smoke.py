@@ -145,6 +145,32 @@ limit, and as the last line {"ok": true, "device": {...}}:
               drains them, every evicted pod is bound again and the fleet's
               $/hr falls; /metrics parses, /debug/stacks has profile
               samples; after the stop /healthz answers 503
+ 10d. sharded  (beside the controller process, before its result is read)
+              the sharded solve (the reference's single-host mesh path) on
+              virtual meshes of the one card, 4 shards (2x2) and 8 (2x4),
+              as the reference's tests and dryrun_multichip run it on 8
+              virtual CPU devices: CostSolver over the main path's 50,000
+              pods x 400 types with solve_mesh() selecting the mesh (K1 and
+              the K2 pair once, K9a's three phases on every shard each Adam
+              step, K9b once a shard, no K3 or K4), every pod placed once,
+              both decoded candidates and feasible_any bit-identical to the
+              single-device solve, $/hr within 1.02x and 5% of it, warm p50
+              and max over 10 solves beside the single-device p50; K9a
+              (csrc/lp_shard.cu) against its plain version over the mesh on
+              the main path (objective), on non-degenerate LPs (LP
+              tolerances) and phase by phase, and at the many-shapes width
+              (padded G 2,048 x T 512, 2x4) beside K3 there; K9b
+              (csrc/compact_shard.cu) against its plain version word for
+              word and against the host decode, a shard past its budget
+              included; the constrained cell's levels over 8 shards equal
+              to the single-device dispatch; the shrink leg: one shard id
+              wedged, the mesh 1x7 (T padded to a multiple of 7), the LP
+              finite, pods conserved; an injected dispatch failure
+              quarantined by the chip probe (a fake probe naming shards
+              0-6) and retried once on the shrunk mesh. It prints
+              solve_mesh() on the machine and torch.cuda.device_count(), and
+              with more than one card also solves over the real cards.
+              `chip_smoke.py --phase sharded` runs it alone.
  11. timing   each kernel's device time per call (torch.profiler: the
               kernels' own time, `ms`) and its time between CUDA events
               around the wrapper (host enqueue included, `event_ms`), its
@@ -177,6 +203,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -868,6 +895,117 @@ def lp_operations(groups: int, types: int, dims: int, steps: int) -> int:
     return steps * per_step + start + result
 
 
+@contextlib.contextmanager
+def plain_k9a():
+    """Within the block, the sharded LP runs K9a's plain versions in place
+    of its kernels (on whatever device its tensors lie)."""
+    from karpenter_tpu_torch.ops import lp_shard_kernel as k9a
+
+    saved = (k9a.shard_softmax, k9a.shard_demand, k9a.shard_row_dot)
+    k9a.shard_softmax = k9a._softmax_ref
+    k9a.shard_demand = lambda share, feasible, counts, vectors, row_total, assignment=None: (
+        k9a._demand_ref(share, feasible, counts, vectors, row_total, assignment))
+    k9a.shard_row_dot = k9a._row_dot_ref
+    try:
+        yield
+    finally:
+        k9a.shard_softmax, k9a.shard_demand, k9a.shard_row_dot = saved
+
+
+@contextlib.contextmanager
+def plain_k9b():
+    """Within the block, the sharded compaction runs K9b's plain version."""
+    from karpenter_tpu_torch.ops import pack_kernel
+
+    saved = pack_kernel.compact_shard
+    pack_kernel.compact_shard = pack_kernel._compact_shard_ref
+    try:
+        yield
+    finally:
+        pack_kernel.compact_shard = saved
+
+
+def k9a_phase_cases(shards: int, device, seed: int = 0):
+    """One shard's block of the main path's [16, 512] LP on a mesh of
+    `shards` (2x2: [8, 256], 2x4: [8, 128]), random state: for each of
+    K9a's phases (the softmax with Adam, the softmax's first exact max, the
+    demand with and without the assignment, the row dot) a tuple (wrapper
+    name, kernel args, plain args, plain function name), the two arg lists
+    separate copies (the phases update their state in place)."""
+    import torch
+
+    from karpenter_tpu_torch.parallel.mesh import _factor
+
+    g, t = _factor(shards)
+    groups, types, dims = 16 // g, 512 // t, 8
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, low=0.0, high=1.0):
+        return torch.from_numpy(rng.uniform(low, high, shape).astype(np.float32)).to(device)
+
+    feasible = torch.from_numpy(rng.random((groups, types)) < 0.7).to(device)
+    logits = f32(groups, types, low=-3, high=3)
+    masked = torch.where(feasible, logits, -1e9)
+    ref = masked.amax(dim=1)
+    share = torch.exp(masked - ref[:, None])
+    vectors = torch.zeros((groups, dims), dtype=torch.float32, device=device)
+    vectors[:, 0] = torch.from_numpy(rng.integers(1, 17, groups) * 250.0).float().to(device)
+    vectors[:, 1] = torch.from_numpy(rng.integers(1, 33, groups) * 256.0).float().to(device)
+    vectors[:, 2] = 1.0
+    counts = torch.from_numpy(rng.integers(1, 4000, groups).astype(np.float32)).to(device)
+    capacity = torch.zeros((types, dims), dtype=torch.float32, device=device)
+    capacity[:, 0] = f32(types, low=1000, high=64000)
+    capacity[:, 1] = f32(types, low=2000, high=256000)
+    capacity[:, 2] = 110.0
+    prices = f32(types, low=0.05, high=5.0)
+    demand = f32(types, dims, low=0, high=5e5) * (capacity > 0)
+    bias = torch.tensor([1 - 0.9**5, 1 - 0.999**5], dtype=torch.float32, device=device)
+
+    def copies(*args):
+        return [a.clone() if isinstance(a, torch.Tensor) else a for a in args], \
+            [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+    cases = []
+    # Adam's moments are 0 on infeasible cells (their gradient always is).
+    mu = torch.where(feasible, f32(groups, types, low=-0.1, high=0.1), 0.0)
+    nu = torch.where(feasible, f32(groups, types, high=0.01), 0.0)
+    state = (logits, mu, nu, share / share.sum(dim=1, keepdim=True),
+             f32(groups, types, low=-1, high=1), feasible)
+    for row_dot, reference, step_bias in ((f32(groups, low=-1, high=1), ref, bias), (None, None, None)):
+        kernel_args, plain_args = copies(*state, row_dot, reference, step_bias)
+        cases.append(("shard_softmax", kernel_args, plain_args, "_softmax_ref"))
+    for assignment in (torch.empty((groups, types), device=device), None):
+        kernel_args, plain_args = copies(share, feasible, counts, vectors, share.sum(dim=1), assignment)
+        cases.append(("shard_demand", kernel_args, plain_args, "_demand_ref"))
+    kernel_args, plain_args = copies(state[3], torch.zeros_like(share), feasible, counts, vectors,
+                                     capacity, prices, demand)
+    cases.append(("shard_row_dot", kernel_args, plain_args, "_row_dot_ref"))
+    return cases
+
+
+def phase_close(got, want, kernel_args, plain_args, rtol: float = 1e-4) -> bool:
+    """A K9a phase's outputs and the state it updated in place agree with
+    its plain version's: each float tensor within rtol of its scale (sums in
+    other orders; expf against torch.exp)."""
+    import torch
+
+    pairs = list(zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)))
+    pairs += [(a, b) for a, b in zip(kernel_args, plain_args) if isinstance(a, torch.Tensor)]
+    for a, b in pairs:
+        if a is None or b is None:
+            if a is not b:
+                return False
+            continue
+        if a.dtype == torch.bool:
+            if not torch.equal(a, b):
+                return False
+            continue
+        scale = max(float(b.abs().max()), 1e-30)
+        if not float((a - b).abs().max()) <= rtol * scale:
+            return False
+    return True
+
+
 def random_pack_problem(rng, num_groups: int, num_types: int):
     vectors = np.zeros((num_groups, 8), np.float32)
     real = int(rng.integers(1, num_groups + 1))
@@ -1471,6 +1609,356 @@ def large_shapes_phase(catalog, device, num_pods: int = 12_000, num_shapes: int 
         k3_plan=f"{k3_plan}".replace(" ", ""),
     )
     return {"args": (vectors, counts, capacity, total, valid, effective), "lp": lp_args}
+
+
+# --- the sharded solve (K9a, K9b) on meshes of the card --------------------------
+
+SHARD_MESHES = (4, 8)  # 2x2 and 2x4 virtual meshes of the one card
+SHRUNK_PROBE = "".join(f"print('CHIP_OK {i}', flush=True)\n" for i in range(7))
+
+
+def constrained_operands(catalog, num_pods: int = NUM_PODS):
+    """The constrained cell's padded [L, G', T] operands as numpy
+    (constraints.solve.pad_levels), built as constrained_phase builds them."""
+    from karpenter_tpu_torch.api.provisioner import Provisioner, ProvisionerSpec
+    from karpenter_tpu_torch.constraints import compiler
+    from karpenter_tpu_torch.constraints import solve as constrained
+    from karpenter_tpu_torch.controllers.cluster import Cluster
+    from karpenter_tpu_torch.controllers.scheduling import Scheduler
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    pods = constrained_pods(num_pods)
+    cluster = Cluster()
+    (schedule,) = Scheduler(cluster).solve(Provisioner(name="default", spec=ProvisionerSpec()), pods)
+    groups = group_pods(list(schedule.pods))
+    fleet = build_fleet(catalog, schedule.constraints, schedule.pods, [], pods_need=groups.vectors.max(axis=0))
+    compiled = compiler.compile_constraints(schedule, groups, fleet, cluster, cache=compiler.CompilerCache())
+    return constrained.pad_levels(compiled, fleet)
+
+
+def mesh_lp_problem(padded, mesh, device):
+    """The sharded LP of one fused solve over `mesh`, as
+    models/solver._sharded_fused_solve lays it out from its padded inputs:
+    (the ShardedProblem, the (vectors, solvable counts, capacity, valid,
+    effective prices) it came from)."""
+    import torch
+
+    from karpenter_tpu_torch.convert import fused_args_from_numpy
+    from karpenter_tpu_torch.ops import cuda_kernels, score_kernel
+    from karpenter_tpu_torch.parallel import sharded_solver
+
+    vectors, counts, capacity, total, valid, prices = fused_args_from_numpy(*padded, device=device)
+    effective = cuda_kernels._dominance_prices_ref(capacity, torch.where(valid, prices, torch.inf))
+    solvable = torch.where(score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1), counts, 0)
+    lp_args = (vectors, solvable, capacity, valid, effective)
+    return sharded_solver.shard_lp_problem(mesh, {torch.device(device): lp_args}), lp_args
+
+
+def k9a_against_plain(mesh, problem, steps: int = 300):
+    """K9a's sharded LP and the same through its plain versions on the card:
+    (objective relative difference, assignment max abs difference, kernel
+    result)."""
+    from karpenter_tpu_torch.parallel import collectives, sharded_solver
+
+    got = sharded_solver.sharded_lp_blocks(mesh, problem, steps)
+    with plain_k9a():
+        want = sharded_solver.sharded_lp_blocks(mesh, problem, steps)
+    synchronize(mesh.flat[0].device)
+    obj = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
+    err = float((collectives.assemble(mesh, got.assignment) - collectives.assemble(mesh, want.assignment)).abs().max())
+    return obj, err, got
+
+
+def k9b_cases(device):
+    """(label, rounds_ffd, rounds_cost, feasible) K9b is held to its plain
+    version and to the host decode on: sparse plans inside every shard's
+    entry budget at G 16 and 64, and a dense one past it."""
+    import torch
+
+    rng = np.random.default_rng(12)
+    for num_groups, density in ((16, 0.05), (64, 0.02), (16, 0.9)):
+        ffd, cost = (dense_rounds(num_groups, seed, density, device) for seed in (3, 4))
+        feasible = torch.from_numpy(rng.random(num_groups) < 0.8).to(device)
+        yield f"G{num_groups}-d{density}", ffd, cost, feasible
+
+
+def k9b_check(mesh, device) -> dict:
+    """K9b over `mesh` on every case of k9b_cases: word for word equal to
+    its plain version, decoded to the dense fills where every shard fits
+    its budget, flagged for the dense spill where one does not."""
+    import torch
+
+    from karpenter_tpu_torch.ops import pack_kernel
+
+    cases = overflowed = 0
+    for label, ffd, cost, feasible in k9b_cases(device):
+        got = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh)
+        with plain_k9b():
+            want = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh)
+        synchronize(device)
+        check(torch.equal(got, want), f"K9b differs from its plain version on {label} over {mesh.size} shards")
+        num_groups = feasible.shape[0]
+        words = got.cpu().numpy()
+        dec_ffd, dec_cost, dec_feasible, ok = pack_kernel.decompact_plan_sharded(words, num_groups, mesh.size)
+        width = num_groups // mesh.size
+        budget = pack_kernel.shard_entry_budget(num_groups, mesh.size)
+        fits = all(int((r.round_fill[:, k * width : (k + 1) * width] != 0).sum()) <= budget
+                   for r in (ffd, cost) for k in range(mesh.size))
+        check(ok is fits, f"K9b's overflow flag is wrong on {label} over {mesh.size} shards")
+        if ok:
+            for decoded, original in ((dec_ffd, ffd), (dec_cost, cost)):
+                for field in pack_kernel.PackRounds._fields:
+                    check(np.array_equal(np.asarray(getattr(decoded, field)),
+                                         getattr(original, field).cpu().numpy()),
+                          f"the host decode of K9b's words differs on {label}: {field}")
+            check(np.array_equal(dec_feasible, feasible.cpu().numpy()), f"feasible_any differs on {label}")
+        overflowed += not ok
+        cases += 1
+    check(overflowed >= 1, "no K9b case overflowed its budget")
+    return {"cases": cases, "overflowed": overflowed}
+
+
+def sharded_device_ms(sharded, lp_steps: int = 300) -> None:
+    """K9a's and K9b's own device time (torch.profiler) per sharded LP and
+    per sharded compaction on each mesh of the sharded phase, into its
+    result ("k9a_ms", "k9b_ms"). Run after the other kernels' timings: a
+    profiler window over thousands of launches makes later windows drop
+    kernel records."""
+    for entry in sharded["meshes"].values():
+        shards = entry["shards"]
+        entry["k9a_ms"] = device_ms_per_call(entry["k9a_call"], {
+            "lp_shard_softmax_kernel": shards * (lp_steps + 2),
+            "lp_shard_demand_kernel": shards * (lp_steps + 1),
+            "lp_shard_row_dot_kernel": shards * lp_steps,
+        }, reps=3)
+        entry["k9b_ms"] = device_ms_per_call(entry["k9b_call"], {"compact_shard_kernel": shards}, reps=200)
+        print(f"  K9a over {shards} shards: {entry['k9a_ms']:.4f} ms device a solve, "
+              f"{entry['k9a_ms'] * 1e3 / lp_steps:.3f} us a step; K9b {entry['k9b_ms']:.5f} ms a compaction")
+
+
+def plans_equal(a, b) -> bool:
+    """Two FetchedPlans' decoded candidates and feasibility, bit for bit."""
+    return all(
+        np.array_equal(np.asarray(x), np.asarray(y))
+        for name in ("rounds_ffd", "rounds_cost")
+        for x, y in zip(getattr(a, name), getattr(b, name))
+    ) and np.array_equal(a.feasible_any, b.feasible_any)
+
+
+def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_lp) -> dict:
+    """The sharded solve (the reference's single-host mesh path,
+    karpenter_tpu/models/solver.py:500-640) on 2x2 and 2x4 virtual meshes of
+    the card, following __graft_entry__.dryrun_multichip: CostSolver on the
+    main path's 50,000 pods x 400 types through the mesh (K1 and the K2 pair
+    once, K9a over every shard, K9b once a shard, no K3 or K4), its decoded
+    candidates and feasibility bit-identical to the single-device solve's,
+    $/hr within 1.02x and 5% of it, warm p50 and max; K9a against its plain
+    version (the main path, non-degenerate LPs, padded G 2,048 x T 512),
+    K9b against its plain version and the host decode; the constrained
+    cell's levels over the 8-shard mesh equal to the single-device
+    dispatch; the shrink leg (a wedged shard, the 1x7 mesh, an injected
+    dispatch failure quarantined by a probe and retried once). Returns the
+    numbers the kernels line reports."""
+    import torch
+
+    from karpenter_tpu_torch.convert import fused_args_from_numpy, upload_packed
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.ops import cuda_kernels, lp_shard_kernel, pack_kernel, score_kernel
+    from karpenter_tpu_torch.parallel import mesh as mesh_mod
+    from karpenter_tpu_torch.parallel.sharded_solver import (
+        constrained_level_sharding,
+        shard_lp_problem,
+        sharded_lp_blocks,
+    )
+    from karpenter_tpu_torch.utils import backend_health
+
+    device = torch.device(device)
+    cards = torch.cuda.device_count()
+    real_mesh = solver.solve_mesh(device)
+    print(f"  solve_mesh() on this machine: {real_mesh}; torch.cuda.device_count() = {cards}")
+    check(cards > 1 or real_mesh is None, "one card, yet solve_mesh() selected a mesh")
+    lp_steps = 300
+    cost_solver = solver.CostSolver(device=device)
+    args = (groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
+    single_plan = solver.fetch_plan(solver.cost_solve_dispatch(*args, device=device))
+    single = cost_solver.solve_encoded(groups, fleet)
+    single_cost = single.projected_cost()
+
+    def warm_ms():
+        samples = []
+        for _ in range(10):
+            start = time.perf_counter()
+            cost_solver.solve_encoded(groups, fleet)
+            samples.append((time.perf_counter() - start) * 1e3)
+        return samples
+
+    single_ms = warm_ms()
+    out = {"meshes": {}}
+    fields = {"single_p50_ms": f"{np.percentile(single_ms, 50):.3f}"}
+    for shards in SHARD_MESHES:
+        with mesh_mod.virtual_devices(device, shards):
+            mesh = solver.solve_mesh(device)
+            check(mesh is not None and mesh.size == shards and mesh.shape == mesh_mod._factor(shards),
+                  f"solve_mesh() over {shards} virtual shards is {mesh}")
+            label = f"{mesh.shape[0]}x{mesh.shape[1]}"
+            counters = (cuda_kernels.dominance_prices, pack_kernel.pack_kernel, score_kernel.lp_relax,
+                        pack_kernel.compact_plan, pack_kernel.compact_shard)
+            for counter in counters:
+                counter.launches = 0
+            lp_shard_kernel.reset_launches()
+            result = cost_solver.solve_encoded(groups, fleet)
+            launches = {
+                "dominance_prices": cuda_kernels.dominance_prices.launches,
+                "pack_kernel": pack_kernel.pack_kernel.launches,
+                "lp_relax": score_kernel.lp_relax.launches,
+                "compact_plan": pack_kernel.compact_plan.launches,
+                "lp_shard": lp_shard_kernel.launches(),
+                "compact_shard": pack_kernel.compact_shard.launches,
+            }
+            want = {"dominance_prices": 1, "pack_kernel": 1, "lp_relax": 0, "compact_plan": 0,
+                    "lp_shard": shards * (3 * lp_steps + 3), "compact_shard": shards}
+            check(launches == want, f"the {label} solve launched {launches}, not {want}")
+            check(all_pods_placed_once(result, pods), f"the {label} solve did not place every pod once")
+            cost = result.projected_cost()
+            check(cost <= 1.02 * single_cost + 1e-6 and abs(cost - single_cost) / single_cost <= 0.05,
+                  f"the {label} solve's $/hr {cost} against the single-device {single_cost}")
+            handle = solver.cost_solve_dispatch(*args, device=device)
+            plan = solver.fetch_plan(handle)
+            check(handle.shards == shards, f"the {label} dispatch reports {handle.shards} shards")
+            check(plans_equal(plan, single_plan),
+                  f"the {label} solve's decoded candidates differ from the single-device solve's")
+            sharded_ms = warm_ms()
+            padded = solver.pad_kernel_args(*args, g_mult=mesh.size, t_mult=mesh.shape[1])
+            problem, main_lp = mesh_lp_problem(padded, mesh, device)
+            main_obj, _, _ = k9a_against_plain(mesh, problem, lp_steps)
+            check(main_obj <= LP_OBJECTIVE_RTOL, f"K9a's objective differs on the main path over {label}: {main_obj:.3e}")
+            errs = []
+            for seed in LP_SEEDS[:2]:
+                lp_args = lp_inputs(seed, (16, 512), device)
+                obj, err, _ = k9a_against_plain(mesh, shard_lp_problem(mesh, {device: lp_args}), lp_steps)
+                check(obj <= LP_OBJECTIVE_RTOL and err <= LP_ASSIGNMENT_ATOL,
+                      f"K9a differs from its plain version on seed {seed} over {label}: "
+                      f"objective {obj:.3e}, assignment {err:.3e}")
+                errs.append(err)
+            phases = 0
+            for name, kernel_args, plain_args, plain_name in k9a_phase_cases(shards, device):
+                got = getattr(lp_shard_kernel, name)(*kernel_args)
+                want_phase = getattr(lp_shard_kernel, plain_name)(*plain_args)
+                synchronize(device)
+                check(phase_close(got, want_phase, kernel_args, plain_args),
+                      f"K9a's {name} differs from its plain version over {label}")
+                phases += 1
+            k9b = k9b_check(mesh, device)
+            # Timing: CUDA events around the sharded LP and the sharded
+            # compaction here; their kernels' own device time (torch.profiler)
+            # in the timing phase, after the other kernels' (sharded_device_ms).
+            k9a_call = functools.partial(sharded_lp_blocks, mesh, problem, lp_steps)
+            k9a_event_ms = time_cuda(k9a_call, reps=3, warmup=1)
+            with plain_k9a():
+                k9a_plain_ms = time_cuda(k9a_call, reps=3, warmup=1)
+            main_args = fused_args_from_numpy(*padded, device=device)
+            main_ffd, main_cost = pack_kernel.pack_kernel_pair(*main_args[:5], main_lp[4])
+            main_feasible = score_kernel.feasibility_mask(main_args[0], main_args[2], main_args[4]).any(dim=1)
+            k9b_call = functools.partial(pack_kernel.compact_plan_sharded, main_ffd, main_cost, main_feasible,
+                                         mesh=mesh)
+            k9b_event_ms = time_cuda(k9b_call, reps=50)
+            with plain_k9b():
+                k9b_plain_ms = time_cuda(k9b_call, reps=20)
+            out["meshes"][label] = {
+                "shards": shards, "launches": launches, "k9a_event_ms": k9a_event_ms,
+                "k9a_plain_ms": k9a_plain_ms, "k9a_err": max(errs),
+                "k9b_event_ms": k9b_event_ms, "k9b_plain_ms": k9b_plain_ms, "k9b": k9b,
+                "k9a_call": k9a_call, "k9b_call": k9b_call,
+                "p50_ms": float(np.percentile(sharded_ms, 50)), "max_ms": max(sharded_ms),
+            }
+            fields.update({
+                f"m{label}_p50_ms": f"{np.percentile(sharded_ms, 50):.3f}",
+                f"m{label}_max_ms": f"{max(sharded_ms):.3f}",
+                f"m{label}_cost_per_hr": f"{cost:.6f}",
+                f"m{label}_k9a_event_ms": f"{k9a_event_ms:.4f}",
+                f"m{label}_k9a_main_obj_rel": f"{main_obj:.3e}", f"m{label}_k9a_phases": phases,
+            })
+            if shards == 8:
+                # The many-shapes width on the 2x4 mesh, beside K3 there.
+                vectors, _, capacity, _, _ = large_lp
+                check(vectors.shape[0] % mesh.shape[0] == 0 and capacity.shape[0] % mesh.shape[1] == 0,
+                      "the many-shapes LP does not split over the 2x4 mesh")
+                big = shard_lp_problem(mesh, {device: large_lp})
+                big_obj, _, _ = k9a_against_plain(mesh, big, lp_steps)
+                check(big_obj <= LP_OBJECTIVE_RTOL, f"K9a's objective differs at G 2,048 x T 512: {big_obj:.3e}")
+                big_ms = time_cuda(functools.partial(sharded_lp_blocks, mesh, big, lp_steps), reps=3, warmup=1)
+                out["g2048"] = {"k9a_event_ms": big_ms, "objective_rel": big_obj,
+                                "shape": f"G={vectors.shape[0]},T={capacity.shape[0]}"}
+                fields.update(k9a_g2048_ms=f"{big_ms:.3f}", k9a_g2048_obj_rel=f"{big_obj:.3e}")
+                # The constrained cell's levels over the 8 shards.
+                dispatch, level_shards = constrained_level_sharding(mesh)
+                pack_kernel.pack_kernel_levels.launches = 0
+                levels_np = [a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+                             for a in levels_operands]
+                sharded_levels = dispatch(levels_np, "cost")
+                check(pack_kernel.pack_kernel_levels.launches == shards,
+                      f"the level-sharded dispatch launched K6 {pack_kernel.pack_kernel_levels.launches} times")
+                single_levels = pack_kernel.level_pack_to_host(pack_kernel.pack_kernel_levels(
+                    *upload_packed(levels_np, device), mode="cost"))
+                check(int(sharded_levels.chosen_level) == int(single_levels.chosen_level)
+                      and np.array_equal(sharded_levels.group_level, single_levels.group_level)
+                      and np.array_equal(sharded_levels.level_unsched, single_levels.level_unsched)
+                      and all(np.array_equal(np.asarray(a), np.asarray(b))
+                              for a, b in zip(sharded_levels.rounds, single_levels.rounds)),
+                      "the constrained cell's levels over 8 shards differ from the single-device dispatch")
+                fields.update(levels_shards=level_shards, levels_chosen=int(sharded_levels.chosen_level))
+    # The shrink leg: a wedged shard, then an injected dispatch failure.
+    with mesh_mod.virtual_devices(device, 8):
+        backend_health.clear_wedged_chips()
+        backend_health.report_chip_wedged(7, "chip_smoke: wedged")
+        shrunk = solver.solve_mesh(device)
+        check(shrunk.size == 7 and shrunk.shape == (1, 7) and 7 not in shrunk.ids(),
+              f"the mesh did not shrink to 1x7: {shrunk}")
+        handle = solver.cost_solve_dispatch(*args, device=device)
+        plan = solver.fetch_plan(handle)
+        assignment = plan.lp_assignment()
+        solvable = np.where(plan.feasible_any[: groups.num_groups], groups.counts, 0).sum()
+        check(handle.shards == 7 and handle.num_types % 7 == 0 and handle.num_groups % 7 == 0,
+              f"the shrunk dispatch is {handle.shards} shards at G {handle.num_groups}, T {handle.num_types}")
+        check(np.isfinite(plan.lp_objective) and np.isfinite(assignment).all()
+              and abs(assignment.sum() - solvable) <= 1e-3 * solvable,
+              "the LP on the shrunk mesh is not finite or does not conserve the pods")
+        result = cost_solver.solve_encoded(groups, fleet)
+        check(all_pods_placed_once(result, pods), "the solve on the shrunk mesh lost pods")
+        shrunk_cost = result.projected_cost()
+        backend_health.clear_wedged_chips()
+        real = solver._sharded_fused_solve
+        attempts = []
+
+        def failing_once(padded, mesh, steps, on):
+            attempts.append(mesh.size)
+            if len(attempts) == 1:
+                raise RuntimeError("chip_smoke: injected dispatch failure")
+            return real(padded, mesh, steps, on)
+
+        solver._sharded_fused_solve = failing_once
+        os.environ["KARPENTER_CHIP_PROBE_CODE"] = SHRUNK_PROBE
+        try:
+            result = cost_solver.solve_encoded(groups, fleet)
+        finally:
+            solver._sharded_fused_solve = real
+            os.environ.pop("KARPENTER_CHIP_PROBE_CODE", None)
+        wedged = sorted(backend_health.wedged_chips())
+        backend_health.clear_wedged_chips()
+        check(attempts == [8, 7] and wedged == [7],
+              f"the injected failure did not quarantine and retry once: attempts {attempts}, wedged {wedged}")
+        check(all_pods_placed_once(result, pods), "the retried solve lost pods")
+    fields.update(shrunk="1x7", shrunk_cost_per_hr=f"{shrunk_cost:.6f}", retry_attempts=json.dumps(attempts))
+    if cards > 1:
+        # Distinct cards: the real mesh, transport included.
+        real_mesh = solver.solve_mesh(device)
+        handle = solver.cost_solve_dispatch(*args, device=device)
+        check(handle.shards == real_mesh.size and plans_equal(solver.fetch_plan(handle), single_plan),
+              f"the solve over {cards} cards differs from the single-device solve")
+        fields.update(cards_mesh=f"{real_mesh.shape[0]}x{real_mesh.shape[1]}")
+    phase("sharded", pods=len(pods), types=len(catalog), single_cost_per_hr=f"{single_cost:.6f}",
+          cards=cards, solve_mesh=repr(real_mesh), plans="bit-identical", **fields)
+    return out
 
 
 # --- K8, the incremental encode ----------------------------------------------
@@ -3098,6 +3586,37 @@ def controller_phase() -> dict:
     return {"k7_launches": k7, "k7_ms": k7_ms, "storm_launches": launches, "device_solves": solves}
 
 
+def sharded_alone() -> None:
+    """`chip_smoke.py --phase sharded`: the sharded phase by itself, with
+    the inputs the full run hands it built here (the constrained cell's
+    operands, the many-shapes LP)."""
+    import torch
+
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.convert import fused_args_from_numpy
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.ops import cuda_build, cuda_kernels, score_kernel
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    device = torch.device("cuda", 0)
+    phase("build", seconds=f"{cuda_build.build_all(cuda_build.port_libraries()):.2f}")
+    os.environ["KARPENTER_HOST_SOLVE"] = "0"
+    pods, catalog = make_workload()
+    groups = group_pods(pods)
+    fleet = build_fleet(catalog, Constraints(), pods, pods_need=groups.vectors.max(axis=0))
+    many = many_shapes_pods()
+    many_groups = group_pods(many)
+    many_fleet = build_fleet(catalog, Constraints(), many, pods_need=many_groups.vectors.max(axis=0))
+    padded = solver.pad_kernel_args(many_groups.vectors, many_groups.counts, many_fleet.capacity,
+                                    many_fleet.total, many_fleet.prices)
+    vectors, counts, capacity, _, valid, prices = fused_args_from_numpy(*padded, device=device)
+    effective = cuda_kernels._dominance_prices_ref(capacity, torch.where(valid, prices, torch.inf))
+    solvable = torch.where(score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1), counts, 0)
+    sharded = sharded_phase(device, pods, catalog, groups, fleet, constrained_operands(catalog),
+                            (vectors, solvable, capacity, valid, effective))
+    sharded_device_ms(sharded)
+
+
 def run_child(args, timeout_s: float):
     """Start `chip_smoke.py <args>` in a process of its own on the same card;
     its output is read when the caller asks for it (child_result)."""
@@ -3142,6 +3661,9 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--phase", "controller"]:
         print("controller_result " + json.dumps(controller_phase()))
+        return 0
+    if argv == ["--phase", "sharded"]:
+        sharded_alone()
         return 0
     if argv:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -3524,6 +4046,12 @@ def smoke(children) -> int:
     # pods through the port's Manager in 2,000-pod windows.
     storm = provision_storm_phase(device)
 
+    # 10d. the sharded solve (K9a, K9b) on 2x2 and 2x4 virtual meshes of the
+    # card, while the controller process still runs: its event and wall
+    # times carry that host load (K9a is bound by its launches); its
+    # kernels' device times are taken in the timing phase, after it ends.
+    sharded = sharded_phase(device, pods, catalog, groups, fleet, levels["operands"], large["lp"])
+
     # 10c. the controller process (cmd/controller.main), started after the
     # build.
     controller = child_result(controller_child, "controller_result")
@@ -3787,6 +4315,39 @@ def smoke(children) -> int:
                           reps=5, warmup=1)
     print(f"  at G={big_args[0].shape[0]} T={big_args[2].shape[0]}: K2 pair {k2_big_ms:.4f} ms, "
           f"K3 {k3_big_ms:.4f} ms (CUDA events)")
+    # K9a and K9b at the main path's shapes on the 2x4 mesh (the 2x2
+    # mesh's numbers beside). K9a does the LP's work, so K3's bound; K9b
+    # reads both modes' fills and writes every shard's segments.
+    sharded_device_ms(sharded, lp_steps)
+    wide, square = sharded["meshes"]["2x4"], sharded["meshes"]["2x2"]
+    k9b_shards = wide["shards"]
+    k9b_budget = pack_kernel.shard_entry_budget(num_groups, k9b_shards)
+    k9b_bound, k9b_by = bound(2 * 4 * mr * num_groups + 2 * 4 * k9b_shards * (1 + 2 * k9b_budget),
+                              2 * 2 * mr * num_groups)
+    kernels.append({
+        "name": "lp_shard", "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/lp_shard.cu",
+        "replaces": "karpenter_tpu/models/solver.py:500",
+        "launches": wide["launches"]["lp_shard"], "max_abs_err": max(wide["k9a_err"], square["k9a_err"]),
+        "ms": wide["k9a_ms"], "event_ms": wide["k9a_event_ms"], "plain_ms": wide["k9a_plain_ms"],
+        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
+        "mesh": "2x4", "ms_per_step": wide["k9a_ms"] / lp_steps,
+        "launches_per_solve": wide["launches"]["lp_shard"],
+        "ms_2x2": square["k9a_ms"], "event_ms_2x2": square["k9a_event_ms"],
+        "plain_ms_2x2": square["k9a_plain_ms"], "launches_2x2": square["launches"]["lp_shard"],
+        "event_ms_g2048": sharded["g2048"]["k9a_event_ms"], "k3_event_ms_g2048": k3_big_ms,
+    })
+    kernels.append({
+        "name": "compact_shard", "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/compact_shard.cu",
+        "replaces": "karpenter_tpu/ops/pack_kernel.py:709",
+        "launches": wide["launches"]["compact_shard"], "max_abs_err": 0,
+        "ms": wide["k9b_ms"], "event_ms": wide["k9b_event_ms"], "plain_ms": wide["k9b_plain_ms"],
+        "bound_ms": k9b_bound, "bound_by": k9b_by, "library_ms": None, "mesh": "2x4",
+        "cases": wide["k9b"]["cases"] + square["k9b"]["cases"],
+        "ms_2x2": square["k9b_ms"], "event_ms_2x2": square["k9b_event_ms"],
+        "launches_2x2": square["launches"]["compact_shard"],
+    })
     phase("timing", shapes=f"T={num_types},R={dims},G={num_groups}", k7_shapes=f"C={c_pad},G={g_pad},N={k7_bins},T={k7_types}",
           k6_shapes="G={},T={},L={}".format(k6_operands[0].shape[0], k6_operands[2].shape[0], k6_operands[1].shape[0]),
           k2_g2048_ms=f"{k2_big_ms:.4f}", k3_g2048_ms=f"{k3_big_ms:.4f}")

@@ -3,8 +3,9 @@
 The execution layer over the compiler (constraints/compiler.py): pad the
 compiled tensors, upload them in one packed copy, run EVERY relaxation level
 in one dispatch (ops/pack_kernel.pack_kernel_levels on the device solver's
-device: K6 on the card, its plain version on the CPU; the numpy mirror on
-host solvers), fetch the result once, then decode the chosen level's rounds into
+device: K6 on the card, its plain version on the CPU; on a mesh K6 on every
+shard over its block of levels; the numpy mirror on host solvers), fetch the
+result once, then decode the chosen level's rounds into
 Packings whose launch pools are pinned to each node's spread domain / ladder
 zone envelope — replacing both the serialized Topology.inject pre-pass and
 the host-side relax-retry loop with a single solve whose decode names the
@@ -22,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.pods import PodSpec
@@ -117,14 +119,31 @@ def pad_levels(compiled: CompiledConstraints, fleet: InstanceFleet) -> List[np.n
 
 
 def _dispatch_kernel(compiled: CompiledConstraints, fleet: InstanceFleet, mode: str, device):
-    """Pad, upload in one packed copy and run the [L, G, T] dispatch on
-    `device` (the solver's); one device->host fetch. One device: no mesh
-    hook, so one shard."""
+    """Pad and run the [L, G, T] dispatch for `device` (the solver's). On
+    one device: one packed upload, K6 once, one device->host fetch. On a
+    mesh (models/solver.constrained_level_hook): each shard runs K6 on its
+    block of levels, then the cross-level selection and the fetch of the
+    chosen level from the shard that holds it."""
+    from karpenter_tpu_torch.models.solver import constrained_level_hook
+
     num_sub = compiled.num_subgroups
-    operands = upload_packed(pad_levels(compiled, fleet), device)
-    pack = pack_kernel_levels(*operands, mode=mode)
-    host = level_pack_to_host(pack)
-    shards = 1
+    dispatch, shards = constrained_level_hook(device=device)
+    operands = pad_levels(compiled, fleet)
+    try:
+        if dispatch is None:
+            host = level_pack_to_host(pack_kernel_levels(*upload_packed(operands, device), mode=mode))
+        else:
+            host = dispatch(operands, mode)
+    except Exception as error:  # noqa: BLE001 — quarantine, then re-raise
+        # Same hook as fetch_plans: the dispatch is asynchronous, so a card
+        # that dies during the level-sharded solve surfaces at this fetch.
+        # The quarantine shrinks the mesh for the NEXT constrained dispatch
+        # (the pods stay pending and heal through that sweep).
+        if shards > 1:
+            from karpenter_tpu_torch.models.solver import quarantine_devices
+
+            quarantine_devices(error, torch.device(device).type)
+        raise
     num_rounds = min(int(host.rounds.num_rounds), int(host.rounds.round_type.shape[0]))
     rounds = [
         (

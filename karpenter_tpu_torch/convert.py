@@ -9,6 +9,8 @@ fused solve's four outputs back as numpy, so a test compares like with like.
 pinned buffer and one copy, counted. The market's state crosses too:
 `market_ticks` rebuilds a feed's ticks from their wire form, and
 `pricebook_state` / `pricebook_from_state` carry a PriceBook's fold.
+`lp_train_state_from_numpy` lays the reference's LP optimizer state over a
+mesh in shard blocks.
 """
 
 from __future__ import annotations
@@ -98,6 +100,34 @@ def upload_packed(arrays, device) -> Tuple[torch.Tensor, ...]:
 upload_packed.copies = 0
 upload_packed.arrays = 0
 upload_packed.bytes = 0
+
+
+def lp_train_state_from_numpy(logits, mu, nu, count: int, mesh):
+    """The reference's LPTrainState (karpenter_tpu/parallel/sharded_solver.py:
+    the [G, T] logits and Adam's mu and nu, as numpy, and Adam's step count)
+    as the port's, in shard blocks over `mesh`: block (i, j) of each [G, T]
+    array, float32, on shard (i, j)'s device. G and T must divide by the
+    mesh's axes. Both packages can then take one sharded_lp_train_step from
+    the same state."""
+    from karpenter_tpu_torch.parallel.mesh import block
+    from karpenter_tpu_torch.parallel.sharded_solver import LPTrainState
+
+    arrays = [np.asarray(array, dtype=np.float32) for array in (logits, mu, nu)]
+    groups, types = arrays[0].shape
+
+    def blocks(array):
+        return [
+            [
+                torch.tensor(
+                    array[block(groups, mesh.shape[0], row), block(types, mesh.shape[1], col)],
+                    device=mesh.shard(row, col).device,
+                )
+                for col in range(mesh.shape[1])
+            ]
+            for row in range(mesh.shape[0])
+        ]
+
+    return LPTrainState(*(blocks(array) for array in arrays), count=int(count))
 
 
 # --- market state -----------------------------------------------------------

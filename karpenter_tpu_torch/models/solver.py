@@ -17,9 +17,17 @@ device_resident cache; the pipelined solve hands results back one schedule
 at a time; and the batched paths survive device-memory exhaustion by
 pre-splitting and bisecting the batch.
 
-TPUSolver runs K2 in one mode (make_solver("ffd")). Left out of this
-slice, against the reference: the sharded and mesh path, break-even
-calibration and tracing spans.
+On a mesh (solve_mesh(): more than one card, or a virtual device set
+that a test or chip_smoke declared; parallel/mesh.py) the same entry
+dispatches the sharded solve: K1 and the K2 pair once per device of the
+mesh, the LP sharded over it (K9a, parallel/sharded_solver.py), the plan
+compacted shard-locally (K9b) and gathered to the first shard. A wedged
+card is quarantined and the mesh shrinks (utils/backend_health.MeshHealth);
+one card is the single-device path, as one chip is in the reference.
+
+TPUSolver runs K2 in one mode (make_solver("ffd")). Left out, against the
+reference: the multi-host lead/follower dispatch (the sidecar's) and
+tracing spans.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ from karpenter_tpu_torch.ops.pack_kernel import (
     PackRounds,
     bucket_size,
     compact_plan,
-    decompact_plan,
+    compact_plan_sharded,
+    decompact_plan_sharded,
     max_rounds,
     pack_kernel,
     pack_kernel_pair,
@@ -330,7 +339,8 @@ class FusedHandle(NamedTuple):
     padded shapes needed to decode them after the fetch. Only `compact` and
     `objective` (a few KB) are fetched on the hot path; `dense` is the spill
     for entry-budget overflow, and `lp` stays on the device unless the
-    scoring pass realizes the LP plan (FetchedPlan.lp_assignment)."""
+    scoring pass realizes the LP plan (FetchedPlan.lp_assignment). On a
+    mesh `lp` is a ShardedAssignment, still in shard blocks."""
 
     compact: torch.Tensor  # [NW] int32
     objective: torch.Tensor  # [1] float32
@@ -338,6 +348,7 @@ class FusedHandle(NamedTuple):
     lp: torch.Tensor  # [G*T] float32 — deferred LP assignment
     num_groups: int  # padded G
     num_types: int  # padded T
+    shards: int = 1  # mesh size of a sharded dispatch (compact layout)
     # (pinned host payload, its event) once plan_start_fetch queued the copy;
     # cost_solve_dispatch passes an empty list.
     staged: Optional[list] = None
@@ -388,34 +399,52 @@ def plan_start_fetch(handle: FusedHandle) -> None:
     handle.staged.append((host, done))
 
 
-def fetch_plans(handles: Sequence[FusedHandle]) -> List[FetchedPlan]:
-    """THE compacted fetch, then host-side decode. A handle whose copy
-    plan_start_fetch queued waits on its event; the others' eager payloads
-    (compact words plus the objective's bits) are concatenated on the device
-    and copied to the host in one transfer — one sync for the whole batch.
-    A plan that overflowed the entry budget falls back to its dense
-    spill."""
+def _eager_words(handles: Sequence[FusedHandle]) -> List[np.ndarray]:
+    """Every handle's eager payload (compact words, then the objective's
+    bits) on the host. A handle whose copy plan_start_fetch queued waits on
+    its event; the others' payloads are concatenated on the device and
+    copied to the host in one transfer — one sync for the whole batch."""
     unstaged = [handle for handle in handles if not handle.staged]
     payload = (
         torch.cat([_eager_payload(handle) for handle in unstaged]).cpu().numpy()
         if unstaged
         else None
     )
-    plans: List[FetchedPlan] = []
+    out = []
     cursor = 0
     for handle in handles:
-        size = int(handle.compact.shape[0])
+        size = int(handle.compact.shape[0]) + 1
         if handle.staged:
             host, done = handle.staged[0]
             done.synchronize()
-            words = host.numpy()
+            out.append(host.numpy())
         else:
-            words = payload[cursor : cursor + size + 1]
-            cursor += size + 1
+            out.append(payload[cursor : cursor + size])
+            cursor += size
+    return out
+
+
+def fetch_plans(handles: Sequence[FusedHandle]) -> List[FetchedPlan]:
+    """THE compacted fetch, then host-side decode (a sharded handle's
+    segments at their shards' block offsets). A plan that overflowed the
+    entry budget falls back to its dense spill."""
+    try:
+        eager = _eager_words(handles)
+    except Exception as error:  # noqa: BLE001 — quarantine, then re-raise
+        # The dispatch is asynchronous, so a card that dies DURING the
+        # solve surfaces here, not at cost_solve_dispatch: without this hook
+        # the mesh would never shrink and every later solve would fail on
+        # the dead card again. This solve still fails; the quarantine makes
+        # the NEXT one run on the survivors.
+        _quarantine_after_fetch_failure(handles, error)
+        raise
+    plans: List[FetchedPlan] = []
+    for handle, words in zip(handles, eager):
+        size = int(handle.compact.shape[0])
         compact = words[:size]
         objective = words[size : size + 1].view(np.float32)
-        rounds_ffd, rounds_cost, feasible_any, ok = decompact_plan(
-            compact, handle.num_groups
+        rounds_ffd, rounds_cost, feasible_any, ok = decompact_plan_sharded(
+            compact, handle.num_groups, handle.shards
         )
         if not ok:  # pragma: no cover — entry budget sized to never trip
             rounds_ffd, rounds_cost, feasible_any = unpack_dense(
@@ -433,15 +462,195 @@ def fetch_plan(handle: FusedHandle) -> FetchedPlan:
     return fetch_plans([handle])[0]
 
 
-def pad_kernel_args(vectors, counts, capacity, total, prices):
+def _quarantine_after_fetch_failure(
+    handles: Sequence[FusedHandle], error: BaseException
+) -> None:
+    """A device->host fetch of sharded solve outputs failed: run the
+    wedged-card quarantine over the whole device set (the probe marks only
+    non-responders, so passing every id is safe) so the next dispatch
+    shrinks the mesh. No-op for purely single-device handles — a dead
+    single device is the whole-device verdict's territory."""
+    sharded = [handle for handle in handles if handle.shards > 1]
+    if not sharded:
+        return
+    quarantine_devices(error, sharded[0].compact.device.type)
+
+
+def quarantine_devices(error: BaseException, kind: str = "cuda") -> None:
+    """Run the wedged-card quarantine over every mesh id of `kind` (best
+    effort — diagnosis must never mask the original error). Shared by the
+    fused-plan fetch hook above and the constrained [L, G, T] dispatch's
+    fetch (constraints/solve), so a card that dies during a sharded
+    constrained solve also shrinks the mesh for the next dispatch."""
+    try:
+        from karpenter_tpu_torch.parallel.mesh import mesh_devices
+        from karpenter_tpu_torch.utils import backend_health
+
+        backend_health.quarantine_mesh([shard.id for shard in mesh_devices(kind)], error)
+    except Exception:  # noqa: BLE001 — diagnosis must not mask the fetch error
+        klog.named("solver").warning(
+            "wedged-card quarantine after fetch failure itself failed",
+            exc_info=True,
+        )
+
+
+class ShardedAssignment(NamedTuple):
+    """The deferred [G, T] LP assignment of a sharded solve, kept in its
+    shard blocks on their devices until the realization pass asks for it."""
+
+    mesh: object  # parallel.mesh.Mesh
+    blocks: list  # [g][t] grid of [G/g, T/t] float32 blocks
+
+    def cpu(self) -> torch.Tensor:
+        from karpenter_tpu_torch.parallel.collectives import assemble
+
+        return assemble(self.mesh, self.blocks).cpu()
+
+
+def _sharded_fused_solve(padded, mesh, lp_steps: int, device: torch.device):
+    """The fused solve over a mesh: the same candidates as _cost_fused_body.
+    K1 and the K2 pair run once per distinct device of the mesh (on one card
+    with a virtual set: once), every shard reading its device's copy; the
+    LP's [G, T] bulk is sharded over the ("groups", "types") mesh (K9a,
+    parallel/sharded_solver.sharded_lp_blocks); the plan compaction runs
+    shard-locally (K9b on every shard) and only the compacted segments are
+    gathered to the first shard, where the payload is fetched. Returns the
+    four outputs of _cost_fused_body, the LP assignment as a
+    ShardedAssignment. The padded G must be a multiple of the mesh's size
+    and T of its types axis (pad_kernel_args' g_mult and t_mult)."""
+    from karpenter_tpu_torch.parallel.sharded_solver import shard_lp_problem, sharded_lp_blocks
+
+    if mesh.device_type != device.type:
+        raise ValueError(f"a mesh over {mesh.device_type} devices cannot run a solve on {device}")
+    replicas = {}
+    for mesh_device in mesh.devices:
+        vectors, counts, capacity, total, valid, prices = device_resident(
+            [
+                array.to(mesh_device) if isinstance(array, torch.Tensor)
+                else np.asarray(array, dtype=dtype)
+                for array, dtype in zip(padded, _FUSED_DTYPES)
+            ],
+            _FLEET_RESIDENT,
+            mesh_device,
+        )
+        effective_prices = dominance_prices(capacity, torch.where(valid, prices, torch.inf))
+        rounds_ffd, rounds_cost = pack_kernel_pair(
+            vectors, counts, capacity, total, valid, effective_prices
+        )
+        feasible_any = feasibility_mask(vectors, capacity, valid).any(dim=1)
+        solvable = torch.where(feasible_any, counts, 0)
+        replicas[mesh_device] = (
+            (vectors, solvable, capacity, valid, effective_prices),
+            (rounds_ffd, rounds_cost, feasible_any),
+        )
+    problem = shard_lp_problem(mesh, {d: lp_args for d, (lp_args, _) in replicas.items()})
+    lp = sharded_lp_blocks(mesh, problem, lp_steps)
+    rounds_ffd, rounds_cost, feasible_any = replicas[mesh.flat[0].device][1]
+    compacted = compact_plan_sharded(
+        rounds_ffd, rounds_cost, feasible_any, mesh=mesh,
+        replicas={d: (r[1][0].round_fill, r[1][1].round_fill) for d, r in replicas.items()},
+    )
+    dense_ints = torch.cat(
+        _rounds_ints(rounds_ffd)
+        + _rounds_ints(rounds_cost)
+        + [feasible_any.to(torch.int32).reshape(-1)]
+    )
+    objective = lp.objective.reshape(1).to(torch.float32)
+    return compacted, objective, dense_ints, ShardedAssignment(mesh, lp.assignment)
+
+
+def _kind(device) -> str:
+    """The device type a solve on `device` runs on (None: the card)."""
+    return "cuda" if device is None else torch.device(device).type
+
+
+def _device_count(kind: str = "cuda") -> int:
+    """Mesh ids of `kind` (parallel/mesh.mesh_devices). Not cached, unlike
+    the reference's jax.device_count(): a test or chip_smoke may declare a
+    virtual device set for a while. (Card HEALTH comes from BackendHealth
+    per call.)"""
+    from karpenter_tpu_torch.parallel.mesh import mesh_devices
+
+    return len(mesh_devices(kind))
+
+
+def _multi_device(kind: str = "cuda") -> bool:
+    return _device_count(kind) > 1
+
+
+def sharded_solve_active(device=None) -> bool:
+    """True iff solve_mesh(device) would return a mesh — THE sharded-solve
+    predicate, mesh-free so gates can call it per solve. Shared by
+    solve_mesh and host_solve_enabled so the dispatch gate can never drift
+    from the actual mesh policy. A card quarantined by MeshHealth
+    (report_chip_wedged / quarantine_mesh) shrinks the usable set but the
+    dispatch STAYS on the mesh machinery even at one survivor: a 1-shard
+    mesh pins the solve to the healthy card, whereas the plain
+    single-device path would run on the solver's device — which may be the
+    wedged card itself. Only a fully dead device set leaves the mesh."""
+    if os.environ.get("KARPENTER_SHARDED_SOLVE", "").lower() in (
+        "0",
+        "false",
+        "off",
+    ):
+        return False
+    kind = _kind(device)
+    if not _multi_device(kind):
+        return False
+    from karpenter_tpu_torch.utils import backend_health
+
+    if not backend_health.mesh_degraded():
+        return True
+    return _device_count(kind) - len(backend_health.wedged_chips()) >= 1
+
+
+def solve_mesh(device=None):
+    """The production mesh policy: shard the fused solve when more than one
+    device of the solve's type is visible (KARPENTER_SHARDED_SOLVE=0 forces
+    the single-device path). Wedged cards are excluded by make_mesh, so a
+    quarantined card shrinks the mesh and the next dispatch runs on the
+    survivors — down to a 1-shard mesh pinned to the last healthy card (see
+    sharded_solve_active). Returns a Mesh or None."""
+    if not sharded_solve_active(device):
+        return None
+    from karpenter_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(kind=_kind(device))
+
+
+def constrained_level_hook(mesh=None, device=None):
+    """(dispatch, shards) for the constrained [L, G, T] dispatch
+    (constraints/solve._dispatch_kernel): under the same mesh policy as the
+    fused solve, the relaxation-level axis shards across every shard
+    (parallel/sharded_solver.constrained_level_sharding); on a single
+    device the dispatch is None and the caller runs K6 once. Kept here so
+    the constrained path can never disagree with solve_mesh about when the
+    mesh is live (wedged-card shrink included)."""
+    if mesh is None:
+        mesh = solve_mesh(device)
+    if mesh is None:
+        return None, 1
+    from karpenter_tpu_torch.parallel.sharded_solver import constrained_level_sharding
+
+    return constrained_level_sharding(mesh)
+
+
+def pad_kernel_args(vectors, counts, capacity, total, prices, g_mult=1, t_mult=1):
     """Bucket-pad the six dense kernel inputs — THE padding/valid-mask
-    convention, identical to the reference's single-device padding. Pod
-    tensors already on the device (the incremental encode's sorted gather)
-    come bucket-padded and pass through."""
-    g_pad = bucket_size(int(vectors.shape[0]))
-    t_pad = bucket_size(int(capacity.shape[0]))
+    convention, identical to the reference's. g_mult/t_mult round the
+    buckets up to mesh-divisible sizes on the sharded path (power-of-two
+    buckets already divide power-of-two mesh factors; an odd shard count
+    rounds up to its multiple). Pod tensors already on the device (the
+    incremental encode's sorted gather) come bucket-padded and are padded
+    with zeros to the multiple."""
+    g_pad = _pad_multiple(bucket_size(int(vectors.shape[0])), g_mult)
+    t_pad = _pad_multiple(bucket_size(int(capacity.shape[0])), t_mult)
     if isinstance(vectors, torch.Tensor):
-        pods = (vectors, counts)
+        extra = g_pad - int(vectors.shape[0])
+        pods = (
+            torch.nn.functional.pad(vectors, (0, 0, 0, extra)),
+            torch.nn.functional.pad(counts, (0, extra)),
+        ) if extra > 0 else (vectors, counts)
     else:
         pods = (pad_to(vectors, g_pad), pad_to(counts.astype(np.int32), g_pad))
     return pods + (
@@ -450,6 +659,12 @@ def pad_kernel_args(vectors, counts, capacity, total, prices):
         pad_to(np.ones(int(capacity.shape[0]), bool), t_pad),
         pad_to(prices, t_pad),
     )
+
+
+def _pad_multiple(n: int, multiple: int) -> int:
+    if multiple <= 1:
+        return n
+    return ((n + multiple - 1) // multiple) * multiple
 
 
 def run_kernel_dense(vectors, counts, capacity, total, prices, mode: str, quirk: bool,
@@ -1209,6 +1424,10 @@ def host_solve_enabled(num_pods: int, batched: bool = False, device=None) -> boo
         # Boot warmup in flight: the card's kernels are not built and
         # launched yet, so the host answers at steady state now.
         return True
+    if sharded_solve_active(device):
+        # Multi-card runtime: the operator provisioned a mesh precisely so
+        # solves ride it — the host path is a single-card latency trade.
+        return False
     calibrated = _break_even
     if calibrated is not None:
         limit = calibrated.max_pods_batched if batched else calibrated.max_pods
@@ -1230,7 +1449,10 @@ def cost_solve_dispatch(
     for); pair with a (batchable) fetch + cost_solve_finish. On the card the
     work is asynchronous and this returns before it finishes, with no host
     sync: the host overlap work starts while the card computes, and a batch
-    of schedules shares one device->host round trip.
+    of schedules shares one device->host round trip. When solve_mesh(device)
+    selects a mesh, the SAME entry dispatches the sharded solve
+    (_dispatch_sharded): production callers get the sharded path with no
+    code of their own.
 
     Fleet-side arrays ride the device_resident cache: back-to-back solves
     over the same encoded fleet skip their host->device transfer. Pod
@@ -1239,16 +1461,24 @@ def cost_solve_dispatch(
     readable after the solve. Whatever is left goes up in one packed copy."""
     SOLVE_DISPATCH_TOTAL.inc("device")
     device = resolve_device(device)
-    padded = pad_kernel_args(vectors, counts, capacity, total, prices)
-    args = device_resident(
-        [
-            array if isinstance(array, torch.Tensor) else np.asarray(array, dtype=dtype)
-            for array, dtype in zip(padded, _FUSED_DTYPES)
-        ],
-        _FLEET_RESIDENT,
-        device,
-    )
-    compact, objective, dense_ints, lp_flat = _cost_fused_body(*args, lp_steps=lp_steps)
+    mesh = solve_mesh(device)
+    if mesh is None:
+        padded = pad_kernel_args(vectors, counts, capacity, total, prices)
+        args = device_resident(
+            [
+                array if isinstance(array, torch.Tensor) else np.asarray(array, dtype=dtype)
+                for array, dtype in zip(padded, _FUSED_DTYPES)
+            ],
+            _FLEET_RESIDENT,
+            device,
+        )
+        out = _cost_fused_body(*args, lp_steps=lp_steps)
+        shards = 1
+    else:
+        out, padded, shards = _dispatch_sharded(
+            vectors, counts, capacity, total, prices, lp_steps, mesh, device
+        )
+    compact, objective, dense_ints, lp_flat = out
     return FusedHandle(
         compact=compact,
         objective=objective,
@@ -1256,8 +1486,43 @@ def cost_solve_dispatch(
         lp=lp_flat,
         num_groups=int(padded[0].shape[0]),
         num_types=int(padded[2].shape[0]),
+        shards=shards,
         staged=[],
     )
+
+
+def _dispatch_sharded(vectors, counts, capacity, total, prices, lp_steps, mesh, device):
+    """Dispatch the sharded fused solve, surviving a wedged card: a
+    dispatch-time failure quarantines the mesh through MeshHealth (a
+    killable per-card probe marks the non-responders wedged), rebuilds the
+    mesh on the survivors and retries ONCE — the solve stays on the
+    surviving cards, never on one card or the CPU. With no wedged card
+    found, or nothing left to shrink to, the original error propagates."""
+
+    def attempt(mesh):
+        padded = pad_kernel_args(
+            vectors, counts, capacity, total, prices, g_mult=mesh.size, t_mult=mesh.shape[1]
+        )
+        return _sharded_fused_solve(padded, mesh, lp_steps, device), padded, mesh.size
+
+    try:
+        return attempt(mesh)
+    except Exception as error:  # noqa: BLE001 — classified below
+        from karpenter_tpu_torch.utils import backend_health
+
+        wedged = backend_health.quarantine_mesh(mesh.ids(), error)
+        if not wedged:
+            raise
+        retry_mesh = solve_mesh(device)
+        if retry_mesh is None:
+            # No healthy card left: surface the failure to the caller.
+            raise
+        klog.named("solver").warning(
+            "sharded dispatch failed (%s); retrying on shrunk %d-shard mesh",
+            error,
+            retry_mesh.size,
+        )
+        return attempt(retry_mesh)
 
 
 def _collect_candidates(fetched, num_groups: int, host_candidates, mix_plan):

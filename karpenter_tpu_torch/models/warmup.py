@@ -13,7 +13,9 @@ in-process Manager runs this behind /readyz (runtime.py).
 one solve per rung of the bucket ladder (KARPENTER_WARMUP_SHAPES,
 "GxT,GxT,..."; the default covers the small/medium/headline buckets), from
 host arrays and from pod tensors already on the device, then calibrates the
-host/device break-even on this card; the calibration's solve is finished
+host/device break-even on this card (on a mesh, cost_solve_dispatch's mesh
+selection means this warms the sharded solve, whatever solve_mesh()
+selects); the calibration's solve is finished
 with its host half (the column-LP mix candidate, whose LP solver's first
 import alone costs about a second, and the host scoring). A rung that fails
 is logged and counted on warmup_rung_failures_total. On the CPU warmup never

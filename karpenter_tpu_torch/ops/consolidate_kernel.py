@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch
+from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, launch_stream
 from karpenter_tpu_torch.ops.score_kernel import feasibility_mask
 
 # Savings below this ($/hr) are noise, not a reason to disrupt a node.
@@ -264,8 +264,8 @@ def solve_counterfactuals(
     scratch = None
     if room_bytes > _SHARED_ROOM_LIMIT:
         scratch = torch.empty(num_candidates * room_bytes // 4, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+    outputs = [takes, eager, savings] + ([] if scratch is None else [scratch])
+    with launch_stream("solve_counterfactuals", operands + tuple(outputs)) as stream:
         status = lib.ktt_consolidate(
             *(tensor.data_ptr() for tensor in operands),
             num_candidates, num_groups, dims, num_bins, num_types, axes, shared,

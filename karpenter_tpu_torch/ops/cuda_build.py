@@ -12,6 +12,7 @@ There is no fallback: a missing nvcc or a failed build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +21,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import torch
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
@@ -141,12 +144,13 @@ def build_all(libraries: Sequence[CudaLibrary]) -> float:
 
 def port_libraries() -> List[CudaLibrary]:
     """Every kernel source of the port, one library each: K1, K2, K3, K4,
-    K7, K6, K8 and K10."""
+    K7, K6, K8, K10, K9a and K9b."""
     from karpenter_tpu_torch.ops import (
         consolidate_kernel,
         cuda_kernels,
         forecast_kernel,
         incremental,
+        lp_shard_kernel,
         pack_kernel,
         score_kernel,
     )
@@ -154,8 +158,24 @@ def port_libraries() -> List[CudaLibrary]:
     return [
         cuda_kernels.LIBRARY, pack_kernel.LIBRARY, score_kernel.LIBRARY,
         pack_kernel.COMPACT_LIBRARY, consolidate_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
-        incremental.LIBRARY, forecast_kernel.LIBRARY,
+        incremental.LIBRARY, forecast_kernel.LIBRARY, lp_shard_kernel.LIBRARY,
+        pack_kernel.COMPACT_SHARD_LIBRARY,
     ]
+
+
+@contextlib.contextmanager
+def launch_stream(kernel: str, tensors: Sequence[torch.Tensor]) -> Iterator[int]:
+    """Make the one device every operand of `kernel` lies on current, and
+    yield the raw handle of that device's current stream: a launch inside
+    the block runs in the operands' context and queues behind the work that
+    produced them, whichever device is current outside it. Raises when the
+    operands span devices."""
+    devices = {tensor.device for tensor in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{kernel}: operands span devices {sorted(str(d) for d in devices)}")
+    device = devices.pop()
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def check_launch(status: int, kernel: str) -> None:

@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch
+from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, launch_stream
 
 _EPS = 1e-6
 MAX_DIMS = 8  # register thresholds per thread in the kernel
@@ -70,8 +70,7 @@ def dominance_prices(capacity: torch.Tensor, prices: torch.Tensor) -> torch.Tens
         raise ValueError("dominance_prices kernel takes contiguous tensors")
     lib = LIBRARY.load()
     out = torch.empty(num_types, dtype=torch.float32, device=capacity.device)
-    with torch.cuda.device(capacity.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with launch_stream("dominance_prices", (capacity, prices, out)) as stream:
         status = lib.ktt_dominance_prices(
             capacity.data_ptr(), prices.data_ptr(), out.data_ptr(),
             num_types, dims, stream,

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch
+from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, launch_stream
 
 LIBRARY = CudaLibrary(
     "forecast.cu",
@@ -69,8 +69,7 @@ def penalize_prices(prices: torch.Tensor, risks: torch.Tensor, weight: float) ->
         raise ValueError("penalize_prices kernel takes contiguous tensors")
     lib = LIBRARY.load()
     out = torch.empty_like(prices)
-    with torch.cuda.device(prices.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with launch_stream("penalize_prices", (prices, risks, out)) as stream:
         status = lib.ktt_penalize_prices(
             prices.data_ptr(), risks.data_ptr(), float(weight), out.data_ptr(),
             num_types, stream,

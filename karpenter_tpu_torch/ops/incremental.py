@@ -34,7 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch
+from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, launch_stream
 from karpenter_tpu_torch.ops.pack_kernel import bucket_size, pad_to
 
 LIBRARY = CudaLibrary(
@@ -91,11 +91,6 @@ def _check(name: str, array: torch.Tensor, index: torch.Tensor) -> None:
         raise ValueError(f"{name} takes arrays of rows")
 
 
-def _stream(device: torch.device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
-
-
 def scatter(dst: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """dst with rows[i] written at row idx[i], into a copy of dst (a new
     generation), O(len(idx)); indices outside [0, dst.shape[0]) are
@@ -119,10 +114,11 @@ def scatter(dst: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.T
     if idx.shape[0] == 0 or _width(dst) == 0:
         return out
     lib = LIBRARY.load()
-    status = lib.ktt_scatter_rows(
-        out.data_ptr(), idx.data_ptr(), rows.data_ptr(), int(idx.shape[0]), _width(dst),
-        int(dst.shape[0]), _ELEMENT_BYTES[dst.dtype], _stream(dst.device),
-    )
+    with launch_stream("scatter", (out, idx, rows)) as stream:
+        status = lib.ktt_scatter_rows(
+            out.data_ptr(), idx.data_ptr(), rows.data_ptr(), int(idx.shape[0]), _width(dst),
+            int(dst.shape[0]), _ELEMENT_BYTES[dst.dtype], stream,
+        )
     check_launch(status, "scatter")
     scatter.launches += 1
     return out
@@ -145,10 +141,11 @@ def gather(src: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = LIBRARY.load()
-    status = lib.ktt_gather_rows(
-        out.data_ptr(), src.data_ptr(), perm.data_ptr(), int(perm.shape[0]), _width(src),
-        int(src.shape[0]), _ELEMENT_BYTES[src.dtype], _stream(src.device),
-    )
+    with launch_stream("gather", (out, src, perm)) as stream:
+        status = lib.ktt_gather_rows(
+            out.data_ptr(), src.data_ptr(), perm.data_ptr(), int(perm.shape[0]), _width(src),
+            int(src.shape[0]), _ELEMENT_BYTES[src.dtype], stream,
+        )
     check_launch(status, "gather")
     gather.launches += 1
     return out

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.convert import upload_packed
-from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch
+from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, launch_stream
 
 _EPS = 1e-4
 _INT32_MAX = 2**31 - 1
@@ -95,6 +95,15 @@ COMPACT_LIBRARY = CudaLibrary(
         "ktt_compact_plan": (
             ctypes.c_int,
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+        ),
+    },
+)
+COMPACT_SHARD_LIBRARY = CudaLibrary(
+    "compact_shard.cu",
+    {
+        "ktt_compact_shard": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
         ),
     },
 )
@@ -364,8 +373,8 @@ def _launch(vectors, counts, capacity, total, valid_types, prices, first_mode: i
             (num_modes, pack_table_words(num_groups, num_types, dims)),
             dtype=torch.int32, device=vectors.device,
         )
-    with torch.cuda.device(vectors.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    outputs = [out] + [t for t in (scratch, tables) if t is not None]
+    with launch_stream("pack_kernel", tensors + tuple(outputs)) as stream:
         status = lib.ktt_pack_rounds(
             *(tensor.data_ptr() for tensor in tensors),
             num_groups, num_types, dims, first_mode, num_modes,
@@ -885,8 +894,8 @@ def _launch_levels(vectors, level_counts, capacity, valid_types, prices, level_a
     words = level_pack_words(num_groups, num_levels)
     out = torch.empty(words, dtype=torch.int32, device=device)
     select_blocks = max(1, min(132, -(-words // 1024)))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+    outputs = [level_out, usable, out] + [t for t in (fills, tables, placed) if t is not None]
+    with launch_stream("pack_kernel_levels", tensors + tuple(outputs)) as stream:
         status = lib.ktt_pack_levels(
             *(tensor.data_ptr() for tensor in tensors),
             num_groups, num_types, dims, num_levels, _MODES.index(mode), plan.threads,
@@ -998,32 +1007,21 @@ def _compact_rounds(rounds: PackRounds):
     """Device-side compaction of one PackRounds: fixed-size int32 segments
     [round_type, round_repl, num_rounds, unschedulable, overflow, nnz,
     entry_idx, entry_fill]. entry_idx holds flat r*G+g indices of nonzero
-    round_fill cells, front-compacted by prefix sum. The reference's
-    scatter drops indices past the entry budget (mode="drop"); here they all
-    go to one extra slot past the budget, which is sliced off."""
+    round_fill cells, front-compacted by prefix sum (_compact_entry_block
+    over the whole [MR, G] matrix)."""
     num_groups = rounds.round_fill.shape[1]
-    budget = entry_budget(num_groups)
-    device = rounds.round_fill.device
-    flat = rounds.round_fill.reshape(-1)
-    mask = flat != 0
-    nnz = mask.sum(dtype=torch.int32)
-    position = torch.cumsum(mask, dim=0) - 1
-    dest = torch.where(mask, position, budget).clamp_(max=budget)
-    entry_idx = torch.zeros(budget + 1, dtype=torch.int32, device=device)
-    entry_idx.scatter_(
-        0, dest, torch.arange(flat.shape[0], dtype=torch.int32, device=device)
-    )
-    entry_fill = torch.zeros(budget + 1, dtype=torch.int32, device=device)
-    entry_fill.scatter_(0, dest, flat.to(torch.int32))
+    return _rounds_header(rounds) + [_compact_entry_block(rounds.round_fill, entry_budget(num_groups))]
+
+
+def _rounds_header(rounds: PackRounds) -> list:
+    """The replicated segments of one PackRounds' payload: round_type,
+    round_repl, num_rounds, unschedulable, overflow, as int32."""
     return [
         rounds.round_type.to(torch.int32),
         rounds.round_repl.to(torch.int32),
         rounds.num_rounds.reshape(1).to(torch.int32),
         rounds.unschedulable.to(torch.int32),
         rounds.overflow.to(torch.int32).reshape(1),
-        nnz.reshape(1),
-        entry_idx[:budget],
-        entry_fill[:budget],
     ]
 
 
@@ -1064,8 +1062,7 @@ def compact_plan(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any):
     lib = COMPACT_LIBRARY.load()
     out = torch.empty(compact_words(num_groups), dtype=torch.int32, device=device)
     pointers = (ctypes.c_void_p * len(fields))(*(tensor.data_ptr() for tensor in fields))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with launch_stream("compact_plan", fields + [feasible_any, out]) as stream:
         status = lib.ktt_compact_plan(
             pointers, feasible_any.data_ptr(), num_groups, out.data_ptr(), stream
         )
@@ -1111,6 +1108,194 @@ def decompact_plan(
             continue
         fill = np.zeros((mr * num_groups,), np.int32)
         fill[entry_idx[:nnz]] = entry_fill[:nnz]
+        plans.append(
+            PackRounds(
+                round_type=round_type,
+                round_fill=fill.reshape(mr, num_groups),
+                round_repl=round_repl,
+                num_rounds=num_rounds,
+                unschedulable=unschedulable,
+                overflow=overflow,
+            )
+        )
+    feasible_any = take(num_groups).astype(bool)
+    return plans[0], plans[1], feasible_any, ok
+
+
+# --- shard-local plan compaction (K9b) ---------------------------------------
+#
+# On a mesh, each shard compacts its own contiguous block of G / W groups of
+# both modes' [MR, G] fill matrices with a block-local entry budget, and only
+# the compacted segments travel to the mesh's first shard, where they join
+# the replicated headers in one payload. Decode (decompact_plan_sharded)
+# scatters each shard's entries at its block offset, so the rebuilt dense
+# arrays are bit-identical to the single-device layout's.
+
+
+def shard_entry_budget(num_groups: int, shards: int) -> int:
+    """Per-shard COO entry budget: the single-device budget formula applied
+    to the shard's own group block, so the entries-per-group headroom (~8)
+    is the same at every shard count. A shard whose block draws more than
+    its budget signals overflow via nnz and the caller falls back to the
+    dense spill — correctness never depends on the budget."""
+    return entry_budget(num_groups // shards)
+
+
+def compact_words_sharded(num_groups: int, shards: int) -> int:
+    """int32 word count of compact_plan_sharded's payload (shards=1 is
+    exactly the single-device compact_words layout)."""
+    if shards <= 1:
+        return compact_words(num_groups)
+    mr = max_rounds(num_groups)
+    budget = shard_entry_budget(num_groups, shards)
+    per_candidate = mr + mr + 1 + num_groups + 1 + shards * (1 + 2 * budget)
+    return 2 * per_candidate + num_groups
+
+
+def _compact_entry_block(fill_block: torch.Tensor, budget: int) -> torch.Tensor:
+    """The prefix-sum COO compaction of one [MR, G'] fill block into [nnz,
+    entry_idx[budget], entry_fill[budget]] — the shared core of K4's and
+    K9b's plain versions (indices block-local; entries past the budget go
+    to one extra slot, which is sliced off, as the reference's scatter
+    drops them)."""
+    device = fill_block.device
+    flat = fill_block.reshape(-1)
+    mask = flat != 0
+    nnz = mask.sum(dtype=torch.int32)
+    position = torch.cumsum(mask, dim=0) - 1
+    dest = torch.where(mask, position, budget).clamp_(max=budget)
+    entry_idx = torch.zeros(budget + 1, dtype=torch.int32, device=device)
+    entry_idx.scatter_(0, dest, torch.arange(flat.shape[0], dtype=torch.int32, device=device))
+    entry_fill = torch.zeros(budget + 1, dtype=torch.int32, device=device)
+    entry_fill.scatter_(0, dest, flat.to(torch.int32))
+    return torch.cat([nnz.reshape(1), entry_idx[:budget], entry_fill[:budget]])
+
+
+def _compact_shard_ref(fill_ffd: torch.Tensor, fill_cost: torch.Tensor, shard: int,
+                       shards: int) -> torch.Tensor:
+    """Plain version of K9b, on any device: both modes' segments of one
+    shard's column block."""
+    num_groups = fill_ffd.shape[1]
+    width = num_groups // shards
+    budget = shard_entry_budget(num_groups, shards)
+    columns = slice(shard * width, (shard + 1) * width)
+    return torch.stack([
+        _compact_entry_block(fill[:, columns].contiguous(), budget) for fill in (fill_ffd, fill_cost)
+    ])
+
+
+def compact_shard(fill_ffd: torch.Tensor, fill_cost: torch.Tensor, shard: int, shards: int) -> torch.Tensor:
+    """K9b: shard `shard` of `shards`' segments of both modes' [MR, G] fills,
+    [2, 1 + 2 * shard_entry_budget(G, shards)] int32. The CUDA kernel (one
+    launch) for CUDA tensors, the plain version for CPU tensors."""
+    if fill_ffd.shape != fill_cost.shape or fill_ffd.dim() != 2:
+        raise ValueError("compact_shard takes two [MR, G] fill matrices")
+    mr, num_groups = fill_ffd.shape
+    if mr != max_rounds(num_groups) or num_groups % shards or not 0 <= shard < shards:
+        raise ValueError(f"compact_shard: [{mr}, {num_groups}] fills do not split {shards} ways")
+    if fill_ffd.dtype != torch.int32 or fill_cost.dtype != torch.int32:
+        raise TypeError("compact_shard takes int32 fills")
+    device = fill_ffd.device
+    if fill_cost.device != device:
+        raise ValueError("compact_shard: every argument must lie on one device")
+    width = num_groups // shards
+    budget = shard_entry_budget(num_groups, shards)
+    if device.type == "cpu":
+        return _compact_shard_ref(fill_ffd, fill_cost, shard, shards)
+    if device.type != "cuda":
+        raise ValueError(f"compact_shard: unsupported device {device}")
+    if not (fill_ffd.is_contiguous() and fill_cost.is_contiguous()):
+        raise ValueError("compact_shard kernel takes contiguous tensors")
+    lib = COMPACT_SHARD_LIBRARY.load()
+    out = torch.empty((2, 1 + 2 * budget), dtype=torch.int32, device=device)
+    with launch_stream("compact_shard", (fill_ffd, fill_cost, out)) as stream:
+        status = lib.ktt_compact_shard(
+            fill_ffd.data_ptr(), fill_cost.data_ptr(), num_groups, shard * width, width, budget,
+            out.data_ptr(), stream,
+        )
+    check_launch(status, "compact_shard")
+    compact_shard.launches += 1
+    return out
+
+
+compact_shard.launches = 0
+
+
+def compact_plan_sharded(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any, *,
+                         mesh, replicas=None):
+    """compact_plan's mesh twin: both candidate plans plus the feasibility
+    vector as one flat int32 tensor on the mesh's first shard, with the COO
+    entry lists compacted shard-locally (K9b on every shard, in mesh order)
+    and gathered there. The arguments lie on the first shard's device;
+    `replicas` maps each other device of the mesh to its own copy of the
+    (ffd, cost) fill matrices, which its shards read (without it, they are
+    copied there). G must be a multiple of mesh.size
+    (models/solver.pad_kernel_args handles it via g_mult)."""
+    from karpenter_tpu_torch.parallel import collectives
+
+    if mesh.size <= 1:
+        return compact_plan(rounds_ffd, rounds_cost, feasible_any)
+    fills = dict(replicas or {})
+    segments = []
+    for index, shard in enumerate(mesh.flat):
+        if shard.device not in fills:
+            fills[shard.device] = (
+                rounds_ffd.round_fill.to(shard.device), rounds_cost.round_fill.to(shard.device))
+        fill_ffd, fill_cost = fills[shard.device]
+        segments.append(compact_shard(fill_ffd, fill_cost, index, mesh.size))
+    segments = torch.stack(collectives.gather_to_first(mesh, segments))  # [W, 2, 1 + 2 budget]
+    return torch.cat(
+        _rounds_header(rounds_ffd) + [segments[:, 0].reshape(-1)]
+        + _rounds_header(rounds_cost) + [segments[:, 1].reshape(-1)]
+        + [feasible_any.to(torch.int32)]
+    )
+
+
+def decompact_plan_sharded(
+    words: np.ndarray, num_groups: int, shards: int
+) -> Tuple[PackRounds, PackRounds, np.ndarray, bool]:
+    """Host-side inverse of compact_plan_sharded: scatter each shard's
+    block-local entries at its block offset. shards=1 delegates to the
+    single-device decoder (identical layout). ok=False when any shard of
+    either plan overflowed its entry budget — the caller must fetch the
+    dense spill instead."""
+    if shards <= 1:
+        return decompact_plan(words, num_groups)
+    mr = max_rounds(num_groups)
+    budget = shard_entry_budget(num_groups, shards)
+    group_block = num_groups // shards
+    cursor = 0
+
+    def take(n):
+        nonlocal cursor
+        out = words[cursor : cursor + n]
+        cursor += n
+        return out
+
+    plans = []
+    ok = True
+    for _ in range(2):
+        round_type = take(mr)
+        round_repl = take(mr)
+        num_rounds = take(1)[0]
+        unschedulable = take(num_groups)
+        overflow = bool(take(1)[0])
+        fill = np.zeros((mr * num_groups,), np.int32)
+        plan_ok = True
+        for shard in range(shards):
+            nnz = int(take(1)[0])
+            entry_idx = take(budget)
+            entry_fill = take(budget)
+            if nnz > budget:
+                plan_ok = False
+                continue
+            rows = entry_idx[:nnz] // group_block
+            cols = shard * group_block + entry_idx[:nnz] % group_block
+            fill[rows * num_groups + cols] = entry_fill[:nnz]
+        if not plan_ok:
+            ok = False
+            plans.append(None)
+            continue
         plans.append(
             PackRounds(
                 round_type=round_type,

@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch
+from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, launch_stream
 
 # optax.adam defaults, with the reference's learning rate.
 _LEARNING_RATE = 0.25
@@ -383,8 +383,8 @@ def _launch(vectors, counts, capacity, valid_types, prices, steps: int, plan: LP
         scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=device)
     if not plan.tables_in_shared:
         tables = torch.empty(plan.table_bytes // 4, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+    outputs = [bias, assignment, nodes, objective] + [t for t in (scratch, tables) if t is not None]
+    with launch_stream("lp_relax", tensors + tuple(outputs)) as stream:
         status = lib.ktt_lp_relax(
             *(tensor.data_ptr() for tensor in tensors), bias.data_ptr(),
             num_groups, num_types, dims, steps, plan.cluster, plan.threads, plan.group_lanes,

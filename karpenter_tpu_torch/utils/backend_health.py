@@ -19,8 +19,9 @@ What the port does with a DEGRADED verdict differs from the reference: the
 reference pins the CPU backend and routes solves to the host; the port has
 no fallback, so `runtime.Manager` refuses to start and says why. A device
 of "cpu" (the kernels' plain versions, as the tests run them) settles
-HEALTHY without a probe. The per-chip mesh health and its quarantine wait
-for the multi-device solve; there is no CPU pin.
+HEALTHY without a probe; there is no CPU pin. MeshHealth is the per-card
+verdict of the sharded solve: a card that stops answering is quarantined,
+the mesh shrinks, and the solve stays on the survivors.
 
 Fault injection: BackendHealth takes a probe callable and a Clock, so every
 state transition is unit-testable without a card; KARPENTER_PROBE_CODE /
@@ -304,6 +305,196 @@ class BackendHealth:
             PROBE_DURATION.set(0.0)
             return self.snapshot()
         return self.verdict()
+
+
+# --- per-chip (mesh) health ----------------------------------------------
+#
+# The verdict machine above answers "is THE card alive" — one bit for the
+# whole process, and DEGRADED stops the Manager. A multi-card mesh needs a
+# finer verdict: "1 of N cards wedged" must shrink the mesh and rerun the
+# sharded solve on the survivors (parallel/mesh.make_mesh excludes the
+# quarantined ids; models/solver._dispatch_sharded retries once on the
+# shrunk mesh), never drop to one card or the CPU. MeshHealth owns that id
+# set; it is deliberately separate state from the verdict machine so a
+# wedged card never flips the routing predicate.
+
+WEDGED_CHIPS = REGISTRY.gauge(
+    "backend_wedged_chips",
+    "Chips quarantined out of the solver mesh — alert on > 0",
+)
+
+# Per-chip probe: touch every CUDA card in ordinal order, reporting each
+# survivor on stdout BEFORE touching the next — a wedged card hangs the
+# child there, and the parent reads the partial output to learn exactly
+# which cards answered. A card's mesh id is its ordinal
+# (parallel/mesh.mesh_devices). KARPENTER_CHIP_PROBE_CODE overrides the
+# child (the fault-injection seam for tests and chip_smoke's shrink leg).
+_CHIP_PROBE_CODE = (
+    "import torch\n"
+    "for i in range(torch.cuda.device_count()):\n"
+    "    torch.ones(8, device=f'cuda:{i}').add(1).cpu()\n"
+    "    print(f'CHIP_OK {i}', flush=True)\n"
+)
+_CHIP_OK_PREFIX = "CHIP_OK "
+
+
+def _decode_stream(data) -> str:
+    if isinstance(data, bytes):
+        return data.decode(errors="replace")
+    return data or ""
+
+
+def _parse_chip_ok(stdout: str) -> List[int]:
+    ok_ids = []
+    for line in stdout.splitlines():
+        suffix = line[len(_CHIP_OK_PREFIX) :]
+        if line.startswith(_CHIP_OK_PREFIX) and suffix.isdigit():
+            ok_ids.append(int(suffix))
+    return ok_ids
+
+
+def run_chip_probe(
+    timeout_s: float, probe_code: Optional[str] = None
+) -> Tuple[List[int], ProbeResult]:
+    """Probe every chip in a killable subprocess. Returns (ok_ids, result):
+    ok_ids are the chips that answered before the child finished or was
+    killed; result carries the overall outcome exactly like the whole-device
+    probe (partial stdout is parsed in BOTH outcomes — on a timeout the
+    survivors printed before the hang are the diagnostic)."""
+    import subprocess
+    import sys
+    import time as _time
+
+    code = (
+        probe_code
+        or os.environ.get("KARPENTER_CHIP_PROBE_CODE")
+        or _CHIP_PROBE_CODE
+    )
+    child_env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    start = _time.perf_counter()
+    try:
+        probe = subprocess.run(
+            [sys.executable, "-c", code],
+            timeout=timeout_s,
+            capture_output=True,
+            env=child_env,
+        )
+        duration = _time.perf_counter() - start
+        ok = probe.returncode == 0
+        reason = "" if ok else f"chip probe exited {probe.returncode}"
+        stdout = _decode_stream(probe.stdout)
+        result = ProbeResult(ok, duration, reason, _decode_stream(probe.stderr))
+    except subprocess.TimeoutExpired as exc:
+        duration = _time.perf_counter() - start
+        stdout = _decode_stream(exc.stdout)
+        result = ProbeResult(
+            False,
+            duration,
+            f"chip probe hung past {timeout_s:g}s (wedged chip?)",
+            _decode_stream(exc.stderr),
+        )
+    return _parse_chip_ok(stdout), result
+
+
+class MeshHealth:
+    """The quarantined-chip set. Chips enter via report_chip_wedged (a
+    failed sharded dispatch's quarantine probe, an operator action, a test)
+    and leave via clear() or a full-mesh re-probe that sees them answer."""
+
+    def __init__(self, clock: Optional[Clock] = None):
+        self._clock = clock or SYSTEM_CLOCK
+        self._lock = threading.Lock()
+        self._wedged: dict = {}  # vet: guarded-by(self._lock) — chip id -> reason
+        self._reported_at: dict = {}  # vet: guarded-by(self._lock) — chip id -> clock time
+
+    def report_chip_wedged(self, device_id: int, reason: str) -> None:
+        fresh = False
+        with self._lock:
+            if device_id not in self._wedged:
+                fresh = True
+                log.warning(
+                    "chip %d quarantined out of the solver mesh: %s",
+                    device_id,
+                    reason,
+                )
+            self._wedged[device_id] = reason
+            self._reported_at[device_id] = self._clock.now()
+            WEDGED_CHIPS.set(float(len(self._wedged)))
+        if fresh:
+            # Quarantines are exactly the class of rare, consequential event
+            # the flight recorder exists for (recorded outside the lock).
+            from karpenter_tpu_torch.utils.obs import RECORDER
+
+            RECORDER.record("quarantine", chip=device_id, reason=reason)
+
+    def clear(self, device_id: Optional[int] = None) -> None:
+        """Un-quarantine one chip (a re-probe saw it answer) or, with no
+        argument, the whole set (test hook / operator reset)."""
+        with self._lock:
+            if device_id is None:
+                self._wedged.clear()
+                self._reported_at.clear()
+            else:
+                self._wedged.pop(device_id, None)
+                self._reported_at.pop(device_id, None)
+            WEDGED_CHIPS.set(float(len(self._wedged)))
+
+    def wedged(self) -> dict:
+        with self._lock:
+            return dict(self._wedged)
+
+    def degraded(self) -> bool:
+        with self._lock:
+            return bool(self._wedged)
+
+    def quarantine(
+        self,
+        device_ids: List[int],
+        error: object,
+        timeout_s: float = PROBE_TIMEOUT_SECONDS,
+    ) -> List[int]:
+        """A sharded dispatch over `device_ids` failed with `error`: probe
+        every chip in a killable child and quarantine the non-responders.
+        Returns the NEWLY wedged ids ([] when every chip answered — the
+        failure was not a dead chip, and the caller should re-raise)."""
+        ok_ids, result = run_chip_probe(
+            float(os.environ.get("KARPENTER_PROBE_TIMEOUT_S", timeout_s))
+        )
+        if result.ok and set(device_ids) <= set(ok_ids):
+            return []
+        newly = [d for d in device_ids if d not in ok_ids]
+        for device_id in newly:
+            self.report_chip_wedged(
+                device_id,
+                f"no answer to quarantine probe after dispatch error: {error}"
+                + (f" ({result.reason})" if result.reason else ""),
+            )
+        return newly
+
+
+MESH = MeshHealth()
+
+
+def wedged_chips() -> dict:
+    return MESH.wedged()
+
+
+def mesh_degraded() -> bool:
+    """True while at least one chip is quarantined — the first-class
+    "1 of N chips wedged" state: the mesh shrinks, solves stay on device."""
+    return MESH.degraded()
+
+
+def report_chip_wedged(device_id: int, reason: str) -> None:
+    MESH.report_chip_wedged(device_id, reason)
+
+
+def clear_wedged_chips() -> None:
+    MESH.clear()
+
+
+def quarantine_mesh(device_ids: List[int], error: object) -> List[int]:
+    return MESH.quarantine(device_ids, error)
 
 
 # The process-wide instance every production consumer shares.

@@ -518,3 +518,88 @@ def test_chip_smoke_constrained_workload_equals_the_reference(monkeypatch):
     assert port_plan == ref_plan and port_unsched == ref_unsched and port_levels == ref_levels
     assert len(port_unsched) == 100
     assert abs(port_cost - ref_cost) <= 1e-6 * ref_cost
+
+
+# --- the level-sharded dispatch (the reference's tests/test_constraints.py:816-) ----
+
+
+def _level_sharded(args, mode, shards):
+    """The port's level-sharded dispatch over `shards` CPU shards."""
+    from karpenter_tpu_torch.parallel import mesh as port_mesh
+    from karpenter_tpu_torch.parallel.sharded_solver import constrained_level_sharding
+
+    mesh = port_mesh.make_mesh([port_mesh.Shard(i, torch.device("cpu")) for i in range(shards)])
+    dispatch, count = constrained_level_sharding(mesh)
+    assert count == shards
+    return dispatch([np.ascontiguousarray(a) for a in args], mode)
+
+
+def _assert_host_levels_equal(want, got):
+    assert int(want.chosen_level) == int(got.chosen_level)
+    np.testing.assert_array_equal(np.asarray(want.group_level), np.asarray(got.group_level))
+    np.testing.assert_array_equal(np.asarray(want.level_unsched), np.asarray(got.level_unsched))
+    for field in port_pack.PackRounds._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(want.rounds, field)), np.asarray(getattr(got.rounds, field)), err_msg=field)
+
+
+LEVEL_SHARD_CASES = [(0, (4, 4, 3, 8)), (1, (16, 12, 3, 4)), (2, (16, 24, 3, 2)), (3, (32, 20, 3, 8))]
+
+
+@pytest.mark.parametrize("mode", ["ffd", "cost"])
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("case", LEVEL_SHARD_CASES, ids=lambda c: "s{}-G{}xT{}xR{}xL{}".format(c[0], *c[1]))
+def test_level_sharded_dispatch_bit_identical_to_single(case, shards, mode):
+    """Each shard runs K6's plain version on its block of levels (padded by
+    repeating the last level when the shards do not divide L), the
+    cross-level selection picks the chosen level: every field equals the
+    single-device dispatch's, and the reference's level-sharded one."""
+    seed, shape = case
+    args = _level_instance(seed, *shape, integral=bool(seed % 2))
+    single = port_pack.level_pack_to_host(_port_levels(args, mode))
+    got = _level_sharded(args, mode, shards)
+    _assert_host_levels_equal(single, got)
+    from karpenter_tpu.parallel import mesh as ref_mesh
+    from karpenter_tpu.parallel.sharded_solver import constrained_level_sharding as ref_sharding
+
+    constrain, _ = ref_sharding(ref_mesh.make_mesh(jax.devices()[:shards]))
+    reference = jax.device_get(ref_pack.pack_kernel_levels(*args, mode=mode, constrain=constrain))
+    _assert_host_levels_equal(reference, got)
+
+
+@pytest.mark.parametrize("name", ["zonal-spread", "unsatisfiable-preference", "spread-and-preference"])
+def test_solve_constrained_on_a_mesh_equals_single(name, monkeypatch):
+    """solve_constrained with the port's CostSolver on an 8-shard CPU mesh
+    (the level hook) decodes as on one device."""
+    from karpenter_tpu_torch.parallel import mesh as port_mesh
+
+    monkeypatch.delenv("KARPENTER_SHARDED_SOLVE", raising=False)
+    single_result, single_decision = _solve(PORT, name, port_solver.CostSolver(device="cpu"))
+    with port_mesh.virtual_devices("cpu", 8):
+        assert port_solver.constrained_level_hook(device="cpu")[1] == 8
+        result, decision = _solve(PORT, name, port_solver.CostSolver(device="cpu"))
+    assert decision.chosen_level == single_decision.chosen_level
+    assert decision.group_levels == single_decision.group_levels
+    assert decision.pod_levels == single_decision.pod_levels
+    assert _plan(result) == _plan(single_result)
+    assert result.projected_cost() == single_result.projected_cost()
+
+
+def test_a_failed_sharded_level_fetch_quarantines(monkeypatch):
+    from karpenter_tpu_torch.parallel import mesh as port_mesh
+    from karpenter_tpu_torch.parallel import sharded_solver as port_sharded
+    from karpenter_tpu_torch.utils import backend_health as port_health
+
+    monkeypatch.delenv("KARPENTER_SHARDED_SOLVE", raising=False)
+    quarantined = []
+    monkeypatch.setattr(port_health, "quarantine_mesh",
+                        lambda ids, error: quarantined.append(list(ids)) or [])
+
+    def dies(mesh, operands, mode):
+        raise RuntimeError("card died mid-solve")
+
+    monkeypatch.setattr(port_sharded, "_level_dispatch", dies)
+    with port_mesh.virtual_devices("cpu", 4):
+        with pytest.raises(RuntimeError, match="card died"):
+            _solve(PORT, "zonal-spread", port_solver.CostSolver(device="cpu"))
+    assert quarantined == [[0, 1, 2, 3]]

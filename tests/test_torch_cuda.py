@@ -697,3 +697,117 @@ def test_forecast_kernel_rejects_bad_arguments(cuda_device):
         forecast_kernel.penalize_prices(prices, torch.ones(4, device=cuda_device), 1.0)
     with pytest.raises(ValueError):
         forecast_kernel.penalize_prices(prices[::2], prices[::2], 1.0)
+
+
+# --- K9a and K9b: the sharded solve's kernels on meshes of the card ----------------
+
+
+MESHES = [(4, (2, 2)), (8, (2, 4))]
+
+
+def _card_mesh(shards, device):
+    from karpenter_tpu_torch.parallel import mesh
+
+    return mesh.make_mesh([mesh.Shard(i, device) for i in range(shards)])
+
+
+@pytest.mark.parametrize("shards,shape", MESHES, ids=["2x2", "2x4"])
+@pytest.mark.parametrize("seed", chip_smoke.LP_SEEDS[:3])
+def test_sharded_lp_kernel_equals_plain_version(seed, shards, shape, cuda_device):
+    """K9a's three phases over a mesh of the card against the same solve
+    through their plain versions on the card: K3's LP tolerances."""
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+    from karpenter_tpu_torch.parallel import sharded_solver
+
+    mesh = _card_mesh(shards, cuda_device)
+    assert mesh.shape == shape
+    lp_args = chip_smoke.lp_inputs(seed, (16, 512), cuda_device)
+    problem = sharded_solver.shard_lp_problem(mesh, {cuda_device: lp_args})
+    before = lp_shard_kernel.launches()
+    got = sharded_solver.sharded_lp_blocks(mesh, problem, 300)
+    torch.cuda.synchronize()
+    assert lp_shard_kernel.launches() - before == shards * (2 + 3 * 300 + 1)
+    with chip_smoke.plain_k9a():
+        want = sharded_solver.sharded_lp_blocks(mesh, sharded_solver.shard_lp_problem(mesh, {cuda_device: lp_args}), 300)
+    from karpenter_tpu_torch.parallel.collectives import assemble
+
+    obj_err = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
+    assert obj_err <= LP_OBJECTIVE_RTOL
+    err = float((assemble(mesh, got.assignment) - assemble(mesh, want.assignment)).abs().max())
+    assert err <= LP_ASSIGNMENT_ATOL
+
+
+@pytest.mark.parametrize("shards,shape", MESHES, ids=["2x2", "2x4"])
+def test_sharded_lp_kernel_phases_equal_plain_versions(shards, shape, cuda_device):
+    """Each phase alone on one shard's block: the kernel against its plain
+    version on the same inputs (float32 sums in other orders)."""
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+
+    for case in chip_smoke.k9a_phase_cases(shards, cuda_device):
+        name, kernel_args, plain_args, outputs = case
+        got = getattr(lp_shard_kernel, name)(*kernel_args)
+        want = getattr(lp_shard_kernel, outputs)(*plain_args)
+        torch.cuda.synchronize()
+        assert chip_smoke.phase_close(got, want, kernel_args, plain_args), name
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_compact_shard_kernel_word_identical_to_plain_version(shards, cuda_device):
+    """K9b over a mesh of the card: the payload word for word equal to the
+    plain version's, overflow included, and decoded to the dense fills."""
+    for num_groups, density in ((16, 0.05), (64, 0.02), (16, 0.9)):
+        ffd, cost = (chip_smoke.dense_rounds(num_groups, seed, density, cuda_device) for seed in (0, 1))
+        feasible = torch.ones(num_groups, dtype=torch.bool, device=cuda_device)
+        mesh = _card_mesh(shards, cuda_device)
+        got = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh)
+        with chip_smoke.plain_k9b():
+            want = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        decoded_ffd, decoded_cost, _, ok = pack_kernel.decompact_plan_sharded(got.cpu().numpy(), num_groups, shards)
+        budget = pack_kernel.shard_entry_budget(num_groups, shards)
+        width = num_groups // shards
+        fits = all(
+            int((rounds.round_fill[:, s * width : (s + 1) * width] != 0).sum()) <= budget
+            for rounds in (ffd, cost) for s in range(shards))
+        assert ok is fits
+        if ok:
+            assert np.array_equal(decoded_ffd.round_fill, ffd.round_fill.cpu().numpy())
+            assert np.array_equal(decoded_cost.round_fill, cost.round_fill.cpu().numpy())
+
+
+def test_wrappers_launch_on_the_current_stream(cuda_device, monkeypatch):
+    """The card twin of tests/test_torch_launch_stream.py: under a side
+    stream, each kernel of the mesh path gets that stream's handle."""
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+
+    handles = []
+
+    class Recording:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            function = getattr(self._lib, name)
+
+            def call(*args):
+                handles.append(args[-1])
+                return function(*args)
+
+            return call
+
+    for library in (lp_shard_kernel.LIBRARY, pack_kernel.COMPACT_SHARD_LIBRARY, cuda_kernels.LIBRARY):
+        real = library.load()
+        monkeypatch.setattr(library, "load", lambda real=real: Recording(real))
+    side = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(side):
+        mesh = _card_mesh(4, cuda_device)
+        ffd, cost = (chip_smoke.dense_rounds(16, seed, 0.1, cuda_device) for seed in (0, 1))
+        pack_kernel.compact_plan_sharded(ffd, cost, torch.ones(16, dtype=torch.bool, device=cuda_device), mesh=mesh)
+        lp_shard_kernel.shard_softmax(*(torch.zeros((4, 8), device=cuda_device) for _ in range(5)),
+                                      torch.ones((4, 8), dtype=torch.bool, device=cuda_device), None, None, None)
+        capacity = torch.ones((8, 8), device=cuda_device)
+        cuda_kernels.dominance_prices(capacity, torch.ones(8, device=cuda_device))
+    side.synchronize()
+    assert handles and all(handle == side.cuda_stream for handle in handles)
+    assert side.cuda_stream != torch.cuda.current_stream(cuda_device).cuda_stream

@@ -117,6 +117,21 @@ def test_the_controller_process_modules_are_checked():
         assert name in names
 
 
+def test_the_mesh_modules_are_checked():
+    """The blocked-import check below covers every module of the port; the
+    mesh path's among them: the mesh, its collectives, the sharded solver
+    and K9a's wrappers."""
+    names = _module_names()
+    for name in (
+        "karpenter_tpu_torch.parallel",
+        "karpenter_tpu_torch.parallel.mesh",
+        "karpenter_tpu_torch.parallel.collectives",
+        "karpenter_tpu_torch.parallel.sharded_solver",
+        "karpenter_tpu_torch.ops.lp_shard_kernel",
+    ):
+        assert name in names
+
+
 def test_every_module_imports_with_jax_blocked():
     script = textwrap.dedent(
         f"""

@@ -1,0 +1,220 @@
+"""Every kernel wrapper of the port launches on its operands' device and on
+that device's current stream.
+
+The launches are mocked: the operands are fake tensors on cuda:1
+(torch's FakeTensorMode, which needs no card), each library's ctypes
+functions are replaced by a recorder, and torch.cuda.device and
+torch.cuda.current_stream by fakes that note the device made current and
+hand out one stream handle per device. A wrapper that took the current
+device's stream, or launched outside its operands' device context, would
+hand the launch cuda:0's stream while the device made current is the
+default one; this test sees that. The card twin is in
+tests/test_torch_cuda.py (test_wrappers_launch_on_the_current_stream).
+"""
+
+import contextlib
+import warnings
+
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from karpenter_tpu_torch.ops import (
+    consolidate_kernel,
+    cuda_build,
+    cuda_kernels,
+    forecast_kernel,
+    incremental,
+    lp_shard_kernel,
+    pack_kernel,
+    score_kernel,
+)
+
+torch.set_num_threads(2)
+
+DEVICE = torch.device("cuda", 1)
+STREAM_BASE = 7000  # the fake stream handle of cuda:i is STREAM_BASE + i
+
+
+class _Recorder:
+    """The fakes: a stack of devices made current, and every library call
+    with its arguments and the device current at the call."""
+
+    def __init__(self):
+        self.current = [torch.device("cuda", 0)]
+        self.calls = []
+        self.streams_asked = []  # the device argument of each current_stream call
+
+    def device(self, device):
+        recorder = self
+
+        @contextlib.contextmanager
+        def entered():
+            recorder.current.append(torch.device(device))
+            try:
+                yield
+            finally:
+                recorder.current.pop()
+
+        return entered()
+
+    def current_stream(self, device=None):
+        self.streams_asked.append(device)
+        device = self.current[-1] if device is None else torch.device(device)
+
+        class Stream:
+            cuda_stream = STREAM_BASE + device.index
+
+        return Stream()
+
+
+class _Launched(Exception):
+    """Raised by the recorded launch: the wrapper stops there, before it
+    reads outputs that the mock never wrote."""
+
+
+class _FakeLibrary:
+    def __init__(self, recorder):
+        self._recorder = recorder
+
+    def __getattr__(self, name):
+        recorder = self._recorder
+
+        def call(*args):
+            if name.endswith(("_words", "_bytes", "_threads")):
+                return 64
+            recorder.calls.append((name, args, recorder.current[-1]))
+            raise _Launched(name)
+
+        return call
+
+
+LIBRARIES = [
+    cuda_kernels.LIBRARY, pack_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
+    pack_kernel.COMPACT_LIBRARY, pack_kernel.COMPACT_SHARD_LIBRARY, score_kernel.LIBRARY,
+    consolidate_kernel.LIBRARY, incremental.LIBRARY, forecast_kernel.LIBRARY,
+    lp_shard_kernel.LIBRARY,
+]
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    recorder = _Recorder()
+    monkeypatch.setattr(torch.cuda, "device", recorder.device)
+    monkeypatch.setattr(torch.cuda, "current_stream", recorder.current_stream)
+    for library in LIBRARIES:
+        monkeypatch.setattr(library, "load", lambda recorder=recorder: _FakeLibrary(recorder))
+    monkeypatch.setattr(
+        score_kernel, "_bias_table",
+        lambda steps, device: torch.zeros((max(steps, 1), 2), device=device),
+    )
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a fake tensor's data_ptr warns
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            yield recorder
+
+
+def _f32(*shape):
+    return torch.zeros(shape, dtype=torch.float32, device=DEVICE)
+
+
+def _i32(*shape):
+    return torch.zeros(shape, dtype=torch.int32, device=DEVICE)
+
+
+def _bool(*shape):
+    return torch.zeros(shape, dtype=torch.bool, device=DEVICE)
+
+
+def _rounds(groups):
+    mr = pack_kernel.max_rounds(groups)
+    return pack_kernel.PackRounds(_i32(mr), _i32(mr, groups), _i32(mr), _i32(), _i32(groups), _i32())
+
+
+G, T, R, L = 16, 64, 8, 2
+
+
+def _launch(name):
+    """One call of the wrapper `name` on cuda:1 operands."""
+    if name == "dominance_prices":
+        cuda_kernels.dominance_prices(_f32(T, R), _f32(T))
+    elif name == "pack_kernel":
+        pack_kernel.pack_kernel(_f32(G, R), _i32(G), _f32(T, R), _f32(T, R), _bool(T), _f32(T))
+    elif name == "pack_kernel_pair":
+        pack_kernel.pack_kernel_pair(_f32(G, R), _i32(G), _f32(T, R), _f32(T, R), _bool(T), _f32(T))
+    elif name == "lp_relax":
+        score_kernel.lp_relax(_f32(G, R), _i32(G), _f32(T, R), _bool(T), _f32(T), steps=3)
+    elif name == "compact_plan":
+        pack_kernel.compact_plan(_rounds(G), _rounds(G), _bool(G))
+    elif name == "pack_kernel_levels":
+        pack_kernel.pack_kernel_levels(
+            _f32(G, R), _i32(L, G), _f32(T, R), _f32(T, R), _bool(T), _f32(T), _bool(L, G, T),
+            _f32(L, G, T), _bool(G, G), _i32(G),
+        )
+    elif name == "solve_counterfactuals":
+        C, N = 4, 32
+        consolidate_kernel.solve_counterfactuals(
+            _f32(C, G, R), _i32(C, G), _f32(N, R), _bool(C, N), _f32(T, R), _f32(T), _bool(C, T),
+            _f32(C), _bool(C),
+        )
+    elif name == "scatter":
+        incremental.scatter(_f32(32, R), _i32(8), _f32(8, R))
+    elif name == "gather":
+        incremental.gather(_f32(32, R), _i32(8))
+    elif name == "penalize_prices":
+        forecast_kernel.penalize_prices(_f32(T), _f32(T), 0.5)
+    elif name == "shard_softmax":
+        cells = [_f32(G, T) for _ in range(5)]
+        lp_shard_kernel.shard_softmax(*cells, _bool(G, T), _f32(G), _f32(G), _f32(2))
+    elif name == "shard_demand":
+        lp_shard_kernel.shard_demand(_f32(G, T), _bool(G, T), _f32(G), _f32(G, R), _f32(G), _f32(G, T))
+    elif name == "shard_row_dot":
+        lp_shard_kernel.shard_row_dot(
+            _f32(G, T), _f32(G, T), _bool(G, T), _f32(G), _f32(G, R), _f32(T, R), _f32(T), _f32(T, R),
+        )
+    elif name == "compact_shard":
+        mr = pack_kernel.max_rounds(G)
+        pack_kernel.compact_shard(_i32(mr, G), _i32(mr, G), 1, 4)
+    else:
+        raise KeyError(name)
+
+
+WRAPPERS = [
+    "dominance_prices", "pack_kernel", "pack_kernel_pair", "lp_relax", "compact_plan",
+    "pack_kernel_levels", "solve_counterfactuals", "scatter", "gather", "penalize_prices",
+    "shard_softmax", "shard_demand", "shard_row_dot", "compact_shard",
+]
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrapper_launches_on_its_operands_device_and_stream(name, recorder):
+    with pytest.raises(_Launched):
+        _launch(name)
+    assert len(recorder.calls) == 1, f"{name} made {len(recorder.calls)} launches"
+    for function, args, current in recorder.calls:
+        assert current == DEVICE, f"{function} launched with {current} current"
+        assert args[-1] == STREAM_BASE + DEVICE.index, (
+            f"{function} got stream {args[-1]}, not cuda:1's current stream"
+        )
+    assert recorder.current == [torch.device("cuda", 0)]
+    assert recorder.streams_asked == [DEVICE], "the stream is asked for by the operands' device"
+
+
+def test_operands_on_two_devices_raise():
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            first = torch.zeros(4, device="cuda:0")
+            second = torch.zeros(4, device="cuda:1")
+            with pytest.raises(ValueError, match="span devices"):
+                with cuda_build.launch_stream("k", (first, second)):
+                    pass
+
+
+def test_every_library_is_mocked():
+    """The recorder covers every kernel source the port builds."""
+    assert {lib.source.name for lib in LIBRARIES} == {
+        lib.source.name for lib in cuda_build.port_libraries()
+    }
+    assert np.unique([lib.source.name for lib in LIBRARIES]).size == len(LIBRARIES)

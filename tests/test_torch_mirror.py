@@ -66,7 +66,8 @@ VERBATIM = [
     "cmd/__init__.py",
 ]
 _DOCSTRING = "docstring only: names the port's files and devices"
-_NO_MESH = "one device: no mesh, no sharded variant, no tracing spans"
+_NO_SPANS = "no tracing spans"
+_MESH = "a mesh is a grid of shards in one process (parallel/mesh.py), not a jax Mesh"
 _PORT_ONLY = "the port's own helper"
 _HISTORY = "docstring only: without the reference's history of which change added what"
 # Trimmed copies: {module: {adapted definition: why}}.
@@ -100,7 +101,6 @@ TRIMMED = {
         "_gather_ref": _PORT_ONLY + ": K8's plain gather",
         "_width": _PORT_ONLY,
         "_check": _PORT_ONLY,
-        "_stream": _PORT_ONLY,
         "scatter": "K8's scatter (the reference's scatter_rows and scatter_vals): "
                    "csrc/incremental.cu on the card, the plain version on the CPU, "
                    "into a copy of dst",
@@ -187,18 +187,22 @@ TRIMMED = {
     "models/solver.py": {
         "NativeSolver": _DOCSTRING,
         "_rounds_ints": "the int32 dense spill of PackRounds as torch tensors",
-        "_cost_fused_body": "K1-K4 on a torch device in one launch stream; " + _NO_MESH,
-        "FusedHandle": "torch tensors and a slot for the staged copy; " + _NO_MESH,
+        "_cost_fused_body": "K1-K4 on a torch device in one launch stream; the mesh path is "
+                            "_sharded_fused_solve, so no constrain or compact hook",
+        "FusedHandle": "torch tensors, a slot for the staged copy; on a mesh lp is a "
+                       "ShardedAssignment",
         "FetchedPlan": "copies the LP assignment with .cpu() in place of device_get",
         "_eager_payload": _PORT_ONLY,
         "plan_start_fetch": "one non-blocking copy into pinned memory behind an event, "
                             "in place of copy_to_host_async",
         "fetch_plans": "waits on a staged copy's event, else one cat and one device->host "
-                       "copy, in place of device_get; " + _NO_MESH,
+                       "copy, in place of device_get (_eager_words), quarantine around it; "
+                       "decodes with decompact_plan_sharded at every shard count",
         "fetch_plan": "annotation names a class defined above it",
         "device_pod_args": _DOCSTRING,
         "_HostOverlap": _DOCSTRING,
-        "pad_kernel_args": "pads pod tensors already on the device with torch; " + _NO_MESH,
+        "pad_kernel_args": "pads pod tensors already on the device with torch, to the mesh's "
+                           "multiples too",
         "run_kernel_dense": "uploads the padded inputs to a device the caller picks",
         "_run_kernel": "passes the solver's device",
         "_to_host": "one flat int32 copy of the rounds to the host in place of device_get",
@@ -208,18 +212,18 @@ TRIMMED = {
         "_cheapest_feasible_pools": _DOCSTRING,
         "_decode_rounds": _DOCSTRING,
         "_kernel_rounds_to_list": "annotation names a class the port imports",
-        "cost_solve_dense": "runs on a device the caller picks; " + _NO_MESH,
+        "cost_solve_dense": "runs on a device the caller picks; " + _NO_SPANS,
         "compute_mix_candidate": _DOCSTRING,
         "_probe_fetch_floor_ms": "one flat int32 copy from a device the caller picks",
         "host_route_open": _PORT_ONLY + ": the host route is open on the CPU by default and "
                            "on the card only when asked for (KARPENTER_HOST_SOLVE=1 or auto)",
         "host_solve_enabled": "takes the solver's device and asks host_route_open first; no "
-                              "degraded-backend host routing (the port has no fallback) and "
-                              "no mesh",
+                              "degraded-backend host routing (the port has no fallback); the "
+                              "mesh branch asks sharded_solve_active(device)",
         "cost_solve_dispatch": "K1-K4 on a torch device, the fleet resident and the rest in "
                                "one packed upload; every dispatch counts on the dispatch "
                                "metric (no count= option: boot warmup ends before ready); "
-                               + _NO_MESH,
+                               + "the mesh from solve_mesh(device); " + _NO_SPANS,
         "_collect_candidates": "takes fetched plans only (no host-tuple candidates)",
         "cost_solve_finish": _DOCSTRING,
         "_is_resource_exhausted": "also takes torch.cuda.OutOfMemoryError",
@@ -230,6 +234,61 @@ TRIMMED = {
                       "spans; no warmup; the host route is opt-in on the card "
                       "(host_fallback_available reads host_route_open)",
         "decode_dense_result": _DOCSTRING,
+        "_eager_words": _PORT_ONLY + ": the device->host copy of every eager payload, the step "
+                        "the fetch quarantine wraps",
+        "_quarantine_after_fetch_failure": "quarantines the mesh ids of the handles' device type",
+        "quarantine_devices": "takes the device type whose mesh ids it quarantines",
+        "ShardedAssignment": _PORT_ONLY + ": the deferred LP assignment in shard blocks",
+        "_sharded_fused_solve": "the counterpart of _sharded_fused_kernel: K1 and the K2 pair "
+                                "once a device of the mesh, K9a over the mesh, K9b on every "
+                                "shard; raises for a mesh of another device type",
+        "_kind": _PORT_ONLY + ": the device type of a solve",
+        "_device_count": "the mesh ids of a device type, not cached (a virtual set may be "
+                         "declared for a while)",
+        "_multi_device": "per device type, not cached",
+        "sharded_solve_active": "per device type of the solve",
+        "solve_mesh": "per device type of the solve",
+        "constrained_level_hook": "(dispatch, shards) from the solve's device's mesh",
+        "_dispatch_sharded": "retries through _sharded_fused_solve on the shrunk mesh; no "
+                             "multi-host dispatch (the sidecar's, not ported)",
+    },
+    "parallel/__init__.py": {},
+    "parallel/mesh.py": {
+        "Shard": _PORT_ONLY + ": one position of the mesh, an id and a torch.device",
+        "Mesh": _PORT_ONLY + ": " + _MESH,
+        "virtual_devices": _PORT_ONLY + ": declares N shards of one device, the counterpart "
+                           "of --xla_force_host_platform_device_count",
+        "mesh_devices": _PORT_ONLY + ": the counterpart of jax.devices()",
+        "make_mesh": "shards of a device type in place of jax devices; " + _MESH,
+        "block": _PORT_ONLY + ": contiguous blocks in place of solver_shardings",
+    },
+    "parallel/sharded_solver.py": {
+        "LPTrainState": "the logits and Adam's moments as grids of shard blocks and the step "
+                        "count, in place of an optax state",
+        "ShardedProblem": _PORT_ONLY + ": an LP's operands in shard blocks",
+        "ShardedLP": _PORT_ONLY + ": the relaxed plan in shard blocks",
+        "_grid": _PORT_ONLY,
+        "_check_divides": _PORT_ONLY,
+        "shard_lp_problem": _PORT_ONLY + ": lays an LP over the mesh",
+        "lp_train_init": "takes the mesh and the sharded problem",
+        "_Scratch": _PORT_ONLY,
+        "_bias_rows": _PORT_ONLY + ": Adam's bias corrections on a device",
+        "_softmax": _PORT_ONLY + ": K9a's softmax phase, then its reductions",
+        "_demand": _PORT_ONLY + ": K9a's demand phase, then its reduction",
+        "_row_dot": _PORT_ONLY + ": K9a's row-dot phase, then its reduction",
+        "_start": _PORT_ONLY,
+        "_run_steps": _PORT_ONLY + ": Adam steps over the mesh (the reference's lax.scan)",
+        "sharded_lp_blocks": _PORT_ONLY + ": the LP over a mesh, in shard blocks",
+        "_replicas": _PORT_ONLY + ": one copy of the operands a device of the mesh",
+        "_pad": "pads with zeros (every caller's value)",
+        "sharded_lp_solve": "K9a's phases with the collectives between, in place of one jitted "
+                            "GSPMD scan",
+        "sharded_lp_train_step": "one step of K9a's phases from a state in shard blocks; "
+                                 "returns (step, mesh)",
+        "constrained_level_sharding": "returns a dispatch running K6 on each shard's block of "
+                                      "levels, in place of a sharding constraint",
+        "_level_dispatch": _PORT_ONLY + ": K6 per shard, the cross-level selection, the chosen "
+                           "level's fetch",
     },
 }
 
@@ -289,4 +348,31 @@ def test_trimmed_copy_matches_reference_per_definition(relative):
     ]
     assert drifted == [], (
         f"karpenter_tpu_torch/{relative}: {drifted} differ from karpenter_tpu/{relative}"
+    )
+
+
+# Definitions copied verbatim into port modules that are not copies as a
+# whole (or whose other definitions are adapted): each must stay AST-equal
+# to the reference's of the same name.
+VERBATIM_DEFINITIONS = [
+    ("ops/pack_kernel.py", "shard_entry_budget"),
+    ("ops/pack_kernel.py", "compact_words_sharded"),
+    ("ops/pack_kernel.py", "decompact_plan_sharded"),
+    ("parallel/mesh.py", "_factor"),
+    ("parallel/mesh.py", "pad_multiple"),
+    ("utils/backend_health.py", "MeshHealth"),
+    ("utils/backend_health.py", "run_chip_probe"),
+    ("utils/backend_health.py", "_parse_chip_ok"),
+    ("utils/backend_health.py", "quarantine_mesh"),
+    ("models/solver.py", "_pad_multiple"),
+]
+
+
+@pytest.mark.parametrize("relative,name", VERBATIM_DEFINITIONS, ids=lambda v: str(v))
+def test_verbatim_definition_matches_reference(relative, name):
+    port = _definitions(REPO / "karpenter_tpu_torch" / relative)
+    reference = _definitions(REPO / "karpenter_tpu" / relative)
+    assert name in port and name in reference
+    assert port[name] == reference[name], (
+        f"karpenter_tpu_torch/{relative}: {name} drifted from the reference's"
     )
