@@ -151,21 +151,29 @@ limit, and as the last line {"ok": true, "device": {...}}:
               as the reference's tests and dryrun_multichip run it on 8
               virtual CPU devices: CostSolver over the main path's 50,000
               pods x 400 types with solve_mesh() selecting the mesh (K1 and
-              the K2 pair once, K9a's three phases on every shard each Adam
-              step, K9b once a shard, no K3 or K4), every pod placed once,
+              the K2 pair once, K9a's persistent kernel once for the whole
+              LP, K9b once a shard, no K3 or K4), every pod placed once,
               both decoded candidates and feasible_any bit-identical to the
               single-device solve, $/hr within 1.02x and 5% of it, warm p50
               and max over 10 solves beside the single-device p50; K9a
               (csrc/lp_shard.cu) against its plain version over the mesh on
               the main path (objective), on non-degenerate LPs (LP
-              tolerances) and phase by phase, and at the many-shapes width
-              (padded G 2,048 x T 512, 2x4) beside K3 there; K9b
+              tolerances), two launches alike, its per-phase kernels (the
+              route of a mesh that spans cards) phase by phase and, forced
+              on the 2x4 mesh, over the whole LP (three kernels a shard a
+              step, shards x (3 x 300 + 3) launches, objective and pods
+              against the plain versions) on the main path and at the
+              many-shapes width (padded G 2,048 x T 512, 2x4: one launch,
+              objective and pods) beside K3 there; K9b
               (csrc/compact_shard.cu) against its plain version word for
               word and against the host decode, a shard past its budget
               included; the constrained cell's levels over 8 shards equal
               to the single-device dispatch; the shrink leg: one shard id
-              wedged, the mesh 1x7 (T padded to a multiple of 7), the LP
-              finite, pods conserved; an injected dispatch failure
+              wedged, the mesh 1x7 (G and T padded to multiples of 7), one
+              K9a launch, K9a against its plain version there, the decoded
+              candidates and feasible_any bit-identical to the single-device
+              solve's on the real groups, the LP finite, pods conserved; an
+              injected dispatch failure
               quarantined by the chip probe (a fake probe naming shards
               0-6) and retried once on the shrunk mesh. It prints
               solve_mesh() on the machine and torch.cuda.device_count(), and
@@ -461,12 +469,14 @@ def k6_problem(seed: int, num_groups: int, num_types: int, num_levels: int, real
 
 
 # (G', T, L, real groups): a single level; the small and the main shapes;
-# T 300 leaves part of the block's last warp without a type; L 8 every
-# level a block; G' 512 and 2,048 keep the placed bits, and 2,048 the
-# tables and fills, in global scratch; T 1,500 gives threads two types.
+# T 300 leaves part of a block's last warp without a type; L 8 every level
+# a cluster; G' 512 and 2,048 keep the placed bits, and 2,048 the tables and
+# fills, in global scratch; T 1,500 takes 4 lanes a type. The plan picks
+# clusters of 1 (T 8, 64), 2 (T 128), 4 (T 256), 8 (T 300, 512) and 16
+# blocks (T 1,024, 1,500).
 K6_SHAPES = ((8, 8, 1, None), (16, 64, 4, None), (16, 300, 4, None), (64, 512, 4, None),
              (64, 512, 8, None), (128, 256, 2, 80), (256, 512, 4, 60), (512, 256, 2, 50),
-             (2048, 512, 2, 50), (32, 1024, 4, None), (16, 1500, 2, None))
+             (2048, 512, 2, 50), (32, 1024, 4, None), (16, 1500, 2, None), (32, 128, 3, None))
 
 
 def tied_weight_pack_problem(seed: int, groups: int, num_types: int = 16):
@@ -828,6 +838,9 @@ def dominance_cases():
 # in other orders drift apart by rounding.
 LP_OBJECTIVE_RTOL = 1e-4
 LP_ASSIGNMENT_ATOL = 1e-3
+# A sharded LP's assignment sums to the solvable pods within this relative
+# gap (the CPU parity test's pods tolerance, tests/test_torch_parallel.py).
+LP_PODS_RTOL = 1e-3
 LP_SEEDS = (0, 1, 3, 4, 6, 7, 8, 9)
 
 
@@ -896,20 +909,28 @@ def lp_operations(groups: int, types: int, dims: int, steps: int) -> int:
 
 
 @contextlib.contextmanager
-def plain_k9a():
-    """Within the block, the sharded LP runs K9a's plain versions in place
-    of its kernels (on whatever device its tensors lie)."""
-    from karpenter_tpu_torch.ops import lp_shard_kernel as k9a
+def per_phase_k9a(plain: bool = False):
+    """Within the block, the sharded LP takes K9a's per-phase route (the
+    route of a mesh across cards: three phases a shard a step, the
+    collectives between) whatever its mesh, through the phases' kernels or,
+    with `plain`, their plain versions on whatever device its tensors lie."""
+    from karpenter_tpu_torch.parallel import sharded_solver
 
-    saved = (k9a.shard_softmax, k9a.shard_demand, k9a.shard_row_dot)
-    k9a.shard_softmax = k9a._softmax_ref
-    k9a.shard_demand = lambda share, feasible, counts, vectors, row_total, assignment=None: (
-        k9a._demand_ref(share, feasible, counts, vectors, row_total, assignment))
-    k9a.shard_row_dot = k9a._row_dot_ref
+    saved = sharded_solver._route
+    run = functools.partial(sharded_solver._run_phases,
+                            phases=sharded_solver._PLAIN_PHASES if plain else None)
+    sharded_solver._route = lambda mesh: run
     try:
         yield
     finally:
-        k9a.shard_softmax, k9a.shard_demand, k9a.shard_row_dot = saved
+        sharded_solver._route = saved
+
+
+def plain_k9a():
+    """Within the block, the sharded LP runs K9a's plain versions: the
+    per-phase route through the phases' plain versions, the plain version
+    of both routes."""
+    return per_phase_k9a(plain=True)
 
 
 @contextlib.contextmanager
@@ -1210,13 +1231,13 @@ def k7_needed_bytes(operands) -> int:
 
 
 def k6_needed(operands, mode: str = "cost"):
-    """(bytes, operations) K6 must spend on these operands: every input read
-    once and the output written once; per distinct level and round, the
-    scan of each group still holding pods over the types that may take it
-    (a division, a minimum, a multiply and a subtract per axis the group
-    requests, an add and a floor), counted from the level's own rounds (its
-    plain version, one level at a time). A padded level repeats the last
-    real one and adds no work of its own."""
+    """(bytes, operations, rounds a level) K6 must spend on these operands:
+    every input read once and the output written once; per distinct level
+    and round, the scan of each group still holding pods over the types that
+    may take it (a division, a minimum, a multiply and a subtract per axis
+    the group requests, an add and a floor), counted from the level's own
+    rounds (its plain version, one level at a time). A padded level repeats
+    the last real one and adds no work of its own (its rounds are listed)."""
     import torch
 
     from karpenter_tpu_torch.ops import pack_kernel
@@ -1231,21 +1252,26 @@ def k6_needed(operands, mode: str = "cost"):
     scan = (usable.sum(dim=2) * (4 * (vectors > 0).sum(dim=1) + 2)[None, :]).long().cpu().numpy()
     distinct = []
     ops = 0
+    rounds_of = []
     for level in range(num_levels):
-        if any(torch.equal(counts[level], counts[other]) and torch.equal(allow[level], allow[other])
-               and torch.equal(penalty[level], penalty[other]) for other in distinct):
+        same = [other for other in distinct
+                if torch.equal(counts[level], counts[other]) and torch.equal(allow[level], allow[other])
+                and torch.equal(penalty[level], penalty[other])]
+        if same:
+            rounds_of.append(rounds_of[same[0]])
             continue
         distinct.append(level)
         one = [vectors, counts[level : level + 1], capacity, total, valid, prices,
                allow[level : level + 1], penalty[level : level + 1], conflict, node_cap]
         rounds = plain_levels(one, mode).rounds
+        rounds_of.append(int(rounds.num_rounds))
         remaining = torch.where(usable[level].any(dim=1), counts[level], 0).long().cpu().numpy()
         fills = rounds.round_fill.long().cpu().numpy()
         repl = rounds.round_repl.long().cpu().numpy()
         for r in range(int(rounds.num_rounds)):
             ops += int(scan[level][remaining > 0].sum())
             remaining -= repl[r] * fills[r]
-    return read + written, ops
+    return read + written, ops, rounds_of
 
 
 def device_ms_per_call(fn, kernels, reps: int = 20) -> float:
@@ -1657,16 +1683,66 @@ def mesh_lp_problem(padded, mesh, device):
 def k9a_against_plain(mesh, problem, steps: int = 300):
     """K9a's sharded LP and the same through its plain versions on the card:
     (objective relative difference, assignment max abs difference, kernel
-    result)."""
+    result, plain result). On a mesh of one card the LP is one launch of
+    the persistent kernel, and a second launch must give the same bits."""
+    import torch
+
+    from karpenter_tpu_torch.ops import lp_shard_kernel
     from karpenter_tpu_torch.parallel import collectives, sharded_solver
 
+    before = lp_shard_kernel.launches()
     got = sharded_solver.sharded_lp_blocks(mesh, problem, steps)
+    if len(mesh.devices) == 1:
+        check(lp_shard_kernel.launches() - before == 1,
+              f"the LP over {mesh.size} shards of one card took {lp_shard_kernel.launches() - before} K9a launches")
+        again = sharded_solver.sharded_lp_blocks(mesh, problem, steps)
+        synchronize(mesh.flat[0].device)
+        check(torch.equal(collectives.assemble(mesh, got.assignment), collectives.assemble(mesh, again.assignment))
+              and torch.equal(got.objective, again.objective),
+              f"two launches of K9a differ over {mesh.size} shards")
     with plain_k9a():
         want = sharded_solver.sharded_lp_blocks(mesh, problem, steps)
     synchronize(mesh.flat[0].device)
     obj = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
     err = float((collectives.assemble(mesh, got.assignment) - collectives.assemble(mesh, want.assignment)).abs().max())
-    return obj, err, got
+    return obj, err, got, want
+
+
+def k9a_per_phase_against_plain(mesh, problem, want, counts, steps: int = 300):
+    """K9a's per-phase route forced on `mesh` (one card), launched by its
+    three phase kernels, against `want`, the plain versions' LP on the same
+    problem: (objective relative difference, pods relative gap). Checks
+    shards * (3 * steps + 3) phase launches and no persistent one."""
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+    from karpenter_tpu_torch.parallel import sharded_solver
+
+    lp_shard_kernel.reset_launches()
+    with per_phase_k9a():
+        got = sharded_solver.sharded_lp_blocks(mesh, problem, steps)
+    synchronize(mesh.flat[0].device)
+    launched = lp_shard_kernel.launches()
+    check(lp_shard_kernel.shard_lp.launches == 0 and launched == mesh.size * (3 * steps + 3),
+          f"K9a's per-phase route over {mesh.size} shards launched {launched}, "
+          f"not {mesh.size * (3 * steps + 3)}")
+    obj = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
+    return obj, lp_pods_rel(mesh, got, counts)
+
+
+def k9a_phase_kernels(shards: int, steps: int = 300) -> dict:
+    """The per-phase route's launches of each phase kernel an LP over
+    `shards` shards: two softmaxes to start, three phases a step, the final
+    demand."""
+    return {"lp_shard_softmax_kernel": shards * (steps + 2), "lp_shard_demand_kernel": shards * (steps + 1),
+            "lp_shard_row_dot_kernel": shards * steps}
+
+
+def lp_pods_rel(mesh, lp, counts) -> float:
+    """How far a sharded LP's assignment is from conserving the pods: the
+    relative gap of its sum to the solvable pods."""
+    from karpenter_tpu_torch.parallel import collectives
+
+    total = float(counts.sum())
+    return abs(float(collectives.assemble(mesh, lp.assignment).double().sum()) - total) / max(total, 1.0)
 
 
 def k9b_cases(device):
@@ -1721,19 +1797,68 @@ def k9b_check(mesh, device) -> dict:
 def sharded_device_ms(sharded, lp_steps: int = 300) -> None:
     """K9a's and K9b's own device time (torch.profiler) per sharded LP and
     per sharded compaction on each mesh of the sharded phase, into its
-    result ("k9a_ms", "k9b_ms"). Run after the other kernels' timings: a
-    profiler window over thousands of launches makes later windows drop
-    kernel records."""
+    result ("k9a_ms", "k9b_ms"): on a mesh of one card K9a is one launch of
+    its persistent kernel an LP. Run after the other kernels' timings."""
     for entry in sharded["meshes"].values():
         shards = entry["shards"]
-        entry["k9a_ms"] = device_ms_per_call(entry["k9a_call"], {
-            "lp_shard_softmax_kernel": shards * (lp_steps + 2),
-            "lp_shard_demand_kernel": shards * (lp_steps + 1),
-            "lp_shard_row_dot_kernel": shards * lp_steps,
-        }, reps=3)
+        entry["k9a_ms"] = device_ms_per_call(entry["k9a_call"], {"lp_shard_persistent_kernel": 1}, reps=10)
+        entry["k9a_plan"] = lp_plan_of(entry["k9a_lp"], entry["mesh_shape"])
         entry["k9b_ms"] = device_ms_per_call(entry["k9b_call"], {"compact_shard_kernel": shards}, reps=200)
         print(f"  K9a over {shards} shards: {entry['k9a_ms']:.4f} ms device a solve, "
-              f"{entry['k9a_ms'] * 1e3 / lp_steps:.3f} us a step; K9b {entry['k9b_ms']:.5f} ms a compaction")
+              f"{entry['k9a_ms'] * 1e3 / lp_steps:.3f} us a step ({entry['k9a_plan'].blocks} blocks); "
+              f"K9b {entry['k9b_ms']:.5f} ms a compaction")
+    big = sharded["g2048"]
+    big["k9a_ms"] = device_ms_per_call(big["k9a_call"], {"lp_shard_persistent_kernel": 1}, reps=3)
+    print(f"  K9a at {big['shape']} over 8 shards: {big['k9a_ms']:.4f} ms device a solve "
+          f"({big['blocks']} blocks)")
+    # The per-phase route (the route across cards) forced on the 2x4 mesh.
+    per_phase = sharded["per_phase"]
+    per_phase["ms"] = device_ms_per_call(per_phase["call"], k9a_phase_kernels(8, lp_steps), reps=3)
+    big["per_phase_ms"] = device_ms_per_call(big["per_phase_call"], k9a_phase_kernels(8, lp_steps), reps=1)
+    print(f"  K9a's per-phase route over 8 shards: {per_phase['ms']:.4f} ms device a solve "
+          f"({per_phase['launches']} launches); at {big['shape']}: {big['per_phase_ms']:.4f} ms")
+
+
+def lp_plan_of(lp_shape, mesh_shape):
+    """K9a's persistent plan for an LP of (G, T, R) over a mesh shape, on
+    this card (its SM count), as `shard_lp` computes it."""
+    import torch
+
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+
+    groups, types, dims = lp_shape
+    return lp_shard_kernel.lp_shard_launch_plan(
+        mesh_shape[0] * mesh_shape[1], groups // mesh_shape[0], types // mesh_shape[1], dims,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def per_phase_lp(call):
+    """`call` (a sharded LP) through K9a's per-phase kernels."""
+    with per_phase_k9a():
+        return call()
+
+
+def plans_agree_on_real_groups(a, b, num_groups: int) -> bool:
+    """Two FetchedPlans of one problem padded to other sizes (the 1x7 mesh
+    pads G and T to multiples of 7): their rounds and feasibility over the
+    real groups bit for bit, and no round filling a padding group. Padding
+    groups hold no pods and padding types are invalid, so a round never
+    takes them."""
+    for name in ("rounds_ffd", "rounds_cost"):
+        x, y = getattr(a, name), getattr(b, name)
+        rounds = int(x.num_rounds)
+        if rounds != int(y.num_rounds) or int(x.overflow) != int(y.overflow):
+            return False
+        fills = [np.asarray(r.round_fill)[:rounds] for r in (x, y)]
+        if any(np.asarray(f[:, num_groups:]).any() for f in fills):
+            return False
+        if not (np.array_equal(np.asarray(x.round_type)[:rounds], np.asarray(y.round_type)[:rounds])
+                and np.array_equal(np.asarray(x.round_repl)[:rounds], np.asarray(y.round_repl)[:rounds])
+                and np.array_equal(fills[0][:, :num_groups], fills[1][:, :num_groups])
+                and np.array_equal(np.asarray(x.unschedulable)[:num_groups],
+                                   np.asarray(y.unschedulable)[:num_groups])):
+            return False
+    return np.array_equal(np.asarray(a.feasible_any)[:num_groups], np.asarray(b.feasible_any)[:num_groups])
 
 
 def plans_equal(a, b) -> bool:
@@ -1815,8 +1940,9 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
                 "lp_shard": lp_shard_kernel.launches(),
                 "compact_shard": pack_kernel.compact_shard.launches,
             }
+            # One card: the whole LP is one launch of K9a's persistent kernel.
             want = {"dominance_prices": 1, "pack_kernel": 1, "lp_relax": 0, "compact_plan": 0,
-                    "lp_shard": shards * (3 * lp_steps + 3), "compact_shard": shards}
+                    "lp_shard": 1, "compact_shard": shards}
             check(launches == want, f"the {label} solve launched {launches}, not {want}")
             check(all_pods_placed_once(result, pods), f"the {label} solve did not place every pod once")
             cost = result.projected_cost()
@@ -1830,12 +1956,14 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
             sharded_ms = warm_ms()
             padded = solver.pad_kernel_args(*args, g_mult=mesh.size, t_mult=mesh.shape[1])
             problem, main_lp = mesh_lp_problem(padded, mesh, device)
-            main_obj, _, _ = k9a_against_plain(mesh, problem, lp_steps)
-            check(main_obj <= LP_OBJECTIVE_RTOL, f"K9a's objective differs on the main path over {label}: {main_obj:.3e}")
+            main_obj, _, main_result, main_plain = k9a_against_plain(mesh, problem, lp_steps)
+            main_pods = lp_pods_rel(mesh, main_result, main_lp[1])
+            check(main_obj <= LP_OBJECTIVE_RTOL and main_pods <= LP_PODS_RTOL,
+                  f"K9a differs on the main path over {label}: objective {main_obj:.3e}, pods {main_pods:.3e}")
             errs = []
             for seed in LP_SEEDS[:2]:
                 lp_args = lp_inputs(seed, (16, 512), device)
-                obj, err, _ = k9a_against_plain(mesh, shard_lp_problem(mesh, {device: lp_args}), lp_steps)
+                obj, err, _, _ = k9a_against_plain(mesh, shard_lp_problem(mesh, {device: lp_args}), lp_steps)
                 check(obj <= LP_OBJECTIVE_RTOL and err <= LP_ASSIGNMENT_ATOL,
                       f"K9a differs from its plain version on seed {seed} over {label}: "
                       f"objective {obj:.3e}, assignment {err:.3e}")
@@ -1868,10 +1996,12 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
                 "shards": shards, "launches": launches, "k9a_event_ms": k9a_event_ms,
                 "k9a_plain_ms": k9a_plain_ms, "k9a_err": max(errs),
                 "k9b_event_ms": k9b_event_ms, "k9b_plain_ms": k9b_plain_ms, "k9b": k9b,
-                "k9a_call": k9a_call, "k9b_call": k9b_call,
+                "k9a_call": k9a_call, "k9b_call": k9b_call, "mesh_shape": mesh.shape,
+                "k9a_lp": (main_lp[0].shape[0], main_lp[2].shape[0], main_lp[0].shape[1]),
                 "p50_ms": float(np.percentile(sharded_ms, 50)), "max_ms": max(sharded_ms),
             }
             fields.update({
+                f"m{label}_k9a_main_pods_rel": f"{main_pods:.3e}",
                 f"m{label}_p50_ms": f"{np.percentile(sharded_ms, 50):.3f}",
                 f"m{label}_max_ms": f"{max(sharded_ms):.3f}",
                 f"m{label}_cost_per_hr": f"{cost:.6f}",
@@ -1879,17 +2009,50 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
                 f"m{label}_k9a_main_obj_rel": f"{main_obj:.3e}", f"m{label}_k9a_phases": phases,
             })
             if shards == 8:
+                # K9a's per-phase route, the route of a mesh across cards,
+                # forced on this one-card mesh: three kernels a shard a step
+                # and the collectives between, against the plain versions.
+                phase_obj, phase_pods = k9a_per_phase_against_plain(mesh, problem, main_plain, main_lp[1],
+                                                                    lp_steps)
+                check(phase_obj <= LP_OBJECTIVE_RTOL and phase_pods <= LP_PODS_RTOL,
+                      f"K9a's per-phase route differs on the main path over {label}: "
+                      f"objective {phase_obj:.3e}, pods {phase_pods:.3e}")
+                phase_call = functools.partial(per_phase_lp, k9a_call)
+                out["per_phase"] = {"launches": shards * (3 * lp_steps + 3), "call": phase_call,
+                                    "event_ms": time_cuda(phase_call, reps=3, warmup=1),
+                                    "objective_rel": phase_obj, "pods_rel": phase_pods}
+                fields.update(k9a_per_phase_launches=shards * (3 * lp_steps + 3),
+                              k9a_per_phase_obj_rel=f"{phase_obj:.3e}", k9a_per_phase_pods_rel=f"{phase_pods:.3e}",
+                              k9a_per_phase_event_ms=f"{out['per_phase']['event_ms']:.4f}")
                 # The many-shapes width on the 2x4 mesh, beside K3 there.
                 vectors, _, capacity, _, _ = large_lp
                 check(vectors.shape[0] % mesh.shape[0] == 0 and capacity.shape[0] % mesh.shape[1] == 0,
                       "the many-shapes LP does not split over the 2x4 mesh")
                 big = shard_lp_problem(mesh, {device: large_lp})
-                big_obj, _, _ = k9a_against_plain(mesh, big, lp_steps)
-                check(big_obj <= LP_OBJECTIVE_RTOL, f"K9a's objective differs at G 2,048 x T 512: {big_obj:.3e}")
-                big_ms = time_cuda(functools.partial(sharded_lp_blocks, mesh, big, lp_steps), reps=3, warmup=1)
-                out["g2048"] = {"k9a_event_ms": big_ms, "objective_rel": big_obj,
-                                "shape": f"G={vectors.shape[0]},T={capacity.shape[0]}"}
-                fields.update(k9a_g2048_ms=f"{big_ms:.3f}", k9a_g2048_obj_rel=f"{big_obj:.3e}")
+                big_obj, _, big_lp, big_plain = k9a_against_plain(mesh, big, lp_steps)
+                big_pods = lp_pods_rel(mesh, big_lp, large_lp[1])
+                check(big_obj <= LP_OBJECTIVE_RTOL and big_pods <= LP_PODS_RTOL,
+                      f"K9a differs at G 2,048 x T 512: objective {big_obj:.3e}, pods {big_pods:.3e}")
+                big_call = functools.partial(sharded_lp_blocks, mesh, big, lp_steps)
+                big_ms = time_cuda(big_call, reps=3, warmup=1)
+                big_plan = lp_plan_of((vectors.shape[0], capacity.shape[0], vectors.shape[1]), mesh.shape)
+                big_phase_obj, big_phase_pods = k9a_per_phase_against_plain(mesh, big, big_plain, large_lp[1],
+                                                                            lp_steps)
+                check(big_phase_obj <= LP_OBJECTIVE_RTOL and big_phase_pods <= LP_PODS_RTOL,
+                      f"K9a's per-phase route differs at G 2,048 x T 512: objective {big_phase_obj:.3e}, "
+                      f"pods {big_phase_pods:.3e}")
+                big_phase_call = functools.partial(per_phase_lp, big_call)
+                big_phase_ms = time_cuda(big_phase_call, reps=2, warmup=1)
+                out["g2048"] = {"k9a_event_ms": big_ms, "objective_rel": big_obj, "pods_rel": big_pods,
+                                "shape": f"G={vectors.shape[0]},T={capacity.shape[0]}",
+                                "blocks": big_plan.blocks, "k9a_call": big_call,
+                                "per_phase_event_ms": big_phase_ms, "per_phase_call": big_phase_call,
+                                "lp": (vectors.shape[0], capacity.shape[0], vectors.shape[1])}
+                fields.update(k9a_g2048_ms=f"{big_ms:.3f}", k9a_g2048_obj_rel=f"{big_obj:.3e}",
+                              k9a_g2048_pods_rel=f"{big_pods:.3e}", k9a_g2048_blocks=big_plan.blocks,
+                              k9a_g2048_per_phase_ms=f"{big_phase_ms:.3f}",
+                              k9a_g2048_per_phase_obj_rel=f"{big_phase_obj:.3e}",
+                              k9a_g2048_per_phase_pods_rel=f"{big_phase_pods:.3e}")
                 # The constrained cell's levels over the 8 shards.
                 dispatch, level_shards = constrained_level_sharding(mesh)
                 pack_kernel.pack_kernel_levels.launches = 0
@@ -1914,8 +2077,18 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
         shrunk = solver.solve_mesh(device)
         check(shrunk.size == 7 and shrunk.shape == (1, 7) and 7 not in shrunk.ids(),
               f"the mesh did not shrink to 1x7: {shrunk}")
+        lp_shard_kernel.reset_launches()
         handle = solver.cost_solve_dispatch(*args, device=device)
         plan = solver.fetch_plan(handle)
+        check(lp_shard_kernel.launches() == 1,
+              f"the LP on the shrunk mesh took {lp_shard_kernel.launches()} K9a launches")
+        check(plans_agree_on_real_groups(plan, single_plan, groups.num_groups),
+              "the 1x7 solve's decoded candidates differ from the single-device solve's")
+        shrunk_obj, shrunk_err, _, _ = k9a_against_plain(
+            shrunk, mesh_lp_problem(solver.pad_kernel_args(*args, g_mult=7, t_mult=7), shrunk, device)[0],
+            lp_steps)
+        check(shrunk_obj <= LP_OBJECTIVE_RTOL,
+              f"K9a's objective differs from its plain version on the 1x7 mesh: {shrunk_obj:.3e}")
         assignment = plan.lp_assignment()
         solvable = np.where(plan.feasible_any[: groups.num_groups], groups.counts, 0).sum()
         check(handle.shards == 7 and handle.num_types % 7 == 0 and handle.num_groups % 7 == 0,
@@ -1948,7 +2121,9 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
         check(attempts == [8, 7] and wedged == [7],
               f"the injected failure did not quarantine and retry once: attempts {attempts}, wedged {wedged}")
         check(all_pods_placed_once(result, pods), "the retried solve lost pods")
-    fields.update(shrunk="1x7", shrunk_cost_per_hr=f"{shrunk_cost:.6f}", retry_attempts=json.dumps(attempts))
+    fields.update(shrunk="1x7", shrunk_plans="bit-identical on the real groups",
+                  shrunk_cost_per_hr=f"{shrunk_cost:.6f}", retry_attempts=json.dumps(attempts),
+                  shrunk_k9a_obj_rel=f"{shrunk_obj:.3e}")
     if cards > 1:
         # Distinct cards: the real mesh, transport included.
         real_mesh = solver.solve_mesh(device)
@@ -3649,7 +3824,7 @@ def child_result(child, marker: str):
 def main(argv=None) -> int:
     """With no arguments, every phase. `--greedy-signature` and `--phase
     controller` are the two parts the full run starts in processes of their
-    own."""
+    own; `--phase sharded` runs the sharded phase alone."""
     import torch
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -3862,7 +4037,7 @@ def smoke(children) -> int:
     k6_plans = [pack_kernel.levels_launch_plan(g, t, 8) for g, t, _, _ in K6_SHAPES]
     check({p.tables_in_shared for p in k6_plans} == {True, False}
           and {p.placed_in_registers for p in k6_plans} == {True, False}
-          and any(t > p.threads for p, (_, t, _, _) in zip(k6_plans, K6_SHAPES))
+          and {p.cluster for p in k6_plans} == {1, 2, 4, 8, 16}
           and any(t % 32 for _, t, _, _ in K6_SHAPES),
           "the K6 shapes do not cover every launch plan")
     k6_cases_run = 0
@@ -4245,8 +4420,14 @@ def smoke(children) -> int:
     k6_event_ms = time_cuda(k6_call, reps=20)
     k6_ms = device_ms_per_call(k6_call, ["pack_levels_kernel", "select_kernel"], reps=20)
     k6_plain_ms = time_cuda(lambda: plain_levels(k6_operands, "cost"), reps=3, warmup=1)
-    k6_bytes, k6_ops = k6_needed(k6_operands)
+    k6_bytes, k6_ops, k6_rounds = k6_needed(k6_operands)
     k6_bound, k6_by = bound(k6_bytes, k6_ops)
+    k6_plan = pack_kernel.levels_launch_plan(
+        k6_operands[0].shape[0], k6_operands[2].shape[0], k6_operands[0].shape[1])
+    # The levels run side by side: the one with the most rounds sets the time.
+    k6_us_per_round = k6_ms * 1e3 / max(max(k6_rounds), 1)
+    print(f"  K6 at the constrained cell: rounds a level {k6_rounds}, {k6_us_per_round:.3f} us a round "
+          f"(cluster {k6_plan.cluster}, {k6_plan.lanes} lanes a type, {k6_plan.threads} threads)")
     kernels.append({
         "name": "pack_kernel_levels", "route": "cuda",
         "source": "karpenter_tpu_torch/csrc/pack_levels.cu",
@@ -4254,6 +4435,8 @@ def smoke(children) -> int:
         "launches": levels["launches"], "max_abs_err": max(levels["max_abs_err"], k6_err),
         "ms": k6_ms, "event_ms": k6_event_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound,
         "bound_by": k6_by, "library_ms": None,
+        "cluster": k6_plan.cluster, "lanes": k6_plan.lanes, "rounds": k6_rounds,
+        "us_per_round": k6_us_per_round,
     })
     # K8: one steady-state sweep's scatters and gathers on the churn
     # phase's arrays.
@@ -4324,6 +4507,12 @@ def smoke(children) -> int:
     k9b_budget = pack_kernel.shard_entry_budget(num_groups, k9b_shards)
     k9b_bound, k9b_by = bound(2 * 4 * mr * num_groups + 2 * 4 * k9b_shards * (1 + 2 * k9b_budget),
                               2 * 2 * mr * num_groups)
+    # K9a at G 2,048 x T 512: the same LP's work at that width.
+    big_g, big_t, big_r = sharded["g2048"]["lp"]
+    k9a_big_bound, k9a_big_by = bound(
+        4 * (big_g * big_r + big_g + big_t * big_r + big_t + 2 * lp_steps) + big_t
+        + 4 * (big_g * big_t + big_t + 1),
+        lp_operations(big_g, big_t, big_r, lp_steps))
     kernels.append({
         "name": "lp_shard", "route": "cuda",
         "source": "karpenter_tpu_torch/csrc/lp_shard.cu",
@@ -4331,11 +4520,22 @@ def smoke(children) -> int:
         "launches": wide["launches"]["lp_shard"], "max_abs_err": max(wide["k9a_err"], square["k9a_err"]),
         "ms": wide["k9a_ms"], "event_ms": wide["k9a_event_ms"], "plain_ms": wide["k9a_plain_ms"],
         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
-        "mesh": "2x4", "ms_per_step": wide["k9a_ms"] / lp_steps,
+        "mesh": "2x4", "lp_route": "persistent", "blocks": wide["k9a_plan"].blocks,
+        "us_per_step": wide["k9a_ms"] * 1e3 / lp_steps,
         "launches_per_solve": wide["launches"]["lp_shard"],
         "ms_2x2": square["k9a_ms"], "event_ms_2x2": square["k9a_event_ms"],
         "plain_ms_2x2": square["k9a_plain_ms"], "launches_2x2": square["launches"]["lp_shard"],
-        "event_ms_g2048": sharded["g2048"]["k9a_event_ms"], "k3_event_ms_g2048": k3_big_ms,
+        "blocks_2x2": square["k9a_plan"].blocks, "us_per_step_2x2": square["k9a_ms"] * 1e3 / lp_steps,
+        "ms_g2048": sharded["g2048"]["k9a_ms"], "event_ms_g2048": sharded["g2048"]["k9a_event_ms"],
+        "bound_ms_g2048": k9a_big_bound, "bound_by_g2048": k9a_big_by,
+        "blocks_g2048": sharded["g2048"]["blocks"], "k3_event_ms_g2048": k3_big_ms,
+        # The per-phase route (a mesh across cards) forced on the 2x4 mesh.
+        "launches_per_phase": sharded["per_phase"]["launches"], "ms_per_phase": sharded["per_phase"]["ms"],
+        "event_ms_per_phase": sharded["per_phase"]["event_ms"],
+        "us_per_step_per_phase": sharded["per_phase"]["ms"] * 1e3 / lp_steps,
+        "objective_rel_per_phase": sharded["per_phase"]["objective_rel"],
+        "ms_per_phase_g2048": sharded["g2048"]["per_phase_ms"],
+        "event_ms_per_phase_g2048": sharded["g2048"]["per_phase_event_ms"],
     })
     kernels.append({
         "name": "compact_shard", "route": "cuda",

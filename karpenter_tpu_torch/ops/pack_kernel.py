@@ -45,7 +45,7 @@ import ctypes
 import math
 import threading
 from collections import OrderedDict
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,9 +82,10 @@ LEVELS_LIBRARY = CudaLibrary(
         "ktt_pack_levels_words": (ctypes.c_int, [ctypes.c_int]),
         "ktt_pack_levels_shared_bytes": (ctypes.c_longlong, [ctypes.c_int] * 5),
         "ktt_pack_levels_table_words": (ctypes.c_longlong, [ctypes.c_int] * 3),
+        "ktt_pack_levels_fill_words": (ctypes.c_longlong, [ctypes.c_int] * 2),
         "ktt_pack_levels": (
             ctypes.c_int,
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7,
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 6,
         ),
     },
 )
@@ -476,7 +477,7 @@ def pack_kernel_pair(
 #   * node_cap[g]      — at most this many pods of g a node.
 
 NODE_CAP_NONE = 2**30  # int32-safe "no per-node cap" sentinel
-MAX_LEVELS = 8  # constraints.ladder.MAX_LEVELS: K6 runs one block a level
+MAX_LEVELS = 8  # constraints.ladder.MAX_LEVELS: K6 runs one cluster a level
 # XLA's reduce-window size on the CPU: the reference sums pen past 32 groups
 # in windows of 32.
 _SUM_WINDOW = 32
@@ -811,30 +812,80 @@ def _check_level_args(
 
 
 class LevelsLaunchPlan(NamedTuple):
-    """How K6 lays one level's round loop over a block."""
+    """How K6 lays one level's round loop over a thread-block cluster."""
 
-    threads: int  # a multiple of 32; thread i owns types i + k * threads
+    cluster: int  # blocks a level, 1..LEVELS_MAX_CLUSTER
+    lanes: int  # threads a type, each a share of its axes (1, 2, 4 or 8)
+    types_per_block: int  # block b owns types [b * TB, (b + 1) * TB)
+    threads: int  # a multiple of 32, at most 512; slot i (threads / lanes) owns types i + k * slots
     shared_bytes: int  # dynamic shared memory per block
-    fills_in_shared: bool  # else [L, G, T] int32 of global scratch
-    tables_in_shared: bool  # else [L, table words] int32 of global scratch
-    placed_in_registers: bool  # else [L, W, threads] uint32 of global scratch
+    fills_in_shared: bool  # else [L * cluster, 2, G, TB] int32 of global scratch
+    tables_in_shared: bool  # else [L * cluster, table words] int32 of global scratch
+    placed_in_registers: bool  # else [L * cluster, W, threads] uint32 of global scratch
+
+    def owner(self, t: int) -> int:
+        """The cluster rank that owns type t."""
+        return t // self.types_per_block
 
 
-def levels_table_words(groups: int, types: int, dims: int) -> int:
+# csrc/pack_levels.cu's Control words (with the cluster's exchanged keys).
+_LEVELS_CONTROL_BYTES = 416
+LEVELS_MAX_CLUSTER = 16
+LEVELS_MAX_THREADS = 512  # 128 registers a thread: the scan spills at 64
+# Types a block of a level's cluster should own: the cluster grows (in
+# powers of two) until each block owns at most this many.
+_LEVEL_TYPES_PER_BLOCK = 64
+
+
+def levels_table_words(groups: int, types_per_block: int, dims: int) -> int:
     """Words of one block's tables (csrc/pack_levels.cu table_words): [G, R]
-    vectors, five [G] tables, the [G, W] conflict rows and the [T] sums."""
-    return groups * dims + 5 * groups + groups * (-(-groups // 32)) + types
+    vectors, five [G] tables, the [G, W] conflict rows, its types' [W, TB]
+    usable words and [G, TB] penalties, the [W] words of the groups with
+    pods left."""
+    bit_words = -(-groups // 32)
+    return (groups * dims + 5 * groups + groups * bit_words + bit_words * types_per_block
+            + groups * types_per_block + bit_words)
+
+
+def levels_fill_words(groups: int, types_per_block: int) -> int:
+    """Words of one block's fills: [2, G, TB], one half a round by parity."""
+    return 2 * groups * types_per_block
+
+
+def levels_plan_for(groups: int, types: int, dims: int, cluster: int, lanes: int) -> LevelsLaunchPlan:
+    """K6's plan at a given cluster size and lanes a type: TB = ceil(T /
+    cluster) types a block, as many type slots as TB (at most 512 / lanes
+    threads' worth); the tables in shared memory when they fit SHARED_LIMIT
+    beside the control words, the fills when they fit beside both; the
+    placed bits in registers up to G 256."""
+    if not 1 <= cluster <= LEVELS_MAX_CLUSTER or lanes not in (1, 2, 4, 8):
+        raise ValueError(f"pack_kernel_levels: no plan at cluster {cluster}, {lanes} lanes")
+    types_per_block = -(-types // cluster)
+    threads = (min(types_per_block, LEVELS_MAX_THREADS // lanes) * lanes + 31) & ~31
+    tables = 4 * levels_table_words(groups, types_per_block, dims)
+    fills = 4 * levels_fill_words(groups, types_per_block)
+    tables_in_shared = _LEVELS_CONTROL_BYTES + tables <= SHARED_LIMIT
+    fills_in_shared = tables_in_shared and _LEVELS_CONTROL_BYTES + tables + fills <= SHARED_LIMIT
+    shared = (_LEVELS_CONTROL_BYTES + (tables if tables_in_shared else 0)
+              + (fills if fills_in_shared else 0))
+    return LevelsLaunchPlan(cluster, lanes, types_per_block, threads, shared, fills_in_shared,
+                            tables_in_shared, groups <= 256)
 
 
 def levels_launch_plan(groups: int, types: int, dims: int) -> LevelsLaunchPlan:
-    """K6's launch plan, from the sizes alone: one type per thread up to
-    1,024 threads, more a thread past that; the [G, T] fills in shared
-    memory when the tables and fills fit SHARED_LIMIT, the tables alone
-    when they do, else both in global scratch; the node's placed bits in
-    registers up to G 256."""
-    threads = min(MAX_THREADS, (types + 31) & ~31)
-    storage = _shared_storage(4 * levels_table_words(groups, types, dims), 4 * groups * types)
-    return LevelsLaunchPlan(threads, *storage, groups <= 256)
+    """K6's launch plan, from the sizes alone: the smallest power-of-two
+    cluster whose blocks own at most 64 types (at most 16 blocks); a type
+    spread over one lane an axis (the axes rounded up to a power of two, at
+    most 8), halved while a block's types would need more than 512
+    threads."""
+    cluster = 1
+    while cluster < LEVELS_MAX_CLUSTER and cluster * _LEVEL_TYPES_PER_BLOCK < types:
+        cluster *= 2
+    types_per_block = -(-types // cluster)
+    lanes = 1
+    while lanes < min(dims, MAX_DIMS) and types_per_block * lanes * 2 <= LEVELS_MAX_THREADS:
+        lanes *= 2
+    return levels_plan_for(groups, types, dims, cluster, lanes)
 
 
 def level_pack_words(groups: int, levels: int) -> int:
@@ -860,9 +911,12 @@ def level_pack_from_words(words: torch.Tensor, groups: int, levels: int) -> Leve
 
 
 def _launch_levels(vectors, level_counts, capacity, valid_types, prices, level_allow,
-                   level_penalty, conflict, node_cap, mode: str) -> torch.Tensor:
-    """One call of K6 (the level kernel, then the selection kernel).
-    Returns its [level_pack_words] int32 output."""
+                   level_penalty, conflict, node_cap, mode: str,
+                   plan: Optional[LevelsLaunchPlan] = None) -> torch.Tensor:
+    """One call of K6 (the level kernel, then the selection kernel), with
+    levels_launch_plan's plan; `plan` overrides it only where the card
+    tests hold K6 at every cluster size. Returns its [level_pack_words]
+    int32 output."""
     num_levels, num_groups = level_counts.shape
     num_types, dims = capacity.shape
     if num_groups == 0 or num_types == 0 or dims == 0 or num_levels == 0:
@@ -874,34 +928,37 @@ def _launch_levels(vectors, level_counts, capacity, valid_types, prices, level_a
                level_penalty, conflict, node_cap)
     if not all(tensor.is_contiguous() for tensor in tensors):
         raise ValueError("pack_kernel_levels kernel takes contiguous tensors")
-    plan = levels_launch_plan(num_groups, num_types, dims)
+    plan = plan or levels_launch_plan(num_groups, num_types, dims)
+    if plan.shared_bytes > SHARED_LIMIT:
+        raise ValueError(f"pack_kernel_levels: the plan asks for {plan.shared_bytes} bytes of shared memory")
     lib = LEVELS_LIBRARY.load()
     device = vectors.device
+    blocks = num_levels * plan.cluster
     bit_words = -(-num_groups // 32)
     level_words = lib.ktt_pack_levels_words(num_groups)
     level_out = torch.empty((num_levels, level_words), dtype=torch.int32, device=device)
-    usable = torch.empty((num_levels, bit_words, num_types), dtype=torch.int32, device=device)
     fills = tables = placed = None
     if not plan.fills_in_shared:
-        fills = torch.empty((num_levels, num_groups, num_types), dtype=torch.int32, device=device)
+        fills = torch.empty((blocks, levels_fill_words(num_groups, plan.types_per_block)),
+                            dtype=torch.int32, device=device)
     if not plan.tables_in_shared:
         tables = torch.empty(
-            (num_levels, levels_table_words(num_groups, num_types, dims)),
+            (blocks, levels_table_words(num_groups, plan.types_per_block, dims)),
             dtype=torch.int32, device=device,
         )
     if not plan.placed_in_registers:
-        placed = torch.empty((num_levels, bit_words, plan.threads), dtype=torch.int32, device=device)
+        placed = torch.empty((blocks, bit_words, plan.threads), dtype=torch.int32, device=device)
     words = level_pack_words(num_groups, num_levels)
     out = torch.empty(words, dtype=torch.int32, device=device)
     select_blocks = max(1, min(132, -(-words // 1024)))
-    outputs = [level_out, usable, out] + [t for t in (fills, tables, placed) if t is not None]
+    outputs = [level_out, out] + [t for t in (fills, tables, placed) if t is not None]
     with launch_stream("pack_kernel_levels", tensors + tuple(outputs)) as stream:
         status = lib.ktt_pack_levels(
             *(tensor.data_ptr() for tensor in tensors),
-            num_groups, num_types, dims, num_levels, _MODES.index(mode), plan.threads,
-            select_blocks, level_out.data_ptr(),
+            num_groups, num_types, dims, num_levels, _MODES.index(mode), plan.cluster,
+            plan.lanes, plan.threads, select_blocks, level_out.data_ptr(),
             0 if fills is None else fills.data_ptr(),
-            0 if tables is None else tables.data_ptr(), usable.data_ptr(),
+            0 if tables is None else tables.data_ptr(),
             0 if placed is None else placed.data_ptr(), out.data_ptr(), stream,
         )
     check_launch(status, "pack_kernel_levels")

@@ -5,11 +5,19 @@ The port of karpenter_tpu/parallel/sharded_solver.py. The [G, T]
 assignment problem shards over the ("groups", "types") mesh: shard (i, j)
 holds block (i, j) of the logits, the Adam moments, the softmax and the
 feasibility mask, the i-th block of the group tables and the j-th of the
-type tables. One Adam step is K9a's three phases on every shard
-(ops/lp_shard_kernel) with the cross-shard reductions of
-parallel/collectives.py between them: the row max and row sum of the
-softmax over the types axis, the demand over the groups axis, the row dot
-over the types axis. This is the reference's GSPMD program written out.
+type tables. The route follows from the mesh:
+
+  * shards on more than one device: one Adam step is K9a's three phases on
+    every shard (ops/lp_shard_kernel) with the cross-shard reductions of
+    parallel/collectives.py between them: the row max and row sum of the
+    softmax over the types axis, the demand over the groups axis, the row
+    dot over the types axis. This is the reference's GSPMD program written
+    out, and the only route with transport between cards;
+  * every shard on one card: the blocks are stacked and the whole LP is
+    one launch of K9a's persistent kernel (`lp_shard_kernel.shard_lp`),
+    which takes the same reductions inside the launch. On the CPU the
+    mesh takes the per-phase route, whose wrappers run the phases' plain
+    versions: the plain version of both routes.
 
 The constrained [L, G, T] dispatch shards its relaxation-level axis over
 every shard of the mesh: levels are independent solves over the same
@@ -144,7 +152,25 @@ def _bias_rows(steps_from: int, steps: int, device: torch.device) -> torch.Tenso
     return torch.from_numpy(np.ascontiguousarray(table)).to(device)
 
 
-def _softmax(mesh, problem, state, scratch, ref, row_dot, bias) -> Tuple[Grid, Optional[Grid]]:
+class Phases(NamedTuple):
+    """K9a's three phases: the kernels' wrappers or their plain versions."""
+
+    softmax: Callable
+    demand: Callable
+    row_dot: Callable
+
+
+_PLAIN_PHASES = Phases(lp_shard_kernel._softmax_ref, lp_shard_kernel._demand_ref,
+                       lp_shard_kernel._row_dot_ref)
+
+
+def _kernel_phases() -> Phases:
+    """The phases' wrappers, looked up at the call."""
+    return Phases(lp_shard_kernel.shard_softmax, lp_shard_kernel.shard_demand,
+                  lp_shard_kernel.shard_row_dot)
+
+
+def _softmax(mesh, problem, state, scratch, ref, row_dot, bias, phases) -> Tuple[Grid, Optional[Grid]]:
     """K9a's softmax phase on every shard, then its reductions over the
     types axis: (row max, row sum) grids, the sum None without `ref`."""
     maxima, sums = [], []
@@ -152,7 +178,7 @@ def _softmax(mesh, problem, state, scratch, ref, row_dot, bias) -> Tuple[Grid, O
         row_max, row_sum = [], []
         for col in range(mesh.shape[1]):
             device = mesh.shard(row, col).device
-            top, total = lp_shard_kernel.shard_softmax(
+            top, total = phases.softmax(
                 state.logits[row][col], state.mu[row][col], state.nu[row][col],
                 scratch.share[row][col], scratch.d_share[row][col], problem.feasible[row][col],
                 None if row_dot is None else row_dot[row][col],
@@ -167,46 +193,96 @@ def _softmax(mesh, problem, state, scratch, ref, row_dot, bias) -> Tuple[Grid, O
     return maxima, (None if ref is None else collectives.sum_over_types(mesh, sums))
 
 
-def _demand(mesh, problem, scratch, totals, assignment=None) -> Grid:
-    parts = _grid(mesh, lambda r, c: lp_shard_kernel.shard_demand(
+def _demand(mesh, problem, scratch, totals, phases, assignment=None) -> Grid:
+    parts = _grid(mesh, lambda r, c: phases.demand(
         scratch.share[r][c], problem.feasible[r][c], problem.counts[r][c],
         problem.vectors[r][c], totals[r][c], None if assignment is None else assignment[r][c],
     ))
     return collectives.sum_over_groups(mesh, parts)
 
 
-def _row_dot(mesh, problem, scratch, demand) -> Grid:
-    parts = _grid(mesh, lambda r, c: lp_shard_kernel.shard_row_dot(
+def _row_dot(mesh, problem, scratch, demand, phases) -> Grid:
+    parts = _grid(mesh, lambda r, c: phases.row_dot(
         scratch.share[r][c], scratch.d_share[r][c], problem.feasible[r][c], problem.counts[r][c],
         problem.vectors[r][c], problem.capacity[r][c], problem.prices[r][c], demand[r][c],
     ))
     return collectives.sum_over_types(mesh, parts)
 
 
-def _start(mesh, problem, state) -> Tuple[_Scratch, Grid, Grid]:
+def _start(mesh, problem, state, phases) -> Tuple[_Scratch, Grid, Grid]:
     """Fresh S/dS scratch and the first softmax: the exact row max as the
     reference, then e against it. Returns (scratch, ref, totals)."""
     scratch = _Scratch(
         share=_grid(mesh, lambda r, c: torch.zeros_like(state.logits[r][c])),
         d_share=_grid(mesh, lambda r, c: torch.zeros_like(state.logits[r][c])),
     )
-    ref, _ = _softmax(mesh, problem, state, scratch, None, None, None)
-    ref, totals = _softmax(mesh, problem, state, scratch, ref, None, None)
+    ref, _ = _softmax(mesh, problem, state, scratch, None, None, None, phases)
+    ref, totals = _softmax(mesh, problem, state, scratch, ref, None, None, phases)
     return scratch, ref, totals
 
 
-def _run_steps(mesh, problem, state, steps: int):
-    """`steps` Adam steps from `state`, in place. Returns (scratch, the
-    softmax's row totals, the demand of the state before the last step)."""
-    scratch, ref, totals = _start(mesh, problem, state)
-    bias = {device: _bias_rows(state.count, steps, device) for device in mesh.devices}
+def _run_phases(mesh, problem, state, bias, steps: int, final: bool, phases: Optional[Phases] = None):
+    """The per-phase route: `steps` Adam steps from `state`, in place, with
+    `bias` ({device: [>= steps, 2]}), each K9a's three phases on every
+    shard with the collectives between, then with `final` the pass that
+    writes the relaxed assignment; through `phases`, by default the
+    kernels' wrappers (which run the plain versions on CPU tensors).
+    Returns (assignment grid or None, demand grid: the final pass's, or the
+    last step's, of the state before its update)."""
+    phases = phases or _kernel_phases()
+    scratch, ref, totals = _start(mesh, problem, state, phases)
     demand = None
     for step in range(steps):
-        demand = _demand(mesh, problem, scratch, totals)
-        row_dot = _row_dot(mesh, problem, scratch, demand)
+        demand = _demand(mesh, problem, scratch, totals, phases)
+        row_dot = _row_dot(mesh, problem, scratch, demand, phases)
         step_bias = {device: rows[step] for device, rows in bias.items()}
-        ref, totals = _softmax(mesh, problem, state, scratch, ref, row_dot, step_bias)
-    return scratch, totals, demand
+        ref, totals = _softmax(mesh, problem, state, scratch, ref, row_dot, step_bias, phases)
+    if not final:
+        return None, demand
+    assignment = _grid(mesh, lambda r, c: torch.empty_like(state.logits[r][c]))
+    return assignment, _demand(mesh, problem, scratch, totals, phases, assignment)
+
+
+def _run_persistent(mesh, problem, state, bias, steps: int, final: bool):
+    """The one-card route: the blocks stacked, K9a's persistent kernel over
+    them, the state's blocks updated from it. Returns as _run_phases."""
+    flat = [(r, c) for r in range(mesh.shape[0]) for c in range(mesh.shape[1])]
+
+    def stacked(grid):
+        return torch.stack([grid[r][c] for r, c in flat])
+
+    logits, mu, nu = stacked(state.logits), stacked(state.mu), stacked(state.nu)
+    assignment, demand = lp_shard_kernel.shard_lp(
+        torch.stack([problem.vectors[r][0] for r in range(mesh.shape[0])]),
+        torch.stack([problem.counts[r][0] for r in range(mesh.shape[0])]),
+        torch.stack([problem.capacity[0][c] for c in range(mesh.shape[1])]),
+        torch.stack([problem.prices[0][c] for c in range(mesh.shape[1])]),
+        stacked(problem.feasible), logits, mu, nu, bias[mesh.devices[0]], steps, mesh.shape, final,
+    )
+    for index, (r, c) in enumerate(flat):
+        for grid, new in ((state.logits, logits), (state.mu, mu), (state.nu, nu)):
+            grid[r][c].copy_(new[index])
+    blocks = None if assignment is None else _grid(
+        mesh, lambda r, c: assignment[r * mesh.shape[1] + c])
+    return blocks, _grid(mesh, lambda r, c: demand[c])
+
+
+def _route(mesh: Mesh) -> Callable:
+    """The LP's route over `mesh`: K9a's persistent kernel when every shard
+    lies on one card; else its phases with the collectives between (across
+    devices, and on the CPU, where the wrappers run the plain versions)."""
+    if len(mesh.devices) == 1 and mesh.devices[0].type == "cuda":
+        return _run_persistent
+    return _run_phases
+
+
+def _run_steps(mesh, problem, state, steps: int, final: bool):
+    """`steps` Adam steps from `state`, in place, then with `final` the pass
+    that writes the relaxed assignment, by the route of the mesh. Returns
+    (assignment grid or None, demand grid: the final pass's, or the last
+    step's)."""
+    bias = {device: _bias_rows(state.count, steps, device) for device in mesh.devices}
+    return _route(mesh)(mesh, problem, state, bias, steps, final)
 
 
 def sharded_lp_blocks(mesh: Mesh, problem: ShardedProblem, steps: int = 300) -> ShardedLP:
@@ -214,9 +290,7 @@ def sharded_lp_blocks(mesh: Mesh, problem: ShardedProblem, steps: int = 300) -> 
     price-density start, then the relaxed assignment, the hard-max nodes
     and the objective, all in shard blocks."""
     state = lp_train_init(mesh, problem)
-    scratch, totals, _ = _run_steps(mesh, problem, state, steps)
-    assignment = _grid(mesh, lambda r, c: torch.empty_like(state.logits[r][c]))
-    demand = _demand(mesh, problem, scratch, totals, assignment)
+    assignment, demand = _run_steps(mesh, problem, state, steps, final=True)
     nodes = _grid(mesh, lambda r, c: (
         demand[r][c] / torch.clamp(problem.capacity[r][c], min=1e-3)).amax(dim=1))
     partials = _grid(mesh, lambda r, c: torch.sum(problem.prices[r][c] * nodes[r][c]))
@@ -302,7 +376,7 @@ def sharded_lp_train_step(mesh: Optional[Mesh] = None):
             return full[rows if index < 2 else columns].contiguous()
 
         problem = ShardedProblem(*(_grid(mesh, lambda r, c, i=i: part(r, c, i)) for i in range(5)))
-        _, _, demand = _run_steps(mesh, problem, state, 1)
+        _, demand = _run_steps(mesh, problem, state, 1, final=False)
         # The smooth objective of the state before the update, from its
         # demand: sum_t p * logsumexp_r(20 * D / max(K, 1e-3)) / 20.
         partials = _grid(mesh, lambda r, c: torch.sum(problem.prices[r][c] * torch.logsumexp(

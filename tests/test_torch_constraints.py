@@ -296,23 +296,25 @@ def test_levels_plan_fits_the_card(shape):
     groups, types, dims = shape
     plan = port_pack.levels_launch_plan(groups, types, dims)
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= port_pack.MAX_THREADS
-    assert plan.threads >= min(types, port_pack.MAX_THREADS)
+    assert plan.threads >= min(plan.types_per_block * plan.lanes, port_pack.MAX_THREADS)
+    assert plan.cluster * plan.types_per_block >= types
     assert plan.shared_bytes <= port_pack.SHARED_LIMIT
-    tables = 4 * port_pack.levels_table_words(groups, types, dims)
-    fills = 4 * groups * types
-    assert plan.tables_in_shared == (port_pack._CONTROL_BYTES + tables <= port_pack.SHARED_LIMIT)
+    tables = 4 * port_pack.levels_table_words(groups, plan.types_per_block, dims)
+    fills = 4 * port_pack.levels_fill_words(groups, plan.types_per_block)
+    control = port_pack._LEVELS_CONTROL_BYTES
+    assert plan.tables_in_shared == (control + tables <= port_pack.SHARED_LIMIT)
     assert plan.fills_in_shared == (
-        plan.tables_in_shared
-        and port_pack._CONTROL_BYTES + tables + fills <= port_pack.SHARED_LIMIT)
+        plan.tables_in_shared and control + tables + fills <= port_pack.SHARED_LIMIT)
     assert plan.placed_in_registers == (groups <= 256)
 
 
 def test_levels_plan_at_the_constrained_path_shape():
-    # G' 64, T 512: one type a thread, tables and fills in shared memory,
-    # the placed bits in registers.
+    # G' 64, T 512: a cluster of 8 blocks of 64 types a level, 8 lanes a
+    # type (one an axis), tables and fills in shared memory, the placed bits
+    # in registers.
     plan = port_pack.levels_launch_plan(64, 512, 8)
-    assert (plan.threads, plan.fills_in_shared, plan.tables_in_shared,
-            plan.placed_in_registers) == (512, True, True, True)
+    assert (plan.cluster, plan.lanes, plan.types_per_block, plan.threads, plan.fills_in_shared,
+            plan.tables_in_shared, plan.placed_in_registers) == (8, 8, 64, 512, True, True, True)
 
 
 def test_level_pack_words_match_the_views():

@@ -576,11 +576,50 @@ def test_levels_shapes_cover_every_plan(cuda_device):
     plans = [pack_kernel.levels_launch_plan(g, t, 8) for g, t, _, _ in chip_smoke.K6_SHAPES]
     assert {plan.tables_in_shared for plan in plans} == {True, False}
     assert {plan.placed_in_registers for plan in plans} == {True, False}
+    assert {plan.cluster for plan in plans} == {1, 2, 4, 8, 16}
     for plan, (g, t, _, _) in zip(plans, chip_smoke.K6_SHAPES):
+        tb = plan.types_per_block
         assert lib.ktt_pack_levels_shared_bytes(
-            g, t, 8, int(plan.fills_in_shared), int(plan.tables_in_shared)) == plan.shared_bytes
-        assert lib.ktt_pack_levels_table_words(g, t, 8) == pack_kernel.levels_table_words(g, t, 8)
+            g, tb, 8, int(plan.fills_in_shared), int(plan.tables_in_shared)) == plan.shared_bytes
+        assert lib.ktt_pack_levels_table_words(g, tb, 8) == pack_kernel.levels_table_words(g, tb, 8)
+        assert lib.ktt_pack_levels_fill_words(g, tb) == pack_kernel.levels_fill_words(g, tb)
         assert lib.ktt_pack_levels_words(g) == pack_kernel.rounds_words(g)
+
+
+# Every cluster size at a shape with G' past 256 (placed bits in scratch)
+# and one with T past 1,024, each at one lane and at the rule's lanes.
+K6_CLUSTER_SHAPES = [(512, 256, 2, 50), (16, 1500, 2, None)]
+
+
+@pytest.mark.parametrize("lanes", [1, None], ids=["one-lane", "rule-lanes"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("shape", K6_CLUSTER_SHAPES, ids=lambda s: "G{}-T{}".format(*s[:2]))
+def test_levels_kernel_at_every_cluster_size(shape, cluster, lanes, cuda_device):
+    """K6 at a plan the rule would not pick, bit for bit against its plain
+    version in both modes."""
+    from karpenter_tpu_torch.convert import upload_packed
+
+    groups, types, levels, real = shape
+    operands = chip_smoke.k6_problem(cluster, groups, types, levels, real)
+    tensors = upload_packed(list(operands), cuda_device)
+    lanes = lanes or pack_kernel.levels_launch_plan(groups, types, 8).lanes
+    plan = pack_kernel.levels_plan_for(groups, types, 8, cluster, lanes)
+    for mode in ("ffd", "cost"):
+        out = pack_kernel._launch_levels(*tensors[:3], *tensors[4:], mode, plan=plan)
+        got = pack_kernel.level_pack_from_words(out, groups, levels)
+        want = chip_smoke.plain_levels(tensors, mode)
+        torch.cuda.synchronize()
+        assert chip_smoke.level_packs_equal(got, want), mode
+
+
+def test_levels_kernel_is_deterministic(cuda_device):
+    from karpenter_tpu_torch.convert import upload_packed
+
+    tensors = upload_packed(list(chip_smoke.k6_problem(5, 64, 512, 4)), cuda_device)
+    first = pack_kernel.pack_kernel_levels(*tensors, mode="cost")
+    again = pack_kernel.pack_kernel_levels(*tensors, mode="cost")
+    torch.cuda.synchronize()
+    assert chip_smoke.level_packs_equal(first, again)
 
 
 def test_constrained_solve_on_card_equals_cpu(cuda_device):
@@ -702,7 +741,14 @@ def test_forecast_kernel_rejects_bad_arguments(cuda_device):
 # --- K9a and K9b: the sharded solve's kernels on meshes of the card ----------------
 
 
-MESHES = [(4, (2, 2)), (8, (2, 4))]
+MESHES = [(4, (2, 2)), (8, (2, 4)), (7, (1, 7))]
+
+
+def _lp_for(shards, seed, device):
+    """chip_smoke's LP family at the main path's padded shape for the mesh
+    (16 x 512; 21 x 518 on 1x7, padded to multiples of 7)."""
+    shape = (21, 518) if shards == 7 else (16, 512)
+    return chip_smoke.lp_inputs(seed, shape, device)
 
 
 def _card_mesh(shards, device):
@@ -711,22 +757,23 @@ def _card_mesh(shards, device):
     return mesh.make_mesh([mesh.Shard(i, device) for i in range(shards)])
 
 
-@pytest.mark.parametrize("shards,shape", MESHES, ids=["2x2", "2x4"])
+@pytest.mark.parametrize("shards,shape", MESHES, ids=["2x2", "2x4", "1x7"])
 @pytest.mark.parametrize("seed", chip_smoke.LP_SEEDS[:3])
 def test_sharded_lp_kernel_equals_plain_version(seed, shards, shape, cuda_device):
-    """K9a's three phases over a mesh of the card against the same solve
-    through their plain versions on the card: K3's LP tolerances."""
+    """K9a over a mesh of the card (every shard on one card: one launch of
+    its persistent kernel for the whole LP) against the same solve through
+    the plain versions on the card: K3's LP tolerances."""
     from karpenter_tpu_torch.ops import lp_shard_kernel
     from karpenter_tpu_torch.parallel import sharded_solver
 
     mesh = _card_mesh(shards, cuda_device)
     assert mesh.shape == shape
-    lp_args = chip_smoke.lp_inputs(seed, (16, 512), cuda_device)
+    lp_args = _lp_for(shards, seed, cuda_device)
     problem = sharded_solver.shard_lp_problem(mesh, {cuda_device: lp_args})
     before = lp_shard_kernel.launches()
     got = sharded_solver.sharded_lp_blocks(mesh, problem, 300)
     torch.cuda.synchronize()
-    assert lp_shard_kernel.launches() - before == shards * (2 + 3 * 300 + 1)
+    assert lp_shard_kernel.launches() - before == 1
     with chip_smoke.plain_k9a():
         want = sharded_solver.sharded_lp_blocks(mesh, sharded_solver.shard_lp_problem(mesh, {cuda_device: lp_args}), 300)
     from karpenter_tpu_torch.parallel.collectives import assemble
@@ -737,7 +784,7 @@ def test_sharded_lp_kernel_equals_plain_version(seed, shards, shape, cuda_device
     assert err <= LP_ASSIGNMENT_ATOL
 
 
-@pytest.mark.parametrize("shards,shape", MESHES, ids=["2x2", "2x4"])
+@pytest.mark.parametrize("shards,shape", MESHES[:2], ids=["2x2", "2x4"])
 def test_sharded_lp_kernel_phases_equal_plain_versions(shards, shape, cuda_device):
     """Each phase alone on one shard's block: the kernel against its plain
     version on the same inputs (float32 sums in other orders)."""
@@ -749,6 +796,111 @@ def test_sharded_lp_kernel_phases_equal_plain_versions(shards, shape, cuda_devic
         want = getattr(lp_shard_kernel, outputs)(*plain_args)
         torch.cuda.synchronize()
         assert chip_smoke.phase_close(got, want, kernel_args, plain_args), name
+
+
+@pytest.mark.parametrize("width", ["main", "g2048"])
+def test_sharded_lp_per_phase_route_equals_plain_version(width, cuda_device):
+    """K9a's per-phase route (the route of a mesh across cards: three
+    kernels a shard a step, the collectives between) forced on the one-card
+    2x4 mesh, on the main path's LP and at G 2,048 x T 512: shards x (3 x
+    300 + 3) phase launches and no persistent one, the objective and the
+    pods within the LP tolerances of the plain versions'."""
+    from karpenter_tpu_torch.parallel import sharded_solver
+
+    mesh = _card_mesh(8, cuda_device)
+    lp_args = _lp_for(8, 1, cuda_device) if width == "main" else _wide_lp(6, 2048, 512, cuda_device)
+    problem = sharded_solver.shard_lp_problem(mesh, {cuda_device: lp_args})
+    with chip_smoke.plain_k9a():
+        want = sharded_solver.sharded_lp_blocks(mesh, problem, 300)
+    obj_err, pods_err = chip_smoke.k9a_per_phase_against_plain(mesh, problem, want, lp_args[1], 300)
+    assert obj_err <= LP_OBJECTIVE_RTOL
+    assert pods_err <= chip_smoke.LP_PODS_RTOL
+
+
+@pytest.mark.parametrize("shards,shape", MESHES, ids=["2x2", "2x4", "1x7"])
+def test_sharded_lp_kernel_gives_the_same_bits_twice(shards, shape, cuda_device):
+    from karpenter_tpu_torch.parallel import collectives, sharded_solver
+
+    mesh = _card_mesh(shards, cuda_device)
+    problem = sharded_solver.shard_lp_problem(mesh, {cuda_device: _lp_for(shards, 4, cuda_device)})
+    first = sharded_solver.sharded_lp_blocks(mesh, problem, 300)
+    again = sharded_solver.sharded_lp_blocks(mesh, problem, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(collectives.assemble(mesh, first.assignment), collectives.assemble(mesh, again.assignment))
+    assert torch.equal(first.objective, again.objective)
+
+
+def _wide_lp(seed, groups, types, device):
+    """A dense LP of `groups` real groups over `types` types (a tenth of
+    them invalid), effective prices, on the card."""
+    from karpenter_tpu_torch.ops import cuda_kernels, score_kernel
+
+    rng = np.random.default_rng(seed)
+    vectors = np.zeros((groups, 8), np.float32)
+    vectors[:, 0] = rng.integers(1, 17, groups) * 250
+    vectors[:, 1] = rng.integers(1, 33, groups) * 256
+    vectors[:, 2] = 1
+    counts = rng.integers(1, 20, groups).astype(np.int32)
+    cpu = np.sort(rng.integers(4, 65, types)) * 1000.0
+    capacity = np.zeros((types, 8), np.float32)
+    capacity[:, 0] = cpu - 100
+    capacity[:, 1] = cpu * rng.choice([2.0, 4.0, 8.0], types) - 600
+    capacity[:, 2] = 110
+    valid = rng.random(types) < 0.9
+    prices = (cpu / 1000 * rng.uniform(0.03, 0.06, types)).astype(np.float32)
+    vectors, counts, capacity, valid, prices = (
+        torch.from_numpy(a).to(device) for a in (vectors, counts, capacity, valid, prices))
+    effective = cuda_kernels._dominance_prices_ref(capacity, torch.where(valid, prices, torch.inf))
+    solvable = torch.where(score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1), counts, 0)
+    return vectors, solvable, capacity, valid, effective
+
+
+def test_sharded_lp_kernel_at_g2048(cuda_device):
+    """G 2,048 x T 512 over 2x4: 128 blocks, the state in shared memory; one
+    launch, the objective to rtol 1e-4 and the pods conserved to 1e-3."""
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+    from karpenter_tpu_torch.parallel import collectives, sharded_solver
+
+    mesh = _card_mesh(8, cuda_device)
+    lp_args = _wide_lp(6, 2048, 512, cuda_device)
+    problem = sharded_solver.shard_lp_problem(mesh, {cuda_device: lp_args})
+    assert lp_shard_kernel.lp_shard_launch_plan(8, 1024, 128, 8).blocks == 128
+    before = lp_shard_kernel.launches()
+    got = sharded_solver.sharded_lp_blocks(mesh, problem, 300)
+    torch.cuda.synchronize()
+    assert lp_shard_kernel.launches() - before == 1
+    with chip_smoke.plain_k9a():
+        want = sharded_solver.sharded_lp_blocks(mesh, problem, 300)
+    obj_err = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
+    assert obj_err <= LP_OBJECTIVE_RTOL
+    pods = float(lp_args[1].sum())
+    assert abs(float(collectives.assemble(mesh, got.assignment).double().sum()) - pods) <= 1e-3 * pods
+
+
+def test_sharded_lp_kernel_shared_bytes_match_the_plan(cuda_device):
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+
+    lib = lp_shard_kernel.LIBRARY.load()
+    for shape in ((4, 8, 256), (8, 8, 128), (7, 3, 74), (7, 21, 74), (8, 1024, 128), (8, 4096, 128)):
+        plan = lp_shard_kernel.lp_shard_launch_plan(*shape, 8)
+        assert lib.ktt_lp_shard_persistent_shared_bytes(
+            plan.tile_rows, plan.tile_cols, 8, int(plan.state_in_shared)) == plan.shared_bytes
+
+
+def test_sharded_lp_kernel_with_its_state_in_global_scratch(cuda_device):
+    """G 8,192 x T 512 over 2x4: no block holds its tile's state, so S and
+    dS go to global scratch; the objective against the plain version."""
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+    from karpenter_tpu_torch.parallel import sharded_solver
+
+    mesh = _card_mesh(8, cuda_device)
+    assert not lp_shard_kernel.lp_shard_launch_plan(8, 4096, 128, 8).state_in_shared
+    problem = sharded_solver.shard_lp_problem(mesh, {cuda_device: _wide_lp(7, 8192, 512, cuda_device)})
+    got = sharded_solver.sharded_lp_blocks(mesh, problem, 60)
+    with chip_smoke.plain_k9a():
+        want = sharded_solver.sharded_lp_blocks(mesh, problem, 60)
+    obj_err = abs(float(got.objective) - float(want.objective)) / abs(float(want.objective))
+    assert obj_err <= LP_OBJECTIVE_RTOL
 
 
 @pytest.mark.parametrize("shards", [2, 4, 8])
@@ -806,6 +958,10 @@ def test_wrappers_launch_on_the_current_stream(cuda_device, monkeypatch):
         pack_kernel.compact_plan_sharded(ffd, cost, torch.ones(16, dtype=torch.bool, device=cuda_device), mesh=mesh)
         lp_shard_kernel.shard_softmax(*(torch.zeros((4, 8), device=cuda_device) for _ in range(5)),
                                       torch.ones((4, 8), dtype=torch.bool, device=cuda_device), None, None, None)
+        from karpenter_tpu_torch.parallel import sharded_solver
+
+        problem = sharded_solver.shard_lp_problem(mesh, {cuda_device: chip_smoke.lp_inputs(0, (16, 512), cuda_device)})
+        sharded_solver.sharded_lp_blocks(mesh, problem, 3)
         capacity = torch.ones((8, 8), device=cuda_device)
         cuda_kernels.dominance_prices(capacity, torch.ones(8, device=cuda_device))
     side.synchronize()

@@ -1,4 +1,4 @@
-"""The launch plans of the port's two redesigned kernels, on the CPU.
+"""The launch plans of the port's redesigned kernels, on the CPU.
 
 K3 (csrc/lp_relax.cu) spreads one LP over a thread-block cluster and K2
 (csrc/pack_rounds.cu) lays one mode's round loop over a block, one type per
@@ -10,11 +10,20 @@ hold those functions to what the kernels assume. The card tests
 Both functions give a plan for every size up to G 8,192 and T 8,192: past
 shared memory the tables go to global scratch, past 4,096 types K2's
 threads stream their types' constants.
+
+K9a's persistent kernel (csrc/lp_shard.cu) cuts each shard's block of a
+one-device mesh into tiles, a block each, all resident at once
+(`lp_shard_kernel.lp_shard_launch_plan`), and K6 (csrc/pack_levels.cu)
+spreads a level over a cluster, its types over the blocks and a type over
+lanes (`pack_kernel.levels_launch_plan`): every cell or type owned once,
+shared memory and the cluster within the card's limits, the blocks within
+the resident bound, scratch exactly when nothing fits, the rules pinned at
+the main-path and G 2,048 shapes.
 """
 
 import pytest
 
-from karpenter_tpu_torch.ops import pack_kernel, score_kernel
+from karpenter_tpu_torch.ops import lp_shard_kernel, pack_kernel, score_kernel
 
 GROUPS = [1, 3, 8, 16, 64, 128, 1024]
 TYPES = [1, 16, 64, 300, 512, 1024, 2048, 4096]
@@ -205,3 +214,155 @@ def test_lp_plan_puts_the_tables_in_global_scratch_past_shared_memory():
         assert plan.shared_bytes < score_kernel.SHARED_LIMIT // 4
     # G 2,048 at the main path's T still holds its tables in shared memory.
     assert score_kernel.lp_launch_plan(2048, 512, 8).tables_in_shared
+
+
+# --- K9a's persistent kernel ----------------------------------------------------
+
+# (shards, a shard's rows, its columns): the 2x2, 2x4 and 1x7 meshes at the
+# main path's G 16 x T 512 (21 x 518 on 1x7), G 2,048 on 2x4, and a spread
+# of sizes up to a state that no block holds.
+LP_SHARD_SHAPES = [(4, 8, 256), (8, 8, 128), (7, 3, 74), (8, 1024, 128)] + [
+    (s, r, c) for s in (1, 2, 8, 16) for r in (1, 8, 21, 300, 4096) for c in (1, 74, 256, 2048)]
+
+
+def _shard_ids(shape):
+    return "S{}x{}x{}".format(*shape)
+
+
+def _tiles(size, tiles, tile):
+    """The [start, stop) of each tile along an axis, as the kernel cuts it."""
+    return [(k * tile, min(size, (k + 1) * tile)) for k in range(tiles)]
+
+
+@pytest.mark.parametrize("shape", LP_SHARD_SHAPES, ids=_shard_ids)
+def test_lp_shard_plan_owns_every_cell_once(shape):
+    shards, rows, cols = shape
+    plan = lp_shard_kernel.lp_shard_launch_plan(shards, rows, cols, 8)
+    assert plan.threads == lp_shard_kernel.PERSIST_THREADS == 256
+    assert plan.blocks == shards * plan.row_tiles * plan.col_tiles
+    # Along each axis the tiles are non-empty, in order and cover it once,
+    # so their product covers a shard's block once.
+    for size, tiles, tile in ((rows, plan.row_tiles, plan.tile_rows), (cols, plan.col_tiles, plan.tile_cols)):
+        spans = _tiles(size, tiles, tile)
+        assert all(start < stop for start, stop in spans)
+        assert [i for start, stop in spans for i in range(start, stop)] == list(range(size))
+    # Each block owns one tile of one shard.
+    owners = {plan.owner(s, r, c) for s in range(shards)
+              for r, _ in _tiles(rows, plan.row_tiles, plan.tile_rows)
+              for c, _ in _tiles(cols, plan.col_tiles, plan.tile_cols)}
+    assert owners == set(range(plan.blocks))
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+@pytest.mark.parametrize("shape", LP_SHARD_SHAPES, ids=_shard_ids)
+def test_lp_shard_plan_fits_the_card(shape, blocks_per_sm):
+    shards, rows, cols = shape
+    plan = lp_shard_kernel.lp_shard_launch_plan(shards, rows, cols, 8, blocks_per_sm=blocks_per_sm)
+    # A cooperative launch needs every block resident at once.
+    assert plan.blocks <= lp_shard_kernel.H100_SMS * blocks_per_sm
+    assert plan.shared_bytes <= score_kernel.SHARED_LIMIT == 232_448
+    table, state = lp_shard_kernel.lp_shard_layout(plan.tile_rows, plan.tile_cols, 8)
+    assert plan.state_bytes == state
+    assert plan.shared_bytes == table + (state if plan.state_in_shared else 0)
+    # The state goes to global scratch exactly when no block holds it.
+    assert plan.state_in_shared == (table + state <= score_kernel.SHARED_LIMIT)
+    assert (plan.scratch_bytes == 0) == plan.state_in_shared
+    if not plan.state_in_shared:
+        assert plan.scratch_bytes == 2 * 4 * shards * rows * cols
+
+
+def test_lp_shard_plan_rule_at_the_main_path_and_g2048():
+    def tiling(shards, rows, cols):
+        plan = lp_shard_kernel.lp_shard_launch_plan(shards, rows, cols, 8)
+        return (plan.blocks, plan.row_tiles, plan.col_tiles, plan.tile_rows, plan.tile_cols,
+                plan.state_in_shared)
+
+    # G 16 x T 512: 2x2 cuts a shard's 8 x 256 into two column tiles, 2x4
+    # keeps a shard a block; 1x7 (G 21 x T 518) two row tiles a shard.
+    assert tiling(4, 8, 256) == (8, 1, 2, 8, 128, True)
+    assert tiling(8, 8, 128) == (8, 1, 1, 8, 128, True)
+    assert tiling(7, 3, 74) == (7, 1, 1, 3, 74, True)
+    assert tiling(7, 21, 74) == (14, 2, 1, 11, 74, True)
+    # G 2,048 x T 512 on 2x4: 16 tiles of 64 x 128 a shard, 128 blocks, the
+    # state (183,808 bytes a block) in shared memory.
+    assert tiling(8, 1024, 128) == (128, 16, 1, 64, 128, True)
+    assert lp_shard_kernel.lp_shard_launch_plan(8, 1024, 128, 8).shared_bytes == 183_808
+
+
+def test_lp_shard_plan_puts_the_state_in_scratch_past_shared_memory():
+    # G 8,192 x T 512 on 2x4: 16 tiles of 256 x 128 a shard, whose state
+    # (688,128 bytes) no block holds.
+    plan = lp_shard_kernel.lp_shard_launch_plan(8, 4096, 128, 8)
+    assert (plan.blocks, plan.tile_rows, plan.tile_cols) == (128, 256, 128)
+    assert not plan.state_in_shared and plan.scratch_bytes == 2 * 4 * 8 * 4096 * 128
+
+
+@pytest.mark.parametrize("args", [(133, 1, 1, 8), (8, 16, 512, 0), (8, 16, 512, 9), (0, 16, 512, 8)])
+def test_lp_shard_plan_refuses_what_the_card_cannot_hold(args):
+    with pytest.raises(ValueError):
+        lp_shard_kernel.lp_shard_launch_plan(*args)
+
+
+# --- K6: a cluster a level ------------------------------------------------------
+
+LEVEL_SHAPES = [(g, t, 8) for g in (1, 16, 64, 300, 2048) for t in (1, 8, 64, 100, 128, 256, 512, 1024, 1500, 8192)] + [
+    (64, 512, 3), (16, 300, 1)]
+
+
+@pytest.mark.parametrize("shape", LEVEL_SHAPES, ids=_ids)
+def test_levels_plan_owns_every_type_once(shape):
+    groups, types, dims = shape
+    plan = pack_kernel.levels_launch_plan(groups, types, dims)
+    assert 1 <= plan.cluster <= pack_kernel.LEVELS_MAX_CLUSTER == 16
+    assert plan.lanes in (1, 2, 4, 8) and plan.lanes <= max(1, 2 * dims)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= pack_kernel.LEVELS_MAX_THREADS == 512
+    slots = plan.threads // plan.lanes
+    owned = {}
+    for rank in range(plan.cluster):
+        start = rank * plan.types_per_block
+        local = max(0, min(plan.types_per_block, types - start))
+        for slot in range(slots):
+            for k in range(-(-plan.types_per_block // slots)):
+                tl = slot + k * slots
+                if tl < local:
+                    owned[start + tl] = owned.get(start + tl, 0) + 1
+                    assert plan.owner(start + tl) == rank
+    assert sorted(owned) == list(range(types)) and set(owned.values()) == {1}
+
+
+@pytest.mark.parametrize("shape", LEVEL_SHAPES, ids=_ids)
+def test_levels_plan_fits_the_card(shape):
+    groups, types, dims = shape
+    plan = pack_kernel.levels_launch_plan(groups, types, dims)
+    assert plan.shared_bytes <= pack_kernel.SHARED_LIMIT == 232_448
+    tables = 4 * pack_kernel.levels_table_words(groups, plan.types_per_block, dims)
+    fills = 4 * pack_kernel.levels_fill_words(groups, plan.types_per_block)
+    control = pack_kernel._LEVELS_CONTROL_BYTES
+    assert plan.shared_bytes == (control + (tables if plan.tables_in_shared else 0)
+                                 + (fills if plan.fills_in_shared else 0))
+    # Scratch exactly when shared memory cannot hold it.
+    assert plan.tables_in_shared == (control + tables <= pack_kernel.SHARED_LIMIT)
+    assert plan.fills_in_shared == (
+        plan.tables_in_shared and control + tables + fills <= pack_kernel.SHARED_LIMIT)
+    assert plan.placed_in_registers == (groups <= 256)
+
+
+def test_levels_plan_rule_at_the_constrained_cell_and_g2048():
+    # The constrained cell (G' 64, T 512, R 8): clusters of 8 blocks of 64
+    # types, 8 lanes a type, everything in shared memory.
+    assert pack_kernel.levels_launch_plan(64, 512, 8) == pack_kernel.LevelsLaunchPlan(
+        8, 8, 64, 512, 53_928, True, True, True)
+    # G' 2,048: the tables, fills and placed bits in global scratch.
+    assert pack_kernel.levels_launch_plan(2048, 512, 8) == pack_kernel.LevelsLaunchPlan(
+        8, 8, 64, 512, 416, False, False, False)
+
+
+@pytest.mark.parametrize("types,cluster", [(64, 1), (128, 2), (256, 4), (512, 8), (1024, 16), (8192, 16)])
+def test_levels_plan_reaches_every_cluster_size(types, cluster):
+    assert pack_kernel.levels_launch_plan(64, types, 8).cluster == cluster
+
+
+@pytest.mark.parametrize("cluster,lanes", [(0, 8), (17, 8), (8, 3), (8, 16)])
+def test_levels_plan_refuses_a_cluster_or_lanes_outside_the_kernel(cluster, lanes):
+    with pytest.raises(ValueError):
+        pack_kernel.levels_plan_for(64, 512, 8, cluster, lanes)

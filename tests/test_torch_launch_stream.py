@@ -13,6 +13,7 @@ tests/test_torch_cuda.py (test_wrappers_launch_on_the_current_stream).
 """
 
 import contextlib
+import types
 import warnings
 
 import numpy as np
@@ -35,6 +36,7 @@ torch.set_num_threads(2)
 
 DEVICE = torch.device("cuda", 1)
 STREAM_BASE = 7000  # the fake stream handle of cuda:i is STREAM_BASE + i
+SMS = 132  # the fake card's streaming multiprocessors
 
 
 class _Recorder:
@@ -109,6 +111,8 @@ def recorder(monkeypatch):
         score_kernel, "_bias_table",
         lambda steps, device: torch.zeros((max(steps, 1), 2), device=device),
     )
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(multi_processor_count=SMS))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # a fake tensor's data_ptr warns
         with FakeTensorMode(allow_non_fake_inputs=True):
@@ -173,6 +177,11 @@ def _launch(name):
         lp_shard_kernel.shard_row_dot(
             _f32(G, T), _f32(G, T), _bool(G, T), _f32(G), _f32(G, R), _f32(T, R), _f32(T), _f32(T, R),
         )
+    elif name == "shard_lp":
+        S, rows, cols = 8, G // 2, T // 4
+        cells = [_f32(S, rows, cols) for _ in range(3)]
+        lp_shard_kernel.shard_lp(_f32(2, rows, R), _f32(2, rows), _f32(4, cols, R), _f32(4, cols),
+                                 _bool(S, rows, cols), *cells, _f32(300, 2), 300, (2, 4))
     elif name == "compact_shard":
         mr = pack_kernel.max_rounds(G)
         pack_kernel.compact_shard(_i32(mr, G), _i32(mr, G), 1, 4)
@@ -183,7 +192,7 @@ def _launch(name):
 WRAPPERS = [
     "dominance_prices", "pack_kernel", "pack_kernel_pair", "lp_relax", "compact_plan",
     "pack_kernel_levels", "solve_counterfactuals", "scatter", "gather", "penalize_prices",
-    "shard_softmax", "shard_demand", "shard_row_dot", "compact_shard",
+    "shard_softmax", "shard_demand", "shard_row_dot", "shard_lp", "compact_shard",
 ]
 
 
@@ -218,3 +227,29 @@ def test_every_library_is_mocked():
         lib.source.name for lib in cuda_build.port_libraries()
     }
     assert np.unique([lib.source.name for lib in LIBRARIES]).size == len(LIBRARIES)
+
+
+def test_levels_launch_carries_its_cluster_plan(recorder):
+    """K6 launches one cluster a level with the plan's cluster size, lanes
+    and threads."""
+    with pytest.raises(_Launched):
+        _launch("pack_kernel_levels")
+    ((function, args, _),) = recorder.calls
+    assert function == "ktt_pack_levels"
+    plan = pack_kernel.levels_launch_plan(G, T, R)
+    # After the nine operands: G, T, R, L, mode, then the plan.
+    assert args[9:17] == (G, T, R, L, 1, plan.cluster, plan.lanes, plan.threads)
+
+
+def test_persistent_lp_launch_carries_its_tiling(recorder):
+    """K9a's persistent kernel: one cooperative launch with the plan's
+    tiling of the mesh's shard blocks."""
+    with pytest.raises(_Launched):
+        _launch("shard_lp")
+    ((function, args, _),) = recorder.calls
+    assert function == "ktt_lp_shard_persistent"
+    plan = lp_shard_kernel.lp_shard_launch_plan(8, G // 2, T // 4, R, SMS)
+    # After the seventeen pointers: the mesh, a shard's block, R, the
+    # steps, the tiling and the final pass.
+    assert args[17:28] == (2, 4, G // 2, T // 4, R, 300, plan.row_tiles, plan.col_tiles,
+                           plan.tile_rows, plan.tile_cols, 1)

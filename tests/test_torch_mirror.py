@@ -277,14 +277,20 @@ TRIMMED = {
         "_demand": _PORT_ONLY + ": K9a's demand phase, then its reduction",
         "_row_dot": _PORT_ONLY + ": K9a's row-dot phase, then its reduction",
         "_start": _PORT_ONLY,
-        "_run_steps": _PORT_ONLY + ": Adam steps over the mesh (the reference's lax.scan)",
+        "Phases": _PORT_ONLY + ": K9a's three phases, kernels or plain versions",
+        "_kernel_phases": _PORT_ONLY + ": the phases' wrappers, looked up at the call",
+        "_run_phases": _PORT_ONLY + ": Adam steps over a mesh of devices, phase by phase "
+                       "(the reference's lax.scan)",
+        "_run_persistent": _PORT_ONLY + ": the whole LP in one launch on a one-card mesh",
+        "_route": _PORT_ONLY + ": the route the mesh takes, persistent or per phase",
+        "_run_steps": _PORT_ONLY + ": Adam steps over the mesh, by the route the mesh takes",
         "sharded_lp_blocks": _PORT_ONLY + ": the LP over a mesh, in shard blocks",
         "_replicas": _PORT_ONLY + ": one copy of the operands a device of the mesh",
         "_pad": "pads with zeros (every caller's value)",
-        "sharded_lp_solve": "K9a's phases with the collectives between, in place of one jitted "
-                            "GSPMD scan",
-        "sharded_lp_train_step": "one step of K9a's phases from a state in shard blocks; "
-                                 "returns (step, mesh)",
+        "sharded_lp_solve": "K9a (its persistent kernel on one device, its phases with the "
+                            "collectives between across devices) in place of one jitted GSPMD scan",
+        "sharded_lp_train_step": "one step of K9a, by the mesh's route, from a state in shard "
+                                 "blocks; returns (step, mesh)",
         "constrained_level_sharding": "returns a dispatch running K6 on each shard's block of "
                                       "levels, in place of a sharding constraint",
         "_level_dispatch": _PORT_ONLY + ": K6 per shard, the cross-level selection, the chosen "

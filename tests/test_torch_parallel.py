@@ -19,6 +19,11 @@ through both:
     over by `convert.lp_train_state_from_numpy`;
   * the production CostSolver on an 8-shard mesh: its decoded plans
     bit-identical to the single-device solve, $/hr at most 1.02x;
+  * the route the mesh takes (the wrappers replaced by counting
+    recorders): a mesh on one card is one call of the persistent K9a
+    wrapper per LP, its blocks stacked in the mesh's flat order; a mesh
+    across cards, and off the card one on one CPU device or two (cpu:0 and
+    cpu:1), the three phase wrappers on every shard, with the same bits;
   * a wedged shard, the retry on the shrunk mesh and the quarantine after
     a failed fetch (a fake probe), and MeshHealth's cases. No test here
     spawns a process: the chip probe's subprocess is replaced by a fake.
@@ -384,6 +389,147 @@ def test_train_step_from_a_carried_state(shards):
         assemble(mesh, got_state.logits).numpy(), np.asarray(want_state.logits), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(
         assemble(mesh, got_state.nu).numpy(), np.asarray(want_state.opt_state[0].nu), rtol=1e-4, atol=1e-12)
+
+
+# --- the route the mesh takes: one persistent launch, or the phases ---------------
+
+
+@pytest.fixture
+def routed(monkeypatch):
+    """K9a's wrappers replaced by recorders that count their calls: the
+    three phases hand theirs on (the plain versions, on CPU tensors), the
+    persistent one, which takes CUDA tensors only, records its arguments,
+    writes each shard's index into its stacked logits and returns zeros of
+    its outputs' shapes. {"shard_lp": calls, "phases":
+    calls, "args": the persistent wrapper's last arguments}."""
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+
+    calls = {"shard_lp": 0, "phases": 0}
+
+    def counted(real):
+        def call(*args, **kwargs):
+            calls["phases"] += 1
+            return real(*args, **kwargs)
+
+        return call
+
+    def shard_lp(vectors, counts, capacity, prices, feasible, logits, mu, nu, bias, steps, mesh_shape,
+                 final=True):
+        calls["shard_lp"] += 1
+        calls["args"] = (vectors, counts, capacity, prices, feasible, logits, steps, mesh_shape, final)
+        for shard in range(logits.shape[0]):
+            logits[shard] = shard
+        demand = torch.zeros((mesh_shape[1], feasible.shape[2], vectors.shape[2]))
+        return (torch.zeros_like(logits) if final else None), demand
+
+    monkeypatch.setattr(lp_shard_kernel, "shard_lp", shard_lp)
+    for name in ("shard_softmax", "shard_demand", "shard_row_dot"):
+        monkeypatch.setattr(lp_shard_kernel, name, counted(getattr(lp_shard_kernel, name)))
+    return calls
+
+
+def _card_mesh(shards, cards):
+    """A mesh of `shards` shards over `cards` cards, shard i on cuda:(i %
+    cards). Its route follows from its devices; no tensor is made."""
+    return port_mesh.make_mesh([port_mesh.Shard(i, torch.device("cuda", i % cards)) for i in range(shards)])
+
+
+def _two_device_mesh(shards):
+    """A mesh whose shards alternate between two devices (cpu:0 and cpu:1:
+    distinct devices to the mesh, one memory to torch)."""
+    return port_mesh.make_mesh([port_mesh.Shard(i, torch.device("cpu", i % 2)) for i in range(shards)])
+
+
+def _problem(mesh):
+    vectors, counts, capacity, valid, prices = _lp_family(2)
+    arrays = [np.asarray(vectors, np.float32), np.asarray(counts, np.float32),
+              np.asarray(capacity, np.float32), np.asarray(valid, bool), np.asarray(prices, np.float32)]
+    return port_sharded.shard_lp_problem(mesh, port_sharded._replicas(mesh, arrays))
+
+
+def _blocks(mesh, steps):
+    return port_sharded.sharded_lp_blocks(mesh, _problem(mesh), steps)
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_one_device_mesh_takes_the_persistent_kernel(shards, routed):
+    """A mesh on one card routes to the persistent kernel; that route is
+    one call of its wrapper an LP, with the blocks stacked in the mesh's
+    flat order and the state's blocks updated from it."""
+    assert port_sharded._route(_card_mesh(shards, 1)) is port_sharded._run_persistent
+    mesh = _port_mesh(shards)
+    problem = _problem(mesh)
+    state = port_sharded.lp_train_init(mesh, problem)
+    bias = {mesh.devices[0]: torch.zeros((7, 2))}
+    assignment, demand = port_sharded._run_persistent(mesh, problem, state, bias, 7, True)
+    assert routed["shard_lp"] == 1 and routed["phases"] == 0
+    vectors, counts, capacity, prices, feasible, _, steps, mesh_shape, final = routed["args"]
+    rows, cols = mesh.shape
+    assert (steps, mesh_shape, final) == (7, mesh.shape, True)
+    for r in range(rows):
+        assert torch.equal(vectors[r], problem.vectors[r][0]) and torch.equal(counts[r], problem.counts[r][0])
+        for c in range(cols):
+            assert torch.equal(feasible[r * cols + c], problem.feasible[r][c])
+            assert torch.equal(capacity[c], problem.capacity[r][c]) and torch.equal(prices[c], problem.prices[r][c])
+            assert bool((state.logits[r][c] == r * cols + c).all())
+            assert assignment[r][c].shape == problem.feasible[r][c].shape
+    assert demand[0][cols - 1].shape == (problem.capacity[0][cols - 1].shape)
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_mesh_on_two_devices_takes_the_per_phase_kernels(shards, routed):
+    """A mesh across cards routes to the per-phase kernels; on two CPU
+    devices (cpu:0 and cpu:1) that route calls the phases on every shard,
+    with the same bits as on one CPU device (the collectives reduce in a
+    fixed shard order). Off the card every mesh takes that route, its
+    wrappers running the plain versions."""
+    assert port_sharded._route(_card_mesh(shards, 2)) is port_sharded._run_phases
+    mesh = _two_device_mesh(shards)
+    assert len(mesh.devices) == 2 and port_sharded._route(mesh) is port_sharded._run_phases
+    lp = _blocks(mesh, 7)
+    # Per shard: two softmaxes to start, three phases a step, the final demand.
+    assert routed["phases"] == shards * (2 + 3 * 7 + 1) and routed["shard_lp"] == 0
+    one_mesh = _port_mesh(shards)
+    assert port_sharded._route(one_mesh) is port_sharded._run_phases
+    one = _blocks(one_mesh, 7)
+    assert float(lp.objective) == float(one.objective)
+    from karpenter_tpu_torch.parallel.collectives import assemble
+
+    assert torch.equal(assemble(mesh, lp.assignment), assemble(one_mesh, one.assignment))
+
+
+def test_persistent_kernel_takes_cuda_tensors_only():
+    from karpenter_tpu_torch.ops import lp_shard_kernel
+
+    mesh = _port_mesh(4)
+    problem = _problem(mesh)
+    state = port_sharded.lp_train_init(mesh, problem)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_sharded._run_persistent(mesh, problem, state, {mesh.devices[0]: torch.zeros((7, 2))}, 7, True)
+    assert lp_shard_kernel.shard_lp.launches == 0
+
+
+@pytest.mark.parametrize("two_devices", [False, True], ids=["one-device", "two-devices"])
+def test_train_step_takes_the_route_of_its_mesh(two_devices, routed, monkeypatch):
+    """One train step: on a one-card mesh one call of the persistent
+    wrapper without the final pass; across devices the phases (two
+    softmaxes, then the step's three) on every shard."""
+    vectors, counts, capacity, valid, prices = _lp_family(1)
+    feasible = np.asarray(port_score.feasibility_mask(
+        torch.from_numpy(vectors), torch.from_numpy(capacity), torch.from_numpy(valid)))
+    mesh = _two_device_mesh(4) if two_devices else _port_mesh(4)
+    if not two_devices:
+        # The CPU mesh given the one-card mesh's route.
+        monkeypatch.setattr(port_sharded, "_route", lambda mesh: port_sharded._run_persistent)
+    logits = np.zeros(feasible.shape, np.float32)
+    state = convert.lp_train_state_from_numpy(logits, logits, logits, 0, mesh)
+    step, _ = port_sharded.sharded_lp_train_step(mesh)
+    state, loss = step(state, vectors, counts.astype(np.float32), capacity, prices, feasible)
+    assert state.count == 1 and np.isfinite(float(loss))
+    if two_devices:
+        assert routed["shard_lp"] == 0 and routed["phases"] == 4 * (2 + 3)
+    else:
+        assert routed["shard_lp"] == 1 and routed["phases"] == 0 and routed["args"][6:] == (1, (2, 2), False)
 
 
 # --- the production solve on a mesh ------------------------------------------------
