@@ -9,7 +9,8 @@ limit, and as the last line {"ok": true, "device": {...}}:
   1. card     the card, its power limit, torch and CUDA versions
   2. build    nvcc for every kernel source, all started together (timed)
   3. kernels  each kernel against its plain PyTorch version on the card: K1
-              dominance pricing on small edge cases and at [512, 8] and K2
+              dominance pricing on edge cases (T 513, T 4,096, all invalid
+              among them) and at [512, 8] and K2
               the pack round loop in both modes on random problems and on
               the 50k-pod x 400-type encoded problem, bit for bit; K4 the
               plan compaction on those rounds and on dense rounds past the
@@ -76,13 +77,16 @@ limit, and as the last line {"ok": true, "device": {...}}:
   8. consolidate  the consolidation path: one sweep of
               ops/consolidate.solve_candidates over a 5,000-node cluster
               (64 candidates, padded C 64, G 16, N 8192, T 512) built by the
-              controller's rules; K7 launched once per sweep and bit-identical
-              to its plain version there and on small problems (fits past
-              2**24, the room in shared memory and in global scratch); every
+              controller's rules; K7 launched once per sweep (one kernel
+              record: a cluster of blocks a candidate, the last cluster
+              taking the argmax) and bit-identical to its plain version there
+              and on small problems (fits past 2**24, N 8,192 with 3 and 8
+              axes, N 4,101 and 4,100); every
               verdict equal to the CPU run; the winner's delete plan places
               each of its pods once within every receiver's headroom; a room
               sized for too few axes flagged; cold first sweep, warm p50 over
-              10 sweeps, the fetch's bytes
+              10 sweeps, the fetch's bytes. `chip_smoke.py --phase
+              consolidate` runs it alone, with K7's times
   9. constrained  the constrained provisioning path: the main path's 50,000
               pods, each under one zonal topology spread (max_skew 1,
               DoNotSchedule) and two preferred node-affinity terms (a zone
@@ -185,7 +189,9 @@ limit, and as the last line {"ok": true, "device": {...}}:
               plain version's time (CUDA events) and its bound at the path's
               shapes; K3's time per Adam step and at every cluster size,
               K2's time per round of each mode; K6 at the constrained
-              path's shapes; K8 on one steady-state sweep's scatters and
+              path's shapes (K1 at T 4,096 too; K7 at the real sweep and at
+              the controller's last sweep, with its cluster size and kernel
+              records a sweep); K8 on one steady-state sweep's scatters and
               gathers; K10 on the storm fleet's [T] column, beside
               torch.addcmul; K2q at the main path's shape; K2 and K3 at
               padded G 2,048
@@ -195,6 +201,10 @@ limit, and as the last line {"ok": true, "device": {...}}:
               torch.profiler: its device time against its wall time. Last,
               because a profiler session over a storm pass (its bind and
               overlap threads) makes later sessions drop a kernel record
+ 14. consolidate  `chip_smoke.py --phase consolidate` in a fresh process:
+              the consolidate phase again, K7's times and its kernel
+              records in one sweep (checked to be one), which the kernels
+              line carries
 
 The kernels phase also holds K10, the forecast penalty, bit for bit to the
 numpy column and to its plain version (the reference's magnitudes at 257
@@ -806,20 +816,24 @@ def huge_fit_problem(num_bins: int = 3):
 def k7_problems():
     """(name, arrays) the card holds K7 to its plain version on, beside the
     real-size sweep: small seeded problems off their buckets, fits past 2**24
-    (the kernel's sequential fold), and N = 8192 with 3 and with all 8 axes
-    requested (the room in shared memory, then in global scratch)."""
+    (the kernel's sequential fold across the cluster), N = 8192 with 3 and
+    with all 8 axes requested (the room in shared memory; in global scratch
+    when a test forces one block a candidate), and N 4,101 and 4,100 (no
+    int4 store, a short last thread)."""
     for seed, shape in enumerate([(1, 1, 1, 1), (3, 5, 9, 17), (13, 11, 70, 40), (17, 9, 1300, 20), (64, 16, 2000, 300)]):
         yield "C{}-G{}-N{}-T{}".format(*shape), random_consolidation_problem(seed, *shape)
     yield "fit-past-2^24-N3", huge_fit_problem(3)
     yield "fit-past-2^24-N3000", huge_fit_problem(3000)
     yield "N8192-3-axes", random_consolidation_problem(7, 8, 4, 8192, 64, dims=3)
     yield "N8192-8-axes", random_consolidation_problem(8, 8, 4, 8192, 64, dims=8)
+    yield "N4101", random_consolidation_problem(21, 5, 6, 4101, 30)
+    yield "N4100-5-axes", random_consolidation_problem(22, 5, 6, 4100, 30, dims=5)
 
 
 def dominance_cases():
     """The edge cases K1 is held to: T = 1, a size ladder, random shapes with
     invalid (zero capacity, +inf price) rows and ties, T not a multiple of
-    the block, an all-invalid problem."""
+    a block's rows, all-invalid problems, T 4,096."""
     rng = np.random.default_rng(3)
     yield np.zeros((1, 8), np.float32), np.array([1.5], np.float32)
     ladder = np.arange(1, 9, dtype=np.float32)[:, None] * np.ones((1, 8), np.float32)
@@ -831,6 +845,14 @@ def dominance_cases():
         capacity[invalid] = 0.0
         yield capacity, np.where(invalid, np.inf, prices).astype(np.float32)
     yield np.zeros((5, 8), np.float32), np.full(5, np.inf, np.float32)
+    # A block's rows ragged (T 513), 32 rows a block (T 4,096), all invalid.
+    for num_types in (513, 4096):
+        capacity = rng.integers(0, 9, (num_types, 8)).astype(np.float32)
+        prices = rng.choice([0.125, 0.25, 0.5, 1.0, 2.0], num_types).astype(np.float32)
+        invalid = rng.random(num_types) < 0.1
+        capacity[invalid] = 0.0
+        yield capacity, np.where(invalid, np.inf, prices).astype(np.float32)
+    yield np.zeros((513, 8), np.float32), np.full(513, np.inf, np.float32)
 
 
 # K3 against its plain version: the CPU parity test's tolerances
@@ -1318,6 +1340,29 @@ def device_ms_per_call(fn, kernels, reps: int = 20) -> float:
     return sum(seen[name][1] / seen[name][0] * per_call[name] for name in per_call) / 1e3
 
 
+def kernel_records(fn) -> dict:
+    """{kernel name: records} torch.profiler shows for one call of `fn`
+    (copies and fills left out): what a call launches on the card."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    records = {}
+    for event in prof.events():
+        if event.device_type != torch.autograd.DeviceType.CUDA or event.name.startswith(("Memcpy", "Memset")):
+            continue
+        match = re.search(r"(\w+_kernel)", event.name)
+        name = match.group(1) if match else event.name
+        records[name] = records.get(name, 0) + 1
+    return records
+
+
 def consolidate_phase(catalog, device) -> dict:
     """One consolidation sweep at the large-cluster envelope through the
     entry point the controller calls (ops/consolidate.solve_candidates on
@@ -1397,6 +1442,8 @@ def consolidate_phase(catalog, device) -> dict:
     _, eager = consolidate_kernel.solve_counterfactuals(*k7_operands, axes=k7_axes - 1)
     check(int(eager[3 * k7_operands[0].shape[0]]) == -1, "K7 did not flag a room sized too small")
     c_pad, g_pad, _ = k7_operands[0].shape
+    plan = consolidate_kernel.counterfactual_launch_plan(
+        c_pad, g_pad, k7_operands[2].shape[0], k7_axes, torch.cuda.get_device_properties(device).multi_processor_count)
     phase(
         "consolidate", nodes=CLUSTER_NODES, pods=int(cluster["counts"].sum()),
         candidates=problem.num_candidates, shape=f"C={c_pad},G={g_pad},N={k7_operands[2].shape[0]},T={k7_operands[4].shape[0]}",
@@ -1405,9 +1452,24 @@ def consolidate_phase(catalog, device) -> dict:
         best=best, best_savings=f"{verdicts.savings[best]:.6f}", k7_cases=k7_cases, k7_max_abs_err=k7_err,
         problem_ms=f"{problem_ms:.3f}", cold_sweep_ms=f"{sweep_cold_ms:.3f}",
         p50_ms=f"{np.percentile(sweep_ms, 50):.3f}", launches_per_sweep=sweep_launches,
-        fetch_bytes=sweep_fetch_bytes, requested_axes=k7_axes,
+        fetch_bytes=sweep_fetch_bytes, requested_axes=k7_axes, cluster=plan.cluster, threads=plan.threads,
+        room_in_shared=plan.room_in_shared,
     )
-    return {"operands": k7_operands, "axes": k7_axes, "launches": sweep_launches, "max_abs_err": k7_err}
+    return {"operands": k7_operands, "axes": k7_axes, "launches": sweep_launches, "max_abs_err": k7_err,
+            "cluster": plan.cluster, "problem": problem, "p50_ms": float(np.percentile(sweep_ms, 50))}
+
+
+def sweep_records(problem, device) -> int:
+    """K7's kernel records in one consolidation sweep, checked to be one.
+    In a long run, profiler sessions make later sessions of the process
+    drop kernel records (none at all by the end of chip_smoke's timing), so
+    the full run takes this in a fresh process: `--phase consolidate`."""
+    from karpenter_tpu_torch.ops import consolidate
+
+    records = kernel_records(lambda: consolidate.solve_candidates(problem, device=device))
+    check(records == {"counterfactual_kernel": 1},
+          f"a consolidation sweep made other kernel records than one of K7: {records}")
+    return sum(records.values())
 
 
 def level_packs_equal(a, b) -> bool:
@@ -3731,7 +3793,15 @@ def controller_phase() -> dict:
           f"the consolidation loop's sweeps did not each launch K7 once: {run['sweep_k7']}")
     problem = run["last_problem"]
     k7_ms = device_ms_per_call(lambda: consolidate.solve_candidates(problem, device=device),
-                               ["counterfactual_kernel", "winner_kernel"], reps=10)
+                               ["counterfactual_kernel"], reps=10)
+    # K7 alone at this sweep's padded size: its CUDA-event time and plan.
+    k7_operands, k7_axes = k7_inputs(problem, device)
+    k7_event_ms = time_cuda(functools.partial(
+        consolidate_kernel.solve_counterfactuals, *k7_operands, axes=k7_axes), reps=20)
+    k7_shape = [int(k7_operands[0].shape[0]), int(k7_operands[0].shape[1]),
+                int(k7_operands[2].shape[0]), int(k7_operands[4].shape[0])]
+    k7_plan = consolidate_kernel.counterfactual_launch_plan(
+        k7_shape[0], k7_shape[1], k7_shape[2], k7_axes, torch.cuda.get_device_properties(device).multi_processor_count)
     calibration = run["calibration"]
     phase(
         "controller", pods=len(run["pods"]), types=NUM_TYPES, main_s=f"{run['main_s']:.3f}",
@@ -3750,7 +3820,8 @@ def controller_phase() -> dict:
         k1_k4_launches=launches["pack_kernel"], k8_gathers=launches["gather"],
         reprice_generations=run["reprice_generations"],
         nodes_after_storm=run["nodes_after_storm"], deleted=run["deleted"], sweeps=run["sweeps"],
-        k7_launches=k7, k7_device_ms=f"{k7_ms:.4f}",
+        k7_launches=k7, k7_device_ms=f"{k7_ms:.4f}", k7_event_ms=f"{k7_event_ms:.4f}",
+        k7_shape="C={},G={},N={},T={}".format(*k7_shape), k7_cluster=k7_plan.cluster,
         sweep_p50_ms=f"{np.percentile(run['sweep_ms'], 50):.3f}",
         delete_actions=int(run["actions"]["delete"]), replace_actions=int(run["actions"]["replace"]),
         consolidation_solves=int(run["consolidation_solves"]), evicted=run["evicted"],
@@ -3758,7 +3829,28 @@ def controller_phase() -> dict:
         cost_before=f"{run['cost_before']:.6f}", cost_after=f"{run['cost_after']:.6f}",
         nodes_after=run["nodes_after"], metrics_series=run["series"], profile_samples=run["profile_samples"],
     )
-    return {"k7_launches": k7, "k7_ms": k7_ms, "storm_launches": launches, "device_solves": solves}
+    return {"k7_launches": k7, "k7_ms": k7_ms, "k7_event_ms": k7_event_ms, "k7_shape": k7_shape,
+            "k7_cluster": k7_plan.cluster, "storm_launches": launches, "device_solves": solves}
+
+
+def consolidate_alone() -> None:
+    """`chip_smoke.py --phase consolidate`: K7 built, the consolidation
+    phase by itself, then K7's device and event times at its sweep."""
+    import torch
+
+    from karpenter_tpu_torch.ops import consolidate_kernel, cuda_build
+
+    device = torch.device("cuda", 0)
+    build_s = cuda_build.build_all([consolidate_kernel.LIBRARY])
+    sweep = consolidate_phase(make_catalog(package=port_package()), device)
+    call = functools.partial(consolidate_kernel.solve_counterfactuals, *sweep["operands"], axes=sweep["axes"])
+    result = {"k7_ms": device_ms_per_call(call, ["counterfactual_kernel"], reps=50),
+              "k7_event_ms": time_cuda(call, reps=50), "cluster": sweep["cluster"]}
+    result["records_per_sweep"] = sweep_records(sweep["problem"], device)
+    phase("consolidate_timing", build_s=f"{build_s:.2f}", k7_ms=f"{result['k7_ms']:.6f}",
+          k7_event_ms=f"{result['k7_event_ms']:.4f}", cluster=result["cluster"],
+          records_per_sweep=result["records_per_sweep"])
+    print("consolidate_result " + json.dumps(result))
 
 
 def sharded_alone() -> None:
@@ -3824,7 +3916,8 @@ def child_result(child, marker: str):
 def main(argv=None) -> int:
     """With no arguments, every phase. `--greedy-signature` and `--phase
     controller` are the two parts the full run starts in processes of their
-    own; `--phase sharded` runs the sharded phase alone."""
+    own; `--phase sharded` and `--phase consolidate` run the sharded and the
+    consolidation phase alone."""
     import torch
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -3839,6 +3932,9 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--phase", "sharded"]:
         sharded_alone()
+        return 0
+    if argv == ["--phase", "consolidate"]:
+        consolidate_alone()
         return 0
     if argv:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -4237,8 +4333,18 @@ def smoke(children) -> int:
     valid_prices = torch.where(valid, prices, torch.inf)
     k1_call = functools.partial(cuda_kernels.dominance_prices, capacity, valid_prices)
     k1_event_ms = time_cuda(k1_call, reps=200)
-    k1_ms = device_ms_per_call(k1_call, ["dominance_kernel"], reps=200)
+    # Profiled in windows of 50 launches: on an H100, 200-launch windows of
+    # this 3 us kernel lost 23 records each, past what the check allows.
+    k1_ms = device_ms_per_call(k1_call, ["dominance_kernel"], reps=50)
     k1_plain_ms = time_cuda(lambda: cuda_kernels._dominance_prices_ref(capacity, valid_prices), reps=200)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    k1_plan = cuda_kernels.dominance_launch_plan(num_types, dims, sms)
+    # K1 at T 4,096 (32 rows a block): the last dominance case.
+    wide_capacity, wide_prices = (torch.from_numpy(a).to(device) for a in list(dominance_cases())[-2])
+    k1_wide_call = functools.partial(cuda_kernels.dominance_prices, wide_capacity, wide_prices)
+    k1_wide_ms = device_ms_per_call(k1_wide_call, ["dominance_kernel"], reps=50)
+    k1_wide_event_ms = time_cuda(k1_wide_call, reps=200)
+    k1_wide_plan = cuda_kernels.dominance_launch_plan(wide_capacity.shape[0], dims, sms)
     k1_bytes = 4 * (num_types * dims + 2 * num_types)
     k1_ops = num_types * num_types * (dims + 1)
     k2_call = functools.partial(
@@ -4317,7 +4423,7 @@ def smoke(children) -> int:
     k7_axes = sweep["axes"]
     k7_call = functools.partial(consolidate_kernel.solve_counterfactuals, *k7_operands, axes=k7_axes)
     k7_event_ms = time_cuda(k7_call, reps=20)
-    k7_ms = device_ms_per_call(k7_call, ["counterfactual_kernel", "winner_kernel"], reps=20)
+    k7_ms = device_ms_per_call(k7_call, ["counterfactual_kernel"], reps=20)
     k7_plain_ms = time_cuda(lambda: consolidate_kernel._counterfactual_ref(*k7_operands), reps=5, warmup=1)
     k7_bins, k7_types = k7_operands[2].shape[0], k7_operands[4].shape[0]
     k7_bytes = k7_needed_bytes(k7_operands)
@@ -4363,7 +4469,8 @@ def smoke(children) -> int:
             "launches": launches["dominance_prices"], "max_abs_err": k1_err,
             "launches_controller": controller["storm_launches"]["dominance_prices"],
             "ms": k1_ms, "event_ms": k1_event_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-            "bound_by": k1_by, "library_ms": None,
+            "bound_by": k1_by, "library_ms": None, "blocks": k1_plan.blocks, "rows_per_block": k1_plan.rows,
+            "ms_t4096": k1_wide_ms, "event_ms_t4096": k1_wide_event_ms, "blocks_t4096": k1_wide_plan.blocks,
         },
         {
             "name": "pack_kernel", "route": "cuda",
@@ -4412,6 +4519,8 @@ def smoke(children) -> int:
             "ms": k7_ms, "event_ms": k7_event_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound,
             "bound_by": k7_by, "library_ms": None,
             "launches_controller": controller["k7_launches"], "ms_controller": controller["k7_ms"],
+            "event_ms_controller": controller["k7_event_ms"], "shape_controller": controller["k7_shape"],
+            "cluster_controller": controller["k7_cluster"], "cluster": sweep["cluster"],
         },
     ]
     # K6 at the constrained path's shapes, in the mode the solve runs.
@@ -4566,6 +4675,11 @@ def smoke(children) -> int:
 
     # 13. the card's busy share of a storm pass, last (see the docstring).
     storm_profile_phase(device, storm)
+    # 14. K7's kernel records a sweep, in a fresh process (see sweep_records).
+    consolidate_child = run_child(["--phase", "consolidate"], 300.0)
+    children.append(consolidate_child)
+    records = child_result(consolidate_child, "consolidate_result")["records_per_sweep"]
+    kernels[[entry["name"] for entry in kernels].index("solve_counterfactuals")]["records_per_sweep"] = records
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

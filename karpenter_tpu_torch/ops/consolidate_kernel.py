@@ -3,48 +3,115 @@ reference's `_counterfactual_body` (karpenter_tpu/ops/consolidate.py, an XLA
 program: a lax.scan over the pod groups, the replace leg's feasibility, the
 savings and an argmax).
 
-On the card it is csrc/consolidate.cu: one block per candidate runs the
-group scan, the replace leg and the savings, and a second small launch takes
+On the card it is csrc/consolidate.cu, one launch a sweep: a thread-block
+cluster a candidate, its bins split over the cluster's blocks, runs the group
+scan, the replace leg and the savings, and the last cluster to finish takes
 the argmax over candidates and copies the winner's [G, N] plan row into the
-eager buffer that the host fetches. `_counterfactual_ref` is its plain
-PyTorch version, a line-for-line transcription of the reference. A CPU tensor
-goes to the plain version, a CUDA tensor to the kernel; there is no fallback.
+eager buffer that the host fetches. `counterfactual_launch_plan` lays the
+launch out from the sizes. `_counterfactual_ref` is its plain PyTorch
+version, a line-for-line transcription of the reference. A CPU tensor goes to
+the plain version, a CUDA tensor to the kernel; there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import threading
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, launch_stream
+from karpenter_tpu_torch.ops.cuda_kernels import H100_SMS, sm_count
 from karpenter_tpu_torch.ops.score_kernel import feasibility_mask
 
 # Savings below this ($/hr) are noise, not a reason to disrupt a node.
 MIN_SAVINGS_DOLLARS = 1e-6
 MAX_DIMS = 8  # resource axes the kernel tracks per bin
-# A candidate's room stays in shared memory up to this many bytes per block
-# (the card allows 227 KB); past it, in a global scratch buffer.
-_SHARED_ROOM_LIMIT = 200 * 1024
+SHARED_LIMIT = 232_448  # 227 KB: the most dynamic shared memory a block gets on sm_90
+CONTROL_BYTES = 1_488  # csrc/consolidate.cu's Control words, ahead of the room
+MAX_CLUSTER = 8  # the portable cluster size
+MAX_THREADS = 1024
 # Partial sums of whole numbers are exact in float32 below 2**24.
 _EXACT_SUM = float(2**24)
 
 LIBRARY = CudaLibrary(
     "consolidate.cu",
     {
-        "ktt_consolidate_threads": (ctypes.c_int, [ctypes.c_int]),
-        "ktt_consolidate_room_words": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int]),
+        "ktt_consolidate_control_bytes": (ctypes.c_int, []),
         "ktt_consolidate": (
             ctypes.c_int,
             [ctypes.c_void_p] * 9
-            + [ctypes.c_int] * 6
+            + [ctypes.c_int] * 10
             + [ctypes.c_longlong]
-            + [ctypes.c_void_p] * 5,
+            + [ctypes.c_void_p] * 6,
         ),
     },
 )
+
+
+class CounterfactualPlan(NamedTuple):
+    """How K7 lays a sweep over the card: a cluster of `cluster` blocks a
+    candidate; block r of it owns the bins [r * bins_per_block, (r + 1) *
+    bins_per_block), thread t of that block the `bins_per_thread` bins from
+    r * bins_per_block + t * bins_per_thread (the last ones short or empty)."""
+
+    cluster: int  # k: 1, 2, 4 or 8
+    threads: int  # a multiple of 32, at most 1,024
+    bins_per_thread: int  # 4 or 8, kept in registers
+    bins_per_block: int  # a multiple of bins_per_thread
+    room_words: int  # floats of one thread's room segment: bins_per_thread * axes | 1
+    shared_bytes: int  # dynamic shared memory a block: the control words, and the room when it fits
+    room_in_shared: bool  # else the room is [C * cluster, threads, room_words] f32 of global scratch
+
+    def owner(self, n: int) -> Tuple[int, int, int]:
+        """(rank, thread, slot) of bin n in its candidate's cluster."""
+        rank, local = divmod(n, self.bins_per_block)
+        thread, slot = divmod(local, self.bins_per_thread)
+        return rank, thread, slot
+
+    def scratch_words(self, candidates: int) -> int:
+        return 0 if self.room_in_shared else candidates * self.cluster * self.threads * self.room_words
+
+
+def counterfactual_launch_plan(candidates: int, groups: int, bins: int, axes: int,
+                               sms: int = H100_SMS, cluster: Optional[int] = None) -> CounterfactualPlan:
+    """K7's plan, from the sizes alone: the cluster k is the largest of 1, 2,
+    4 and 8 with candidates * k <= sms (2 at C 64 on 132 SMs), doubled while a
+    block would own more than 8 x 1,024 bins; its blocks split the bins
+    evenly, 4 a thread (8 past 4,096 a block), in as many threads as that
+    takes; the room (`axes` axes a bin) in shared memory when it fits beside
+    the control words, else in global scratch. `cluster` forces k (the card
+    tests reach every size through it). Raises on a size the kernel does not
+    take: past 65,536 bins or 8 axes."""
+    if min(candidates, groups, bins, sms) < 1 or not 0 <= axes <= MAX_DIMS:
+        raise ValueError(f"solve_counterfactuals: no plan for C {candidates}, G {groups}, N {bins}, "
+                         f"{axes} axes, {sms} SMs")
+    if cluster is None:
+        cluster = MAX_CLUSTER
+        while cluster > 1 and candidates * cluster > sms:
+            cluster //= 2
+        while cluster < MAX_CLUSTER and -(-bins // cluster) > 8 * MAX_THREADS:
+            cluster *= 2
+    elif cluster not in (1, 2, 4, 8):
+        raise ValueError(f"solve_counterfactuals: no plan at cluster {cluster}")
+    per_block = -(-bins // cluster)
+    if per_block > 8 * MAX_THREADS:
+        raise ValueError(f"solve_counterfactuals: {bins} bins need more than {MAX_CLUSTER} blocks "
+                         f"of {MAX_THREADS} threads x 8 bins")
+    bins_per_thread = 4 if per_block <= 4 * MAX_THREADS else 8
+    bins_per_block = -(-per_block // bins_per_thread) * bins_per_thread
+    threads = max(32, (bins_per_block // bins_per_thread + 31) // 32 * 32)
+    room_words = bins_per_thread * axes | 1
+    room_bytes = 4 * threads * room_words
+    room_in_shared = CONTROL_BYTES + room_bytes <= SHARED_LIMIT
+    return CounterfactualPlan(
+        cluster=cluster, threads=threads, bins_per_thread=bins_per_thread,
+        bins_per_block=bins_per_block, room_words=room_words,
+        shared_bytes=CONTROL_BYTES + (room_bytes if room_in_shared else 0),
+        room_in_shared=room_in_shared,
+    )
 
 
 def _fold_cumsum(fit: torch.Tensor) -> torch.Tensor:
@@ -214,6 +281,20 @@ def _check_args(operands) -> None:
         raise ValueError("solve_counterfactuals: inconsistent shapes")
 
 
+# One ticket counter a (device, stream): the kernel's last cluster resets it,
+# and launches on one stream run one after another.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_TICKETS_LOCK = threading.Lock()
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    with _TICKETS_LOCK:
+        ticket = _TICKETS.get((device.index, stream))
+        if ticket is None:
+            ticket = _TICKETS[(device.index, stream)] = torch.zeros(1, dtype=torch.int32, device=device)
+        return ticket
+
+
 def solve_counterfactuals(
     pod_vectors,  # [C, G, R] f32
     pod_counts,  # [C, G] i32
@@ -225,6 +306,7 @@ def solve_counterfactuals(
     node_prices,  # [C] f32
     cand_valid,  # [C] bool
     axes=None,  # requested_axes(pod_vectors) from the host; None for all R
+    cluster=None,  # the plan's cluster size; set only by the card tests
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7: (takes [C, G, N] int32, eager [eager_words(C, G, N)] int32). The
     CUDA kernel for CUDA tensors, the plain version for CPU tensors. The
@@ -252,25 +334,24 @@ def solve_counterfactuals(
         raise ValueError(f"solve_counterfactuals kernel takes 1..{MAX_DIMS} axes and C, G, N, T >= 1")
     if not all(tensor.is_contiguous() for tensor in operands):
         raise ValueError("solve_counterfactuals kernel takes contiguous tensors")
+    plan = counterfactual_launch_plan(num_candidates, num_groups, num_bins, axes,
+                                      sm_count(device.index), cluster)
     lib = LIBRARY.load()
     takes = torch.empty((num_candidates, num_groups, num_bins), dtype=torch.int32, device=device)
     eager = torch.empty(eager_words(num_candidates, num_groups, num_bins), dtype=torch.int32, device=device)
     savings = torch.empty(num_candidates, dtype=torch.float32, device=device)
-    # The room takes threads x room_words floats per candidate at the most;
-    # it stays in shared memory when that fits.
-    threads = lib.ktt_consolidate_threads(num_bins)
-    room_bytes = 4 * threads * lib.ktt_consolidate_room_words(num_bins, axes)
-    shared = min(room_bytes, _SHARED_ROOM_LIMIT)
     scratch = None
-    if room_bytes > _SHARED_ROOM_LIMIT:
-        scratch = torch.empty(num_candidates * room_bytes // 4, dtype=torch.float32, device=device)
+    if not plan.room_in_shared:
+        scratch = torch.empty(plan.scratch_words(num_candidates), dtype=torch.float32, device=device)
     outputs = [takes, eager, savings] + ([] if scratch is None else [scratch])
     with launch_stream("solve_counterfactuals", operands + tuple(outputs)) as stream:
+        ticket = _ticket(device, stream)
         status = lib.ktt_consolidate(
             *(tensor.data_ptr() for tensor in operands),
-            num_candidates, num_groups, dims, num_bins, num_types, axes, shared,
+            num_candidates, num_groups, dims, num_bins, num_types, axes, plan.cluster,
+            plan.threads, plan.bins_per_thread, plan.bins_per_block, plan.shared_bytes,
             takes.data_ptr(), eager.data_ptr(), savings.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), stream,
+            0 if scratch is None else scratch.data_ptr(), ticket.data_ptr(), stream,
         )
     check_launch(status, "solve_counterfactuals")
     solve_counterfactuals.launches += 1
@@ -278,5 +359,3 @@ def solve_counterfactuals(
 
 
 solve_counterfactuals.launches = 0
-
-

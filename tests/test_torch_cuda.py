@@ -70,6 +70,32 @@ def test_dominance_kernel_equals_plain_version(case, cuda_device):
     assert torch.equal(got, cuda_kernels._dominance_prices_ref(capacity, prices))
 
 
+def _large_dominance_cases():
+    """chip_smoke's three largest cases (T 513: a block's rows ragged; T
+    4,096: 32 rows a block; an all-invalid T 513) and 3 axes (the kernel's
+    scalar loads)."""
+    for (capacity, prices), name in zip(list(chip_smoke.dominance_cases())[-3:],
+                                        ("T513", "T4096", "T513-invalid")):
+        yield name, capacity, prices
+    rng = np.random.default_rng(5)
+    capacity = rng.integers(0, 6, (300, 3)).astype(np.float32)
+    yield "T300-R3", capacity, rng.choice([0.25, 0.5], 300).astype(np.float32)
+
+
+LARGE_DOMINANCE_CASES = list(_large_dominance_cases())
+
+
+@pytest.mark.parametrize("name,capacity,prices", LARGE_DOMINANCE_CASES,
+                         ids=[case[0] for case in LARGE_DOMINANCE_CASES])
+def test_dominance_kernel_at_large_and_ragged_sizes(name, capacity, prices, cuda_device):
+    capacity, prices = (torch.from_numpy(a).to(cuda_device) for a in (capacity, prices))
+    before = cuda_kernels.dominance_prices.launches
+    got = cuda_kernels.dominance_prices(capacity, prices)
+    torch.cuda.synchronize()
+    assert cuda_kernels.dominance_prices.launches == before + 1
+    assert torch.equal(got, cuda_kernels._dominance_prices_ref(capacity, prices))
+
+
 def _pack_problem(seed, num_groups, num_types):
     rng = np.random.default_rng(seed)
     real_groups = int(rng.integers(1, num_groups + 1))
@@ -425,10 +451,42 @@ def test_counterfactual_kernel_flags_a_room_sized_too_small(cuda_device):
 
 
 def test_k7_problems_cover_both_room_paths(cuda_device):
+    # The C 8 cases run clusters of 8, their rooms in shared memory even at
+    # 8 axes; forced onto one block a candidate, 8 axes go to global scratch.
     lib = consolidate_kernel.LIBRARY.load()
-    threads = lib.ktt_consolidate_threads(8192)
-    assert 4 * threads * lib.ktt_consolidate_room_words(8192, 3) <= consolidate_kernel._SHARED_ROOM_LIMIT
-    assert 4 * threads * lib.ktt_consolidate_room_words(8192, 8) > consolidate_kernel._SHARED_ROOM_LIMIT
+    assert lib.ktt_consolidate_control_bytes() == consolidate_kernel.CONTROL_BYTES
+    sms = cuda_kernels.sm_count(cuda_device.index or 0)
+    for axes in (3, 8):
+        plan = consolidate_kernel.counterfactual_launch_plan(8, 4, 8192, axes, sms)
+        assert plan.cluster == 8 and plan.room_in_shared
+    assert consolidate_kernel.counterfactual_launch_plan(8, 4, 8192, 3, sms, cluster=1).room_in_shared
+    assert not consolidate_kernel.counterfactual_launch_plan(8, 4, 8192, 8, sms, cluster=1).room_in_shared
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("name,arrays", K7_PROBLEMS, ids=[name for name, _ in K7_PROBLEMS])
+def test_counterfactual_kernel_at_every_cluster_size(name, arrays, cluster, cuda_device):
+    """K7 at a cluster size the rule may not pick, bit for bit against its
+    plain version: the fits past 2**24 fold across block boundaries (N 3,000
+    at clusters of 2 and 4), the room in shared memory and in scratch, N off
+    every multiple of 4 x threads x k (N 4,101 and 4,100)."""
+    operands, axes = chip_smoke.k7_inputs(consolidate.ConsolidationProblem(**arrays), cuda_device)
+    before = consolidate_kernel.solve_counterfactuals.launches
+    takes, eager = consolidate_kernel.solve_counterfactuals(*operands, axes=axes, cluster=cluster)
+    want = consolidate_kernel._counterfactual_ref(*operands)
+    torch.cuda.synchronize()
+    assert consolidate_kernel.solve_counterfactuals.launches == before + 1
+    assert torch.equal(takes, want[0])
+    assert torch.equal(eager, consolidate_kernel._eager_from_outputs(*want[1:]))
+    # A room sized too small is flagged at every cluster size.
+    if axes > 0:
+        _, eager = consolidate_kernel.solve_counterfactuals(*operands, axes=axes - 1, cluster=cluster)
+        assert int(eager[3 * operands[0].shape[0]]) == -1
+    # The ticket counter is left at 0: the next launch gives the same bits.
+    again, eager_again = consolidate_kernel.solve_counterfactuals(*operands, axes=axes, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(again, want[0])
+    assert torch.equal(eager_again, consolidate_kernel._eager_from_outputs(*want[1:]))
 
 
 @pytest.fixture(scope="module")
@@ -448,12 +506,13 @@ def test_counterfactual_kernel_at_real_size(cluster_problem, cuda_device):
     operands, axes = chip_smoke.k7_inputs(problem, cuda_device)
     assert tuple(operands[0].shape) == (64, 16, 8)
     assert operands[2].shape[0] == 8192 and operands[4].shape[0] == 512
-    # The real pods request cpu, memory and pods: the room fits in shared
-    # memory, and no scratch is needed.
-    lib = consolidate_kernel.LIBRARY.load()
+    # The real pods request cpu, memory and pods: clusters of 2 blocks, the
+    # room in shared memory, even sized for all 8 axes.
     assert axes == 3
-    assert 4 * lib.ktt_consolidate_threads(8192) * lib.ktt_consolidate_room_words(8192, axes) \
-        <= consolidate_kernel._SHARED_ROOM_LIMIT
+    sms = cuda_kernels.sm_count(cuda_device.index or 0)
+    for room_axes in (3, 8):
+        plan = consolidate_kernel.counterfactual_launch_plan(64, 16, 8192, room_axes, sms)
+        assert plan.room_in_shared and plan.cluster == (2 if sms >= 128 else 1)
     _assert_k7_equals_plain(operands, axes)
 
 
@@ -471,6 +530,25 @@ def test_solve_candidates_on_card_equals_cpu(cluster_problem, cuda_device):
     np.testing.assert_array_equal(got.delete_take, want.delete_take)
     assert consolidate.delete_assignment(got, best, members[best]) == consolidate.delete_assignment(
         want, best, members[best])
+
+
+def test_a_sweep_is_one_call_and_one_kernel_record(cluster_problem, cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    problem = cluster_problem[0]
+    consolidate.solve_candidates(problem, device="cuda")
+    torch.cuda.synchronize()
+    before = consolidate_kernel.solve_counterfactuals.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        consolidate.solve_candidates(problem, device="cuda")
+        torch.cuda.synchronize()
+    assert consolidate_kernel.solve_counterfactuals.launches == before + 1
+    kernels = [event for event in prof.events()
+               if event.device_type == torch.autograd.DeviceType.CUDA
+               and not event.name.startswith(("Memcpy", "Memset"))]
+    k7 = [event for event in kernels if "counterfactual_kernel" in event.name]
+    assert len(k7) == 1, [event.name for event in kernels]
+    assert not [event for event in kernels if "winner_kernel" in event.name]
 
 
 # --- past the old limits: K2 and K3 take any size --------------------------

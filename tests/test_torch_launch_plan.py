@@ -19,11 +19,20 @@ lanes (`pack_kernel.levels_launch_plan`): every cell or type owned once,
 shared memory and the cluster within the card's limits, the blocks within
 the resident bound, scratch exactly when nothing fits, the rules pinned at
 the main-path and G 2,048 shapes.
+
+K7 (csrc/consolidate.cu) runs a cluster of blocks a candidate, its bins
+split over the blocks and 4 or 8 a thread
+(`consolidate_kernel.counterfactual_launch_plan`), and K1 (csrc/dominance.cu)
+a warp a row t (`cuda_kernels.dominance_launch_plan`): every bin and row
+owned once, shared memory within 227 KB, C x k within the SMs, the room in
+global scratch exactly when it does not fit, the rules pinned at the real
+sweep (C 64 x N 8,192) and the controller's sizes, and the sizes the
+kernels do not take refused.
 """
 
 import pytest
 
-from karpenter_tpu_torch.ops import lp_shard_kernel, pack_kernel, score_kernel
+from karpenter_tpu_torch.ops import consolidate_kernel, cuda_kernels, lp_shard_kernel, pack_kernel, score_kernel
 
 GROUPS = [1, 3, 8, 16, 64, 128, 1024]
 TYPES = [1, 16, 64, 300, 512, 1024, 2048, 4096]
@@ -366,3 +375,144 @@ def test_levels_plan_reaches_every_cluster_size(types, cluster):
 def test_levels_plan_refuses_a_cluster_or_lanes_outside_the_kernel(cluster, lanes):
     with pytest.raises(ValueError):
         pack_kernel.levels_plan_for(64, 512, 8, cluster, lanes)
+
+
+# --- K7: a cluster a candidate ----------------------------------------------
+
+# (C, N): the real sweep (C 64, N 8,192), the controller's smaller sweeps,
+# C on both sides of each cluster size's SM bound (132 SMs: 16 | 17, 33 | 34,
+# 66 | 67), N off every multiple of 4 x threads x k, and N past 8,192 bins a
+# block.
+K7_SHAPES = [(64, 8192), (8, 8192), (16, 8192), (17, 8192), (33, 4096), (34, 4096), (66, 8192),
+             (67, 8192), (128, 8192), (1, 1), (2, 3), (2, 3000), (3, 9), (13, 70), (17, 1300),
+             (64, 2000), (5, 4101), (5, 4100), (200, 100), (128, 16384), (2, 65536)]
+
+
+def _k7_ids(shape):
+    return "C{}xN{}".format(*shape)
+
+
+def _kernel_bins(plan, rank, thread, bins):
+    """The bins csrc/consolidate.cu gives thread `thread` of block `rank`."""
+    first = rank * plan.bins_per_block + thread * plan.bins_per_thread
+    owned = max(0, min(plan.bins_per_thread, min(rank * plan.bins_per_block + plan.bins_per_block, bins) - first))
+    return range(first, first + owned)
+
+
+@pytest.mark.parametrize("axes", [3, 8])
+@pytest.mark.parametrize("shape", K7_SHAPES, ids=_k7_ids)
+def test_counterfactual_plan_owns_every_bin_once(shape, axes):
+    candidates, bins = shape
+    plan = consolidate_kernel.counterfactual_launch_plan(candidates, 16, bins, axes)
+    assert plan.cluster in (1, 2, 4, 8)
+    assert plan.bins_per_thread in (4, 8)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.bins_per_block % plan.bins_per_thread == 0
+    assert plan.threads * plan.bins_per_thread >= plan.bins_per_block
+    owned = [n for rank in range(plan.cluster) for thread in range(plan.threads)
+             for n in _kernel_bins(plan, rank, thread, bins)]
+    assert sorted(owned) == list(range(bins))
+    assert all(n in _kernel_bins(plan, *plan.owner(n)[:2], bins) for n in range(0, bins, 97))
+
+
+@pytest.mark.parametrize("axes", [0, 1, 3, 6, 7, 8])
+@pytest.mark.parametrize("shape", K7_SHAPES, ids=_k7_ids)
+def test_counterfactual_plan_fits_the_card(shape, axes):
+    candidates, bins = shape
+    sms = consolidate_kernel.H100_SMS
+    plan = consolidate_kernel.counterfactual_launch_plan(candidates, 16, bins, axes)
+    assert plan.shared_bytes <= consolidate_kernel.SHARED_LIMIT == 232_448
+    # The cluster fills the SMs without passing them, unless a block would
+    # own more than 8 x 1,024 bins.
+    rule = max([k for k in (1, 2, 4, 8) if candidates * k <= sms] or [1])
+    if -(-bins // rule) <= 8 * 1024:
+        assert plan.cluster == rule and candidates * plan.cluster <= max(sms, candidates)
+    else:
+        assert plan.cluster > rule and -(-bins // (plan.cluster // 2)) > 8 * 1024
+    # The room in global scratch exactly when it does not fit beside the
+    # control words.
+    room = 4 * plan.threads * plan.room_words
+    assert plan.room_words == plan.bins_per_thread * axes | 1
+    assert plan.room_in_shared == (consolidate_kernel.CONTROL_BYTES + room <= consolidate_kernel.SHARED_LIMIT)
+    assert plan.shared_bytes == consolidate_kernel.CONTROL_BYTES + (room if plan.room_in_shared else 0)
+    assert plan.scratch_words(candidates) == (
+        0 if plan.room_in_shared else candidates * plan.cluster * plan.threads * plan.room_words)
+
+
+def test_counterfactual_plan_rule_at_the_real_sweep():
+    # C 64 x N 8,192: clusters of 2 blocks of 1,024 threads, 4 bins a
+    # thread; the room in shared memory with 3 axes and with all 8.
+    for axes, shared in ((3, 54_736), (8, 136_656)):
+        assert consolidate_kernel.counterfactual_launch_plan(64, 16, 8192, axes) == \
+            consolidate_kernel.CounterfactualPlan(2, 1024, 4, 4096, 4 * axes + 1, shared, True)
+
+
+@pytest.mark.parametrize("candidates,cluster", [(8, 8), (16, 8), (17, 4), (33, 4), (34, 2), (64, 2),
+                                                (66, 2), (67, 1), (128, 1)])
+def test_counterfactual_plan_at_the_controller_sizes(candidates, cluster):
+    plan = consolidate_kernel.counterfactual_launch_plan(candidates, 16, 8192, 3)
+    assert plan.cluster == cluster and plan.room_in_shared
+    assert plan.bins_per_block == 8192 // cluster
+    assert plan.threads == min(1024, 8192 // cluster // 4) or plan.bins_per_thread == 8
+
+
+def test_counterfactual_plan_scratch_only_past_shared_memory():
+    # One block a candidate at N 8,192: 8 bins a thread; 6 axes fit shared
+    # memory, 7 do not.
+    assert consolidate_kernel.counterfactual_launch_plan(128, 16, 8192, 6).room_in_shared
+    plan = consolidate_kernel.counterfactual_launch_plan(128, 16, 8192, 7)
+    assert (plan.cluster, plan.bins_per_thread, plan.threads) == (1, 8, 1024)
+    assert not plan.room_in_shared and plan.shared_bytes == consolidate_kernel.CONTROL_BYTES
+    # Forced onto one block, the real sweep's 8 axes go to scratch too.
+    assert not consolidate_kernel.counterfactual_launch_plan(64, 16, 8192, 8, cluster=1).room_in_shared
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_counterfactual_plan_takes_a_forced_cluster(cluster):
+    plan = consolidate_kernel.counterfactual_launch_plan(2, 1, 3000, 1, cluster=cluster)
+    assert plan.cluster == cluster
+    assert cluster * plan.bins_per_block >= 3000
+
+
+@pytest.mark.parametrize("args,kwargs", [
+    ((0, 16, 8192, 3), {}), ((64, 0, 8192, 3), {}), ((64, 16, 0, 3), {}), ((64, 16, 8192, 9), {}),
+    ((64, 16, 8192, -1), {}), ((1, 1, 65537, 3), {}), ((64, 16, 8192, 3), {"cluster": 3}),
+    ((64, 16, 8192, 3), {"cluster": 16}), ((64, 16, 32768, 3), {"cluster": 1}),
+])
+def test_counterfactual_plan_refuses_what_the_kernel_does_not_take(args, kwargs):
+    with pytest.raises(ValueError):
+        consolidate_kernel.counterfactual_launch_plan(*args, **kwargs)
+
+
+# --- K1: one warp a row ---------------------------------------------------------
+
+DOMINANCE_TYPES = [1, 2, 31, 32, 33, 131, 132, 133, 263, 264, 265, 400, 512, 513, 1000, 2048, 4095, 4096]
+
+
+@pytest.mark.parametrize("types", DOMINANCE_TYPES)
+def test_dominance_plan_owns_every_row_once(types):
+    sms = cuda_kernels.H100_SMS
+    plan = cuda_kernels.dominance_launch_plan(types, 8)
+    assert plan.threads_per_row == 32 and plan.threads == 32 * plan.rows <= 1024
+    assert plan.rows & (plan.rows - 1) == 0 and 1 <= plan.rows <= cuda_kernels.MAX_ROWS
+    owners = [plan.owner(t) for t in range(types)]
+    assert len(set(owners)) == types
+    assert all(0 <= block < plan.blocks and 0 <= warp < plan.rows for block, warp in owners)
+    assert plan.blocks == -(-types // plan.rows)
+    # About one block an SM: the rows a block grow only while the blocks
+    # would pass the SMs.
+    assert plan.blocks <= sms or plan.rows == cuda_kernels.MAX_ROWS
+    assert plan.rows == 1 or -(-types // (plan.rows // 2)) > sms
+
+
+def test_dominance_plan_rule_at_the_main_path_and_t4096():
+    assert cuda_kernels.dominance_launch_plan(512, 8) == cuda_kernels.DominancePlan(4, 32, 128)
+    assert cuda_kernels.dominance_launch_plan(4096, 8) == cuda_kernels.DominancePlan(32, 32, 128)
+    assert cuda_kernels.dominance_launch_plan(1, 8) == cuda_kernels.DominancePlan(1, 32, 1)
+    assert cuda_kernels.dominance_launch_plan(8192, 3).rows == 32
+
+
+@pytest.mark.parametrize("args", [(0, 8), (512, 0), (512, 9), (512, 8, 0)])
+def test_dominance_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        cuda_kernels.dominance_launch_plan(*args)
