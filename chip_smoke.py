@@ -25,7 +25,10 @@ limit, and as the last line {"ok": true, "device": {...}}:
               give the same bits; K8 the incremental encode's scatter and
               gather on float32 rows, int32 and bool values (a delta, a
               1-element delta, sentinel-only index vectors, an empty
-              permutation), bit for bit, the scatter's input untouched; K2q
+              permutation), bit for bit, the scatter's input untouched, one
+              array a call and batched (scatter_flush: up to eight arrays a
+              flush, one launch; gather_view: three sources over one
+              permutation, one launch); K2q
               (K2 with the reference's fits() quirk) on the reference's
               four parity shapes (the 1.5-pod then 0.5-pod exact-fit case
               among them), random problems over the launch plans, the main
@@ -65,8 +68,9 @@ limit, and as the last line {"ok": true, "device": {...}}:
               CPU run, K1-K4 launched once each, no pod tensor uploaded and
               a warm solve uploading nothing (convert.upload_packed's
               counters), encode and dispatch under
-              set_sync_debug_mode("error"); again after 1% churn (K8's
-              scatters launched); warm p50 of the fast and the snapshot
+              set_sync_debug_mode("error"), K8 launched once for the view;
+              again after 1% churn (K8 once for the flush, once for the
+              view); warm p50 of the fast and the snapshot
               path, the encode skipped, and the time to the first result of
               an 8-schedule pipelined solve against the batch
      oom_ladder  on that 8-schedule batch: an injected out-of-memory fault
@@ -156,7 +160,8 @@ limit, and as the last line {"ok": true, "device": {...}}:
               virtual CPU devices: CostSolver over the main path's 50,000
               pods x 400 types with solve_mesh() selecting the mesh (K1 and
               the K2 pair once, K9a's persistent kernel once for the whole
-              LP, K9b once a shard, no K3 or K4), every pod placed once,
+              LP, K9b once for the whole payload, no K3 or K4), every pod
+              placed once,
               both decoded candidates and feasible_any bit-identical to the
               single-device solve, $/hr within 1.02x and 5% of it, warm p50
               and max over 10 solves beside the single-device p50; K9a
@@ -169,12 +174,14 @@ limit, and as the last line {"ok": true, "device": {...}}:
               against the plain versions) on the main path and at the
               many-shapes width (padded G 2,048 x T 512, 2x4: one launch,
               objective and pods) beside K3 there; K9b
-              (csrc/compact_shard.cu) against its plain version word for
-              word and against the host decode, a shard past its budget
-              included; the constrained cell's levels over 8 shards equal
-              to the single-device dispatch; the shrink leg: one shard id
+              (csrc/compact_shard.cu, one launch a solve) against its plain
+              version word for word, against its per-card route forced on
+              the card (the shards in runs of three, a launch each) and
+              against the host decode, a shard past its budget included;
+              the constrained cell's levels over 8 shards equal to the
+              single-device dispatch; the shrink leg: one shard id
               wedged, the mesh 1x7 (G and T padded to multiples of 7), one
-              K9a launch, K9a against its plain version there, the decoded
+              K9a launch and one K9b launch, K9a against its plain version there, the decoded
               candidates and feasible_any bit-identical to the single-device
               solve's on the real groups, the LP finite, pods conserved; an
               injected dispatch failure
@@ -191,8 +198,10 @@ limit, and as the last line {"ok": true, "device": {...}}:
               K2's time per round of each mode; K6 at the constrained
               path's shapes (K1 at T 4,096 too; K7 at the real sweep and at
               the controller's last sweep, with its cluster size and kernel
-              records a sweep); K8 on one steady-state sweep's scatters and
-              gathers; K10 on the storm fleet's [T] column, beside
+              records a sweep); K8 on one steady-state sweep's flush and
+              sorted view (one launch each; device ms over every record of
+              the call, copies included); K10 on the storm fleet's [T]
+              column, beside
               torch.addcmul; K2q at the main path's shape; K2 and K3 at
               padded G 2,048
  12. layers   one warm solve layer by layer (each bracketed by device syncs),
@@ -957,15 +966,17 @@ def plain_k9a():
 
 @contextlib.contextmanager
 def plain_k9b():
-    """Within the block, the sharded compaction runs K9b's plain version."""
+    """Within the block, the sharded compaction runs K9b's plain versions
+    (the one-card payload's and the per-card route's)."""
     from karpenter_tpu_torch.ops import pack_kernel
 
-    saved = pack_kernel.compact_shard
-    pack_kernel.compact_shard = pack_kernel._compact_shard_ref
+    saved = pack_kernel.compact_sharded_payload, pack_kernel.compact_shards
+    pack_kernel.compact_sharded_payload = pack_kernel._compact_sharded_payload_ref
+    pack_kernel.compact_shards = pack_kernel._compact_shards_ref
     try:
         yield
     finally:
-        pack_kernel.compact_shard = saved
+        pack_kernel.compact_sharded_payload, pack_kernel.compact_shards = saved
 
 
 def k9a_phase_cases(shards: int, device, seed: int = 0):
@@ -1340,9 +1351,10 @@ def device_ms_per_call(fn, kernels, reps: int = 20) -> float:
     return sum(seen[name][1] / seen[name][0] * per_call[name] for name in per_call) / 1e3
 
 
-def kernel_records(fn) -> dict:
+def kernel_records(fn, copies: bool = False) -> dict:
     """{kernel name: records} torch.profiler shows for one call of `fn`
-    (copies and fills left out): what a call launches on the card."""
+    (copies and fills left out unless `copies`, then under their own
+    names): what a call launches on the card."""
     import re
 
     import torch
@@ -1355,7 +1367,8 @@ def kernel_records(fn) -> dict:
         torch.cuda.synchronize()
     records = {}
     for event in prof.events():
-        if event.device_type != torch.autograd.DeviceType.CUDA or event.name.startswith(("Memcpy", "Memset")):
+        if event.device_type != torch.autograd.DeviceType.CUDA or (
+                not copies and event.name.startswith(("Memcpy", "Memset"))):
             continue
         match = re.search(r"(\w+_kernel)", event.name)
         name = match.group(1) if match else event.name
@@ -1821,20 +1834,31 @@ def k9b_cases(device):
 
 
 def k9b_check(mesh, device) -> dict:
-    """K9b over `mesh` on every case of k9b_cases: word for word equal to
-    its plain version, decoded to the dense fills where every shard fits
-    its budget, flagged for the dense spill where one does not."""
+    """K9b over `mesh` (one card) on every case of k9b_cases: one launch
+    for the whole payload, word for word equal to its plain version and to
+    the per-card route forced on the card (the shards in runs of three, a
+    launch each), decoded to the dense fills where every shard fits its
+    budget, flagged for the dense spill where one does not."""
     import torch
 
     from karpenter_tpu_torch.ops import pack_kernel
 
     cases = overflowed = 0
+    runs = -(-mesh.size // 3)
     for label, ffd, cost, feasible in k9b_cases(device):
+        before = pack_kernel.compact_shard.launches
         got = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh)
+        check(pack_kernel.compact_shard.launches - before == 1,
+              f"K9b took {pack_kernel.compact_shard.launches - before} launches over {mesh.size} shards of one card")
+        per_card = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh, per_card=3)
+        check(pack_kernel.compact_shard.launches - before == 1 + runs,
+              f"K9b's per-card route took {pack_kernel.compact_shard.launches - before - 1} launches, not {runs}")
         with plain_k9b():
             want = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh)
         synchronize(device)
         check(torch.equal(got, want), f"K9b differs from its plain version on {label} over {mesh.size} shards")
+        check(torch.equal(per_card, got),
+              f"K9b's per-card route differs from its one-launch route on {label} over {mesh.size} shards")
         num_groups = feasible.shape[0]
         words = got.cpu().numpy()
         dec_ffd, dec_cost, dec_feasible, ok = pack_kernel.decompact_plan_sharded(words, num_groups, mesh.size)
@@ -1865,7 +1889,7 @@ def sharded_device_ms(sharded, lp_steps: int = 300) -> None:
         shards = entry["shards"]
         entry["k9a_ms"] = device_ms_per_call(entry["k9a_call"], {"lp_shard_persistent_kernel": 1}, reps=10)
         entry["k9a_plan"] = lp_plan_of(entry["k9a_lp"], entry["mesh_shape"])
-        entry["k9b_ms"] = device_ms_per_call(entry["k9b_call"], {"compact_shard_kernel": shards}, reps=200)
+        entry["k9b_ms"] = device_ms_per_call(entry["k9b_call"], {"compact_sharded_kernel": 1}, reps=200)
         print(f"  K9a over {shards} shards: {entry['k9a_ms']:.4f} ms device a solve, "
               f"{entry['k9a_ms'] * 1e3 / lp_steps:.3f} us a step ({entry['k9a_plan'].blocks} blocks); "
               f"K9b {entry['k9b_ms']:.5f} ms a compaction")
@@ -1937,7 +1961,7 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
     karpenter_tpu/models/solver.py:500-640) on 2x2 and 2x4 virtual meshes of
     the card, following __graft_entry__.dryrun_multichip: CostSolver on the
     main path's 50,000 pods x 400 types through the mesh (K1 and the K2 pair
-    once, K9a over every shard, K9b once a shard, no K3 or K4), its decoded
+    once, K9a over every shard, K9b once, no K3 or K4), its decoded
     candidates and feasibility bit-identical to the single-device solve's,
     $/hr within 1.02x and 5% of it, warm p50 and max; K9a against its plain
     version (the main path, non-degenerate LPs, padded G 2,048 x T 512),
@@ -2002,9 +2026,10 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
                 "lp_shard": lp_shard_kernel.launches(),
                 "compact_shard": pack_kernel.compact_shard.launches,
             }
-            # One card: the whole LP is one launch of K9a's persistent kernel.
+            # One card: the whole LP is one launch of K9a's persistent
+            # kernel, the whole payload one launch of K9b.
             want = {"dominance_prices": 1, "pack_kernel": 1, "lp_relax": 0, "compact_plan": 0,
-                    "lp_shard": 1, "compact_shard": shards}
+                    "lp_shard": 1, "compact_shard": 1}
             check(launches == want, f"the {label} solve launched {launches}, not {want}")
             check(all_pods_placed_once(result, pods), f"the {label} solve did not place every pod once")
             cost = result.projected_cost()
@@ -2052,12 +2077,14 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
             k9b_call = functools.partial(pack_kernel.compact_plan_sharded, main_ffd, main_cost, main_feasible,
                                          mesh=mesh)
             k9b_event_ms = time_cuda(k9b_call, reps=50)
+            k9b_per_card_event_ms = time_cuda(functools.partial(k9b_call, per_card=3), reps=50)
             with plain_k9b():
                 k9b_plain_ms = time_cuda(k9b_call, reps=20)
             out["meshes"][label] = {
                 "shards": shards, "launches": launches, "k9a_event_ms": k9a_event_ms,
                 "k9a_plain_ms": k9a_plain_ms, "k9a_err": max(errs),
                 "k9b_event_ms": k9b_event_ms, "k9b_plain_ms": k9b_plain_ms, "k9b": k9b,
+                "k9b_per_card_event_ms": k9b_per_card_event_ms,
                 "k9a_call": k9a_call, "k9b_call": k9b_call, "mesh_shape": mesh.shape,
                 "k9a_lp": (main_lp[0].shape[0], main_lp[2].shape[0], main_lp[0].shape[1]),
                 "p50_ms": float(np.percentile(sharded_ms, 50)), "max_ms": max(sharded_ms),
@@ -2068,6 +2095,8 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
                 f"m{label}_max_ms": f"{max(sharded_ms):.3f}",
                 f"m{label}_cost_per_hr": f"{cost:.6f}",
                 f"m{label}_k9a_event_ms": f"{k9a_event_ms:.4f}",
+                f"m{label}_k9b_event_ms": f"{k9b_event_ms:.4f}",
+                f"m{label}_k9b_per_card_event_ms": f"{k9b_per_card_event_ms:.4f}",
                 f"m{label}_k9a_main_obj_rel": f"{main_obj:.3e}", f"m{label}_k9a_phases": phases,
             })
             if shards == 8:
@@ -2140,10 +2169,12 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
         check(shrunk.size == 7 and shrunk.shape == (1, 7) and 7 not in shrunk.ids(),
               f"the mesh did not shrink to 1x7: {shrunk}")
         lp_shard_kernel.reset_launches()
+        pack_kernel.compact_shard.launches = 0
         handle = solver.cost_solve_dispatch(*args, device=device)
         plan = solver.fetch_plan(handle)
-        check(lp_shard_kernel.launches() == 1,
-              f"the LP on the shrunk mesh took {lp_shard_kernel.launches()} K9a launches")
+        check(lp_shard_kernel.launches() == 1 and pack_kernel.compact_shard.launches == 1,
+              f"the solve on the shrunk mesh took {lp_shard_kernel.launches()} K9a launches and "
+              f"{pack_kernel.compact_shard.launches} K9b launches")
         check(plans_agree_on_real_groups(plan, single_plan, groups.num_groups),
               "the 1x7 solve's decoded candidates differ from the single-device solve's")
         shrunk_obj, shrunk_err, _, _ = k9a_against_plain(
@@ -2267,6 +2298,53 @@ def k8_check(device) -> dict:
         check(same_bits(got, want), f"K8 differs from its plain version on {name}")
         cases += 1
     return {"cases": cases}
+
+
+def k8_batched_check(device) -> dict:
+    """Every case of k8_cases through K8's batched entry points on the card
+    and their plain versions on the same tensors, bit for bit: the
+    scatters in flushes of up to MAX_ARRAYS arrays (each with its own
+    delta; one launch a flush, the inputs untouched), and each gather's
+    permutation over its source and one source of each other kind in one
+    view (one launch, none for an empty permutation)."""
+    import torch
+
+    from karpenter_tpu_torch.convert import upload_packed
+    from karpenter_tpu_torch.ops import incremental
+
+    cases = list(k8_cases())
+    scatters = [upload_packed([array, index, rows], device)
+                for _, op, array, index, rows in cases if op == "scatter"]
+    flushes = 0
+    for start in range(0, len(scatters), incremental.MAX_ARRAYS):
+        batch = scatters[start : start + incremental.MAX_ARRAYS]
+        kept = [dst.clone() for dst, _, _ in batch]
+        before = incremental.scatter.launches
+        got = incremental.scatter_flush(batch)
+        want = incremental._scatter_flush_ref(batch)
+        torch.cuda.synchronize()
+        check(incremental.scatter.launches == before + 1,
+              f"a flush of {len(batch)} arrays took {incremental.scatter.launches - before} launches")
+        check(all(same_bits(dst, old) for (dst, _, _), old in zip(batch, kept)), "scatter_flush wrote into its input")
+        check(all(same_bits(a, b) for a, b in zip(got, want)), "scatter_flush differs from its plain version")
+        flushes += 1
+    gathers = [(name.split("-")[1], upload_packed([array, index], device))
+               for name, op, array, index, _ in cases if op == "gather"]
+    first_of = {}
+    for kind, (src, _) in gathers:
+        first_of.setdefault(kind, src)
+    views = 0
+    for kind, (src, perm) in gathers:
+        sources = [src] + [other for other_kind, other in first_of.items() if other_kind != kind]
+        before = incremental.gather.launches
+        got = incremental.gather_view(sources, perm)
+        want = incremental._gather_view_ref(sources, perm)
+        torch.cuda.synchronize()
+        check(incremental.gather.launches == before + (1 if perm.numel() else 0),
+              f"a view of {len(sources)} sources took {incremental.gather.launches - before} launches")
+        check(all(same_bits(a, b) for a, b in zip(got, want)), "gather_view differs from its plain version")
+        views += 1
+    return {"flushes": flushes, "views": views, "cases": len(cases)}
 
 
 def plan_signature(result):
@@ -2441,8 +2519,10 @@ def incremental_phase(device, num_pods: int = NUM_PODS, churn_fraction: float = 
 
 def k8_sweep_operands(state, deltas, device):
     """The K8 work of one steady-state sweep on `state`'s arrays: the
-    scatters of a flush with the largest delta the sweeps saw (group and
-    node rows at their slots) and the two gathers of the sorted view."""
+    (dst, idx, rows) of a flush with the largest delta the sweeps saw
+    (group and node rows at their slots, five arrays) and the (src, perm)
+    of the sorted view's two gathers (one permutation), with the bytes the
+    sweep must move."""
     from karpenter_tpu_torch.convert import upload_packed
     from karpenter_tpu_torch.ops.incremental import pad_indices
 
@@ -2475,8 +2555,10 @@ def k8_sweep_operands(state, deltas, device):
     real_g, real_n, real_p = group_rows, node_rows, len(live_groups)
     moved = 0
     for (dst, idx, rows), real in zip(scatters, (real_g, real_g, real_n, real_n, real_n)):
+        # The index and the real delta rows read, the old generation read
+        # and the new one written whole (the scatter is functional).
         row_bytes = rows[0].numel() * rows.element_size()
-        moved += 4 * idx.shape[0] + 2 * real * row_bytes
+        moved += 4 * idx.shape[0] + real * row_bytes + 2 * dst.numel() * dst.element_size()
     for src, index in gathers:
         row_bytes = src[0].numel() * src.element_size()
         moved += 4 * index.shape[0] + real_p * row_bytes + index.shape[0] * row_bytes
@@ -2563,7 +2645,7 @@ def fast_path_phase(catalog, cost_solver, device, cpu_cost: float, num_pods: int
         # up, so no pod tensor did.
         check(cold_uploads == (1, 4, fleet_arrays),
               f"the {label} fast-path solve uploaded {cold_uploads}, not the fleet's 4 arrays alone")
-        check(k8["gather"] == 2, f"the {label} encode launched K8's gather {k8['gather']} times, not 2")
+        check(k8["gather"] == 1, f"the {label} encode launched K8's gather {k8['gather']} times, not once")
         check(all_pods_placed_once(result, batch), f"the {label} fast path did not place every pod once")
         # Warm: the same pair again uploads nothing.
         before = uploads()
@@ -2614,7 +2696,8 @@ def fast_path_phase(catalog, cost_solver, device, cpu_cost: float, num_pods: int
                                               requests={"cpu": f"{cpu}m", "memory": f"{mem}Mi"}))
                 if step == 0:
                     state.flush()
-    check(rounds[1]["k8"]["scatter"] > 0, f"the churned encode launched no K8 scatter: {rounds[1]['k8']}")
+    check(rounds[1]["k8"] == {"scatter": 1, "gather": 1},
+          f"the churned encode did not launch K8 once for its flush and once for its view: {rounds[1]['k8']}")
 
     # Time to the first result of an 8-schedule pipelined solve, against
     # the batch solve of the same schedules.
@@ -3059,9 +3142,10 @@ def provision_storm_phase(device) -> dict:
     check(solver_mod.SOLVE_DISPATCH_TOTAL.get("host") == host_before, "a storm pass solved on the host")
     check(launches["penalize_prices"] == card["k10_launches"] > 0, "the storm launched no K10 tripwire")
     # The Manager's encoder reaches the card only when a pass takes the fast
-    # path: its first flush there is a full upload, then K8 gathers the
-    # sorted groups. The scatters run on later flushes (the churn cell).
-    check(launches["gather"] >= 2 * sum(p["fast_path"] for p in card["passes"]) > 0,
+    # path: its first flush there is a full upload, then one K8 launch
+    # gathers the sorted view. The scatters run on later flushes (the churn
+    # cell).
+    check(launches["gather"] >= sum(p["fast_path"] for p in card["passes"]) > 0,
           f"the fast-path passes did not gather their groups with K8 on the card: {launches}")
     check(all(p["columns"] >= 1 for p in card["passes"]), "a pass published no penalised column")
     uploads = [p["fleet_uploads"] for p in card["passes"]]
@@ -4169,8 +4253,10 @@ def smoke(children) -> int:
             torch.cuda.synchronize()
             check(rounds_equal(pack_kernel._pack_kernel_ref(*args, quirk=True, mode="ffd"), again),
                   "two launches of K2q differ on the main path")
-    # K8 on every case of k8_cases, bit for bit.
+    # K8 on every case of k8_cases, bit for bit: one array a call, then
+    # batched as a flush and a view batch them.
     k8 = k8_check(device)
+    k8_batched = k8_batched_check(device)
     # K10 on every case of k10_cases: bit for bit to the numpy column and
     # to its plain version.
     k10_cases = 0
@@ -4186,7 +4272,8 @@ def smoke(children) -> int:
         k10_cases += 1
     phase("kernels", k1_cases=k1_cases, k2_cases=k2_cases, k2q_cases=k2q_cases_run, k2q_max_abs_err=k2q_err,
           k3_cases=k3_cases, k4_cases=k4_cases,
-          k6_cases=k6_cases_run, k8_cases=k8["cases"], k10_cases=k10_cases, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
+          k6_cases=k6_cases_run, k8_cases=k8["cases"], k8_flushes=k8_batched["flushes"],
+          k8_views=k8_batched["views"], k10_cases=k10_cases, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
           k3_max_abs_err=k3_err, k4_max_abs_err=k4_err, k6_max_abs_err=k6_err, k8_max_abs_err=0,
           k3_objective_rel_err=f"{k3_obj_err:.3e}", k3_main_objective_rel_err=f"{main_obj_err:.3e}")
 
@@ -4551,17 +4638,22 @@ def smoke(children) -> int:
     # phase's arrays.
     k8_scatters, k8_gathers, k8_bytes = k8_sweep_operands(churn["state"], churn["deltas"], device)
 
-    def k8_call(scatter=incremental.scatter, gather=incremental.gather):
-        for dst, idx, rows in k8_scatters:
-            scatter(dst, idx, rows)
-        for src, perm in k8_gathers:
-            gather(src, perm)
+    def k8_call(flush=incremental.scatter_flush, view=incremental.gather_view):
+        flush(k8_scatters)
+        view([src for src, _ in k8_gathers], k8_gathers[0][1])
 
-    k8_ms = device_ms_per_call(
-        k8_call, {"scatter_kernel": len(k8_scatters), "gather_kernel": len(k8_gathers)}, reps=50)
+    # Every device record of a sweep's call, copies included: the flush's
+    # copies of the old rows run inside its one launch.
+    # (A profiler session late in the run may drop a record: device_ms_per_call
+    # measures again then, so this only checks that nothing else ran.)
+    k8_launches = {"scatter_flush_kernel": 1, "gather_view_kernel": 1}
+    k8_records = kernel_records(k8_call, copies=True)
+    check(all(k8_launches.get(name, 0) >= count for name, count in k8_records.items()),
+          f"a sweep's K8 call made the device records {k8_records}, not one flush and one view launch")
+    k8_ms = device_ms_per_call(k8_call, k8_launches, reps=50)
     k8_event_ms = time_cuda(k8_call, reps=50)
     k8_plain_ms = time_cuda(functools.partial(
-        k8_call, incremental._scatter_ref, incremental._gather_ref), reps=20)
+        k8_call, incremental._scatter_flush_ref, incremental._gather_view_ref), reps=20)
     k8_bound, k8_by = bound(k8_bytes, 0)
     kernels.append({
         "name": "incremental_scatter_gather", "route": "cuda",
@@ -4571,8 +4663,8 @@ def smoke(children) -> int:
         "ms": k8_ms, "event_ms": k8_event_ms, "plain_ms": k8_plain_ms, "bound_ms": k8_bound,
         "bound_by": k8_by, "library_ms": None,
         "launches_scatter": churn["launches"]["scatter"], "launches_gather": churn["launches"]["gather"],
-        "flushes": churn["flushes"], "cases": k8["cases"],
-        "bytes": k8_bytes,
+        "flushes": churn["flushes"], "cases": k8["cases"], "batched_flushes": k8_batched["flushes"],
+        "batched_views": k8_batched["views"], "records_per_sweep": k8_records, "bytes": k8_bytes,
     })
     # K10 on the storm fleet's own [T] column and risks.
     k10_prices = torch.from_numpy(storm["prices"]["prices"]).to(device)
@@ -4609,13 +4701,15 @@ def smoke(children) -> int:
           f"K3 {k3_big_ms:.4f} ms (CUDA events)")
     # K9a and K9b at the main path's shapes on the 2x4 mesh (the 2x2
     # mesh's numbers beside). K9a does the LP's work, so K3's bound; K9b
-    # reads both modes' fills and writes every shard's segments.
+    # reads both modes' fills, headers and feasible_any, and writes the
+    # whole payload.
     sharded_device_ms(sharded, lp_steps)
     wide, square = sharded["meshes"]["2x4"], sharded["meshes"]["2x2"]
     k9b_shards = wide["shards"]
-    k9b_budget = pack_kernel.shard_entry_budget(num_groups, k9b_shards)
-    k9b_bound, k9b_by = bound(2 * 4 * mr * num_groups + 2 * 4 * k9b_shards * (1 + 2 * k9b_budget),
-                              2 * 2 * mr * num_groups)
+    k9b_bound, k9b_by = bound(
+        2 * 4 * mr * num_groups + 2 * 4 * (2 * mr + num_groups + 2) + num_groups
+        + 4 * pack_kernel.compact_words_sharded(num_groups, k9b_shards),
+        2 * 2 * mr * num_groups)
     # K9a at G 2,048 x T 512: the same LP's work at that width.
     big_g, big_t, big_r = sharded["g2048"]["lp"]
     k9a_big_bound, k9a_big_by = bound(
@@ -4654,8 +4748,13 @@ def smoke(children) -> int:
         "ms": wide["k9b_ms"], "event_ms": wide["k9b_event_ms"], "plain_ms": wide["k9b_plain_ms"],
         "bound_ms": k9b_bound, "bound_by": k9b_by, "library_ms": None, "mesh": "2x4",
         "cases": wide["k9b"]["cases"] + square["k9b"]["cases"],
+        "launches_per_solve": wide["launches"]["compact_shard"],
         "ms_2x2": square["k9b_ms"], "event_ms_2x2": square["k9b_event_ms"],
         "launches_2x2": square["launches"]["compact_shard"],
+        # The per-card route (a mesh across cards) forced on the card: the
+        # shards in runs of three, a launch each.
+        "event_ms_per_card": wide["k9b_per_card_event_ms"],
+        "event_ms_per_card_2x2": square["k9b_per_card_event_ms"],
     })
     phase("timing", shapes=f"T={num_types},R={dims},G={num_groups}", k7_shapes=f"C={c_pad},G={g_pad},N={k7_bins},T={k7_types}",
           k6_shapes="G={},T={},L={}".format(k6_operands[0].shape[0], k6_operands[2].shape[0], k6_operands[1].shape[0]),

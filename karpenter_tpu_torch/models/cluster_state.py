@@ -643,25 +643,20 @@ class DeviceClusterState:
                 idx = plan[part][0]
                 host += [idx] + [pad_to(rows, len(idx)) for rows in plan[part][1:]]
         on_device = iter(upload_packed(host, self.device))
+        # Every changed array's new generation in ONE scatter_flush (one
+        # launch on the card, the copies of the old rows included).
+        names: List[str] = []
+        updates = []
         if plan["group"] is not None:
             idx, rows, counts = (next(on_device) for _ in range(3))
-            arrays["group_vectors"] = incremental.scatter(
-                arrays["group_vectors"], idx, rows
-            )
-            arrays["group_counts"] = incremental.scatter(
-                arrays["group_counts"], idx, counts
-            )
+            names += ["group_vectors", "group_counts"]
+            updates += [(arrays["group_vectors"], idx, rows), (arrays["group_counts"], idx, counts)]
         if plan["node"] is not None:
             idx, capacity, used, live = (next(on_device) for _ in range(4))
-            arrays["node_capacity"] = incremental.scatter(
-                arrays["node_capacity"], idx, capacity
-            )
-            arrays["node_used"] = incremental.scatter(
-                arrays["node_used"], idx, used
-            )
-            arrays["node_live"] = incremental.scatter(
-                arrays["node_live"], idx, live
-            )
+            names += ["node_capacity", "node_used", "node_live"]
+            updates += [(arrays["node_capacity"], idx, capacity), (arrays["node_used"], idx, used),
+                        (arrays["node_live"], idx, live)]
+        arrays.update(zip(names, incremental.scatter_flush(updates)))
         return arrays
 
     # --- epoch / freshness protocol ------------------------------------------
@@ -754,8 +749,9 @@ class DeviceClusterState:
                 perm, int(dev["group_vectors"].shape[0])
             )
             (padded,) = upload_packed([padded], self.device)
-            device_vectors = incremental.gather(dev["group_vectors"], padded)
-            device_counts = incremental.gather(dev["group_counts"], padded)
+            device_vectors, device_counts = incremental.gather_view(
+                [dev["group_vectors"], dev["group_counts"]], padded
+            )
         else:
             # A sync raced in between flush and capture (or the state is
             # torn): fall back to uploading the host slices — exact, just

@@ -45,7 +45,7 @@ import ctypes
 import math
 import threading
 from collections import OrderedDict
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,9 +102,13 @@ COMPACT_LIBRARY = CudaLibrary(
 COMPACT_SHARD_LIBRARY = CudaLibrary(
     "compact_shard.cu",
     {
-        "ktt_compact_shard": (
+        "ktt_compact_sharded_payload": (
             ctypes.c_int,
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+        ),
+        "ktt_compact_shards": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
         ),
     },
 )
@@ -1092,6 +1096,24 @@ def _compact_plan_ref(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_
     )
 
 
+def _check_payload_args(kernel: str, rounds_ffd: PackRounds, rounds_cost: PackRounds,
+                        feasible_any) -> None:
+    """Raise unless both PackRounds are int32 of the shapes padded G gives
+    them and every argument is contiguous, as K4's and K9b's payload
+    kernels read them."""
+    if feasible_any.dtype != torch.bool or feasible_any.dim() != 1:
+        raise TypeError(f"{kernel} kernel takes feasible_any as a [G] bool tensor")
+    num_groups = feasible_any.shape[0]
+    mr = max_rounds(num_groups)
+    shapes = ((mr,), (mr, num_groups), (mr,), (), (num_groups,), ())
+    for rounds in (rounds_ffd, rounds_cost):
+        for name, tensor, shape in zip(PackRounds._fields, rounds, shapes):
+            if tensor.dtype != torch.int32 or tuple(tensor.shape) != shape:
+                raise ValueError(f"{kernel} kernel takes {name} as int32 {shape}")
+    if not all(tensor.is_contiguous() for tensor in [*rounds_ffd, *rounds_cost, feasible_any]):
+        raise ValueError(f"{kernel} kernel takes contiguous tensors")
+
+
 def compact_plan(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any):
     """Both candidate plans plus the feasibility vector as ONE flat int32
     tensor — the eager device->host payload of a fused cost solve. K4
@@ -1105,17 +1127,8 @@ def compact_plan(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any):
         return _compact_plan_ref(rounds_ffd, rounds_cost, feasible_any)
     if device.type != "cuda":
         raise ValueError(f"compact_plan: unsupported device {device}")
-    if feasible_any.dtype != torch.bool or feasible_any.dim() != 1:
-        raise TypeError("compact_plan kernel takes feasible_any as a [G] bool tensor")
+    _check_payload_args("compact_plan", rounds_ffd, rounds_cost, feasible_any)
     num_groups = feasible_any.shape[0]
-    mr = max_rounds(num_groups)
-    shapes = ((mr,), (mr, num_groups), (mr,), (), (num_groups,), ())
-    for rounds in (rounds_ffd, rounds_cost):
-        for name, tensor, shape in zip(PackRounds._fields, rounds, shapes):
-            if tensor.dtype != torch.int32 or tuple(tensor.shape) != shape:
-                raise ValueError(f"compact_plan kernel takes {name} as int32 {shape}")
-    if not all(tensor.is_contiguous() for tensor in fields + [feasible_any]):
-        raise ValueError("compact_plan kernel takes contiguous tensors")
     lib = COMPACT_LIBRARY.load()
     out = torch.empty(compact_words(num_groups), dtype=torch.int32, device=device)
     pointers = (ctypes.c_void_p * len(fields))(*(tensor.data_ptr() for tensor in fields))
@@ -1241,71 +1254,171 @@ def _compact_shard_ref(fill_ffd: torch.Tensor, fill_cost: torch.Tensor, shard: i
     ])
 
 
-def compact_shard(fill_ffd: torch.Tensor, fill_cost: torch.Tensor, shard: int, shards: int) -> torch.Tensor:
-    """K9b: shard `shard` of `shards`' segments of both modes' [MR, G] fills,
-    [2, 1 + 2 * shard_entry_budget(G, shards)] int32. The CUDA kernel (one
-    launch) for CUDA tensors, the plain version for CPU tensors."""
-    if fill_ffd.shape != fill_cost.shape or fill_ffd.dim() != 2:
-        raise ValueError("compact_shard takes two [MR, G] fill matrices")
-    mr, num_groups = fill_ffd.shape
-    if mr != max_rounds(num_groups) or num_groups % shards or not 0 <= shard < shards:
-        raise ValueError(f"compact_shard: [{mr}, {num_groups}] fills do not split {shards} ways")
-    if fill_ffd.dtype != torch.int32 or fill_cost.dtype != torch.int32:
-        raise TypeError("compact_shard takes int32 fills")
-    device = fill_ffd.device
-    if fill_cost.device != device:
-        raise ValueError("compact_shard: every argument must lie on one device")
-    width = num_groups // shards
-    budget = shard_entry_budget(num_groups, shards)
-    if device.type == "cpu":
-        return _compact_shard_ref(fill_ffd, fill_cost, shard, shards)
-    if device.type != "cuda":
-        raise ValueError(f"compact_shard: unsupported device {device}")
-    if not (fill_ffd.is_contiguous() and fill_cost.is_contiguous()):
-        raise ValueError("compact_shard kernel takes contiguous tensors")
-    lib = COMPACT_SHARD_LIBRARY.load()
-    out = torch.empty((2, 1 + 2 * budget), dtype=torch.int32, device=device)
-    with launch_stream("compact_shard", (fill_ffd, fill_cost, out)) as stream:
-        status = lib.ktt_compact_shard(
-            fill_ffd.data_ptr(), fill_cost.data_ptr(), num_groups, shard * width, width, budget,
-            out.data_ptr(), stream,
-        )
-    check_launch(status, "compact_shard")
-    compact_shard.launches += 1
-    return out
+def _compact_shards_ref(fill_ffd: torch.Tensor, fill_cost: torch.Tensor, shard_ids,
+                        shards: int) -> torch.Tensor:
+    """Plain version of compact_shards: one _compact_shard_ref a shard."""
+    return torch.stack([_compact_shard_ref(fill_ffd, fill_cost, shard, shards) for shard in shard_ids])
 
 
-compact_shard.launches = 0
-
-
-def compact_plan_sharded(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any, *,
-                         mesh, replicas=None):
-    """compact_plan's mesh twin: both candidate plans plus the feasibility
-    vector as one flat int32 tensor on the mesh's first shard, with the COO
-    entry lists compacted shard-locally (K9b on every shard, in mesh order)
-    and gathered there. The arguments lie on the first shard's device;
-    `replicas` maps each other device of the mesh to its own copy of the
-    (ffd, cost) fill matrices, which its shards read (without it, they are
-    copied there). G must be a multiple of mesh.size
-    (models/solver.pad_kernel_args handles it via g_mult)."""
-    from karpenter_tpu_torch.parallel import collectives
-
-    if mesh.size <= 1:
-        return compact_plan(rounds_ffd, rounds_cost, feasible_any)
-    fills = dict(replicas or {})
-    segments = []
-    for index, shard in enumerate(mesh.flat):
-        if shard.device not in fills:
-            fills[shard.device] = (
-                rounds_ffd.round_fill.to(shard.device), rounds_cost.round_fill.to(shard.device))
-        fill_ffd, fill_cost = fills[shard.device]
-        segments.append(compact_shard(fill_ffd, fill_cost, index, mesh.size))
-    segments = torch.stack(collectives.gather_to_first(mesh, segments))  # [W, 2, 1 + 2 budget]
+def _assemble_sharded(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any,
+                      segments: torch.Tensor) -> torch.Tensor:
+    """compact_plan_sharded's flat payload from every shard's segments
+    ([W, 2, 1 + 2 * budget], in the mesh's flat order) and the replicated
+    headers, on the segments' device."""
     return torch.cat(
         _rounds_header(rounds_ffd) + [segments[:, 0].reshape(-1)]
         + _rounds_header(rounds_cost) + [segments[:, 1].reshape(-1)]
         + [feasible_any.to(torch.int32)]
     )
+
+
+def _compact_sharded_payload_ref(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any,
+                                 shards: int) -> torch.Tensor:
+    """Plain version of compact_sharded_payload, on any device."""
+    segments = _compact_shards_ref(rounds_ffd.round_fill, rounds_cost.round_fill, range(shards), shards)
+    return _assemble_sharded(rounds_ffd, rounds_cost, feasible_any, segments)
+
+
+def _check_fills(fill_ffd: torch.Tensor, fill_cost: torch.Tensor, shards: int) -> None:
+    if fill_ffd.shape != fill_cost.shape or fill_ffd.dim() != 2:
+        raise ValueError("K9b takes two [MR, G] fill matrices")
+    mr, num_groups = fill_ffd.shape
+    if mr != max_rounds(num_groups) or shards < 1 or num_groups % shards:
+        raise ValueError(f"K9b: [{mr}, {num_groups}] fills do not split {shards} ways")
+    if fill_ffd.dtype != torch.int32 or fill_cost.dtype != torch.int32:
+        raise TypeError("K9b takes int32 fills")
+    if fill_cost.device != fill_ffd.device:
+        raise ValueError("K9b: every argument must lie on one device")
+
+
+# Shards one launch of the per-card route takes (csrc/compact_shard.cu's
+# kMaxListed); a card holding more takes a launch for each such run.
+MAX_LISTED_SHARDS = 32
+
+
+def compact_shards(fill_ffd: torch.Tensor, fill_cost: torch.Tensor, shard_ids, shards: int) -> torch.Tensor:
+    """K9b's per-card route: the segments of both modes' [MR, G] fills for
+    the shards `shard_ids` (flat indices of a `shards`-shard mesh, the
+    shards one card holds), [len(shard_ids), 2, 1 + 2 *
+    shard_entry_budget(G, shards)] int32. The CUDA kernel (one launch for up
+    to MAX_LISTED_SHARDS shards) for CUDA tensors, the plain version for CPU
+    tensors."""
+    shard_ids = [int(shard) for shard in shard_ids]
+    _check_fills(fill_ffd, fill_cost, shards)
+    if not shard_ids or not all(0 <= shard < shards for shard in shard_ids):
+        raise ValueError(f"compact_shards: shards {shard_ids} are not shards of {shards}")
+    device = fill_ffd.device
+    if device.type == "cpu":
+        return _compact_shards_ref(fill_ffd, fill_cost, shard_ids, shards)
+    if device.type != "cuda":
+        raise ValueError(f"compact_shards: unsupported device {device}")
+    if not (fill_ffd.is_contiguous() and fill_cost.is_contiguous()):
+        raise ValueError("compact_shards kernel takes contiguous tensors")
+    num_groups = fill_ffd.shape[1]
+    budget = shard_entry_budget(num_groups, shards)
+    lib = COMPACT_SHARD_LIBRARY.load()
+    out = torch.empty((len(shard_ids), 2, 1 + 2 * budget), dtype=torch.int32, device=device)
+    for start in range(0, len(shard_ids), MAX_LISTED_SHARDS):
+        listed = shard_ids[start : start + MAX_LISTED_SHARDS]
+        with launch_stream("compact_shards", (fill_ffd, fill_cost, out)) as stream:
+            status = lib.ktt_compact_shards(
+                fill_ffd.data_ptr(), fill_cost.data_ptr(), num_groups, shards, budget, len(listed),
+                (ctypes.c_int * len(listed))(*listed), out.narrow(0, start, len(listed)).data_ptr(), stream,
+            )
+        check_launch(status, "compact_shards")
+        compact_shard.launches += 1
+    return out
+
+
+def compact_shard(fill_ffd: torch.Tensor, fill_cost: torch.Tensor, shard: int, shards: int) -> torch.Tensor:
+    """K9b for one shard: shard `shard` of `shards`' segments of both modes'
+    [MR, G] fills, [2, 1 + 2 * shard_entry_budget(G, shards)] int32
+    (compact_shards of that one shard). `compact_shard.launches` counts
+    every K9b launch: compact_shards' and compact_sharded_payload's."""
+    return compact_shards(fill_ffd, fill_cost, [shard], shards)[0]
+
+
+compact_shard.launches = 0
+
+
+def compact_sharded_payload(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any,
+                            shards: int) -> torch.Tensor:
+    """K9b's one-card route: compact_plan_sharded's whole flat payload for a
+    mesh of `shards` shards that all lie on the arguments' device. The CUDA
+    kernel (ONE launch: headers, every shard's segments, feasible_any) for
+    CUDA tensors, the plain version for CPU tensors."""
+    fields = [*rounds_ffd, *rounds_cost]
+    device = feasible_any.device
+    if any(tensor.device != device for tensor in fields):
+        raise ValueError("compact_sharded_payload: every argument must lie on one device")
+    _check_fills(rounds_ffd.round_fill, rounds_cost.round_fill, shards)
+    if device.type == "cpu":
+        return _compact_sharded_payload_ref(rounds_ffd, rounds_cost, feasible_any, shards)
+    if device.type != "cuda":
+        raise ValueError(f"compact_sharded_payload: unsupported device {device}")
+    _check_payload_args("compact_sharded_payload", rounds_ffd, rounds_cost, feasible_any)
+    num_groups = feasible_any.shape[0]
+    lib = COMPACT_SHARD_LIBRARY.load()
+    out = torch.empty(compact_words_sharded(num_groups, shards), dtype=torch.int32, device=device)
+    pointers = (ctypes.c_void_p * len(fields))(*(tensor.data_ptr() for tensor in fields))
+    with launch_stream("compact_sharded_payload", fields + [feasible_any, out]) as stream:
+        status = lib.ktt_compact_sharded_payload(
+            pointers, feasible_any.data_ptr(), num_groups, shards,
+            shard_entry_budget(num_groups, shards), out.data_ptr(), stream,
+        )
+    check_launch(status, "compact_sharded_payload")
+    compact_shard.launches += 1
+    return out
+
+
+def _card_shards(mesh, per_card: Optional[int]) -> List[Tuple[torch.device, List[int]]]:
+    """The per-card route's launches: (device, flat shard indices) for each
+    device of the mesh in order, its shards in flat order; with `per_card`,
+    each device's shards split into runs of that many, as if each run lay
+    on a card of its own."""
+    cards = []
+    for device in mesh.devices:
+        ids = [index for index, shard in enumerate(mesh.flat) if shard.device == device]
+        step = per_card or len(ids)
+        cards += [(device, ids[start : start + step]) for start in range(0, len(ids), step)]
+    return cards
+
+
+def compact_plan_sharded(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any, *,
+                         mesh, replicas=None, per_card: Optional[int] = None):
+    """compact_plan's mesh twin: both candidate plans plus the feasibility
+    vector as one flat int32 tensor on the mesh's first shard, with the COO
+    entry lists compacted shard-locally (K9b). On a mesh whose shards all
+    lie on one device, one call of compact_sharded_payload writes the whole
+    payload. Across devices, one call of compact_shards a device covers the
+    shards it holds, reading that device's copy of the (ffd, cost) fill
+    matrices (`replicas` maps each device other than the first to it;
+    without it, the fills are copied there); the segments are gathered to
+    the first shard and joined to the replicated headers there. `per_card`
+    forces that route on any mesh, each device's shards split into runs of
+    `per_card`, one call each. The arguments lie on the first shard's
+    device. G must be a multiple of mesh.size
+    (models/solver.pad_kernel_args handles it via g_mult)."""
+    from karpenter_tpu_torch.parallel import collectives
+
+    if mesh.size <= 1:
+        return compact_plan(rounds_ffd, rounds_cost, feasible_any)
+    if per_card is None and len(mesh.devices) == 1:
+        return compact_sharded_payload(rounds_ffd, rounds_cost, feasible_any, mesh.size)
+    fills = dict(replicas or {})
+    parts, order = [], []
+    for device, ids in _card_shards(mesh, per_card):
+        if device not in fills:
+            fills[device] = (rounds_ffd.round_fill.to(device), rounds_cost.round_fill.to(device))
+        parts.append(compact_shards(*fills[device], ids, mesh.size))
+        order += ids
+    parts = collectives.gather_to_first(mesh, parts)
+    if order == sorted(order):
+        segments = torch.cat(parts)
+    else:  # back to the mesh's flat order
+        by_shard = dict(zip(order, (segment for part in parts for segment in part)))
+        segments = torch.stack([by_shard[index] for index in range(mesh.size)])
+    return _assemble_sharded(rounds_ffd, rounds_cost, feasible_any, segments)
 
 
 def decompact_plan_sharded(

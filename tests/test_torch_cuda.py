@@ -754,6 +754,14 @@ def test_incremental_kernels_equal_plain_versions(name, op, array, index, rows, 
     assert chip_smoke.same_bits(got, want)
 
 
+def test_batched_incremental_kernels_equal_plain_versions(cuda_device):
+    """K8's flush and view on every k8_cases case batched together: one
+    launch a flush of up to eight arrays and one a view, bit for bit equal
+    to their plain versions, the inputs untouched."""
+    result = chip_smoke.k8_batched_check(cuda_device)
+    assert result["flushes"] >= 2 and result["views"] >= 15
+
+
 def test_fast_path_dispatch_uploads_no_pod_tensor(cuda_device, monkeypatch):
     """The fast path on the card: a DeviceClusterState hands the solver pod
     tensors already there; with the fleet resident, the solve uploads
@@ -981,19 +989,28 @@ def test_sharded_lp_kernel_with_its_state_in_global_scratch(cuda_device):
     assert obj_err <= LP_OBJECTIVE_RTOL
 
 
-@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("shards", [2, 4, 7, 8])
 def test_compact_shard_kernel_word_identical_to_plain_version(shards, cuda_device):
-    """K9b over a mesh of the card: the payload word for word equal to the
-    plain version's, overflow included, and decoded to the dense fills."""
-    for num_groups, density in ((16, 0.05), (64, 0.02), (16, 0.9)):
+    """K9b over a mesh of the card (2x2, 2x4, and 1x7 as the shrunk mesh
+    pads G to a multiple of 7): one launch for the whole payload, word for
+    word equal to the plain version's and to the per-card route forced on
+    the card (runs of three shards, a launch each), overflow included, and
+    decoded to the dense fills."""
+    small, large = (16, 64) if shards != 7 else (21, 70)
+    for num_groups, density in ((small, 0.05), (large, 0.02), (small, 0.9)):
         ffd, cost = (chip_smoke.dense_rounds(num_groups, seed, density, cuda_device) for seed in (0, 1))
         feasible = torch.ones(num_groups, dtype=torch.bool, device=cuda_device)
         mesh = _card_mesh(shards, cuda_device)
+        before = pack_kernel.compact_shard.launches
         got = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh)
+        assert pack_kernel.compact_shard.launches == before + 1
+        per_card = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh, per_card=3)
+        assert pack_kernel.compact_shard.launches == before + 1 + -(-shards // 3)
         with chip_smoke.plain_k9b():
             want = pack_kernel.compact_plan_sharded(ffd, cost, feasible, mesh=mesh)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+        assert torch.equal(per_card, got)
         decoded_ffd, decoded_cost, _, ok = pack_kernel.decompact_plan_sharded(got.cpu().numpy(), num_groups, shards)
         budget = pack_kernel.shard_entry_budget(num_groups, shards)
         width = num_groups // shards
@@ -1026,7 +1043,10 @@ def test_wrappers_launch_on_the_current_stream(cuda_device, monkeypatch):
 
             return call
 
-    for library in (lp_shard_kernel.LIBRARY, pack_kernel.COMPACT_SHARD_LIBRARY, cuda_kernels.LIBRARY):
+    from karpenter_tpu_torch.ops import incremental
+
+    for library in (lp_shard_kernel.LIBRARY, pack_kernel.COMPACT_SHARD_LIBRARY, cuda_kernels.LIBRARY,
+                    incremental.LIBRARY):
         real = library.load()
         monkeypatch.setattr(library, "load", lambda real=real: Recording(real))
     side = torch.cuda.Stream(device=cuda_device)
@@ -1034,6 +1054,14 @@ def test_wrappers_launch_on_the_current_stream(cuda_device, monkeypatch):
         mesh = _card_mesh(4, cuda_device)
         ffd, cost = (chip_smoke.dense_rounds(16, seed, 0.1, cuda_device) for seed in (0, 1))
         pack_kernel.compact_plan_sharded(ffd, cost, torch.ones(16, dtype=torch.bool, device=cuda_device), mesh=mesh)
+        pack_kernel.compact_plan_sharded(ffd, cost, torch.ones(16, dtype=torch.bool, device=cuda_device), mesh=mesh,
+                                         per_card=3)
+        slots = torch.ones((32, 8), device=cuda_device)
+        idx = torch.arange(8, dtype=torch.int32, device=cuda_device)
+        flushed = incremental.scatter_flush([(slots, idx, torch.zeros((8, 8), device=cuda_device)),
+                                             (slots[:, 0].contiguous().bool(), idx,
+                                              torch.zeros(8, dtype=torch.bool, device=cuda_device))])
+        incremental.gather_view(list(flushed), idx)
         lp_shard_kernel.shard_softmax(*(torch.zeros((4, 8), device=cuda_device) for _ in range(5)),
                                       torch.ones((4, 8), dtype=torch.bool, device=cuda_device), None, None, None)
         from karpenter_tpu_torch.parallel import sharded_solver

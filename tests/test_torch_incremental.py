@@ -93,6 +93,94 @@ def test_plain_gather_equals_reference(kind, name, count):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+# A flush's arrays: (kind, trailing shape) over two row counts, as the group
+# and node slot arrays come in pairs of row counts, each with its own delta.
+FLUSH_ARRAYS = {64: [("f32", (8,)), ("i32", ()), ("bool", (2,))], 40: [("f32", (3,)), ("bool", ()), ("i32", (5,))]}
+# (name, real indices a flush writes into each array; None: an empty delta).
+FLUSH_CASES = [("delta", 13), ("one", 1), ("sentinels_only", 0), ("full", 40), ("empty", None)]
+
+
+def _k8_rows(rng, kind, rows, trailing):
+    if kind == "f32":
+        return rng.uniform(-1e3, 1e3, (rows, *trailing)).astype(np.float32)
+    if kind == "i32":
+        return rng.integers(-(2**31), 2**31 - 1, (rows, *trailing), dtype=np.int64).astype(np.int32)
+    return rng.random((rows, *trailing)) < 0.5
+
+
+@pytest.mark.parametrize("name,count", FLUSH_CASES, ids=[c[0] for c in FLUSH_CASES])
+def test_plain_flush_equals_reference(name, count):
+    """scatter_flush's plain version over float32, int32 and bool arrays of
+    different widths and row counts in one call equals the reference's
+    _scatter_rows / _scatter_vals array by array, the inputs untouched."""
+    rng = np.random.default_rng(zlib.crc32(f"flush-{name}".encode()))
+    updates, wants, kept = [], [], []
+    for rows, arrays in FLUSH_ARRAYS.items():
+        if count is None:
+            idx = np.zeros(0, np.int32)
+        else:
+            idx = port_inc.pad_indices(np.sort(rng.choice(rows, min(count, rows), replace=False)).astype(np.int32),
+                                       rows)
+        for kind, trailing in arrays:
+            dst = _k8_rows(rng, kind, rows, trailing)
+            values = _k8_rows(rng, kind, len(idx), trailing)
+            scatter = ref_inc._scatter_rows if trailing else ref_inc._scatter_vals
+            wants.append(np.asarray(scatter(dst, idx, values)))
+            kept.append(dst.copy())
+            updates.append(tuple(torch.from_numpy(a) for a in (dst, idx, values)))
+    got = port_inc._scatter_flush_ref(updates)
+    assert [out.numpy().dtype for out in got] == [want.dtype for want in wants]
+    for out, want in zip(got, wants):
+        np.testing.assert_array_equal(out.numpy(), want)
+    for (dst, _, _), before in zip(updates, kept):
+        np.testing.assert_array_equal(dst.numpy(), before)
+    # The wrapper routes CPU tensors to that plain version, and launches nothing.
+    launches = port_inc.scatter.launches
+    for out, want in zip(port_inc.scatter_flush(updates), wants):
+        np.testing.assert_array_equal(out.numpy(), want)
+    assert port_inc.scatter.launches == launches
+
+
+# (name, live slots of 40 the view gathers; None: the raw empty permutation).
+VIEW_CASES = [("view", 23), ("one", 1), ("empty", 0), ("all", 40), ("no_perm", None)]
+
+
+@pytest.mark.parametrize("name,count", VIEW_CASES, ids=[c[0] for c in VIEW_CASES])
+def test_plain_view_equals_reference(name, count):
+    """gather_view's plain version over float32, int32 and bool sources of
+    different widths sharing one permutation equals the reference's
+    _gather_rows source by source."""
+    rng = np.random.default_rng(zlib.crc32(f"view-{name}".encode()))
+    rows = 40
+    sources = [_k8_rows(rng, kind, rows, trailing)
+               for kind, trailing in (("f32", (8,)), ("i32", ()), ("bool", ()), ("f32", (3,)), ("i32", (2,)))]
+    if count is None:
+        perm = np.zeros(0, np.int32)
+    else:
+        perm = port_inc.pad_indices(rng.permutation(rows)[:count].astype(np.int32), rows)
+    wants = [np.asarray(ref_inc._gather_rows(src, perm)) for src in sources]
+    torch_sources = [torch.from_numpy(src) for src in sources]
+    launches = port_inc.gather.launches
+    for view in (port_inc._gather_view_ref(torch_sources, torch.from_numpy(perm)),
+                 port_inc.gather_view(torch_sources, torch.from_numpy(perm))):
+        for out, want in zip(view, wants):
+            assert tuple(out.shape) == want.shape and out.numpy().dtype == want.dtype
+            np.testing.assert_array_equal(out.numpy(), want)
+    assert port_inc.gather.launches == launches
+
+
+def test_batched_k8_rejects_bad_arguments():
+    idx = torch.zeros(8, dtype=torch.int32)
+    assert port_inc.scatter_flush([]) == () and port_inc.gather_view([], idx) == ()
+    with pytest.raises(TypeError):
+        port_inc.scatter_flush([(torch.zeros((16, 8)), idx, torch.zeros((8, 8))),
+                                (torch.zeros(16, dtype=torch.int64), idx, torch.zeros(8, dtype=torch.int64))])
+    with pytest.raises(ValueError):
+        port_inc.scatter_flush([(torch.zeros((16, 8)), idx, torch.zeros((8, 3)))])
+    with pytest.raises(TypeError):
+        port_inc.gather_view([torch.zeros((16, 8)), torch.zeros(16)], idx.to(torch.int64))
+
+
 def test_k8_wrappers_route_cpu_tensors_to_the_plain_versions():
     dst = torch.zeros((16, 8))
     idx = torch.from_numpy(port_inc.pad_indices(np.array([3], np.int32), 16))
@@ -116,9 +204,10 @@ def test_k8_rejects_bad_arguments():
 # --- one event sequence through both packages --------------------------------------
 
 
-def _drive(pods_mod, cloud_mod, cluster_mod, state_mod, **state_kwargs):
+def _drive(pods_mod, cloud_mod, cluster_mod, state_mod, every=3, **state_kwargs):
     """A seeded churn of pending pods, nodes, binds, deletes and
-    displacements; returns a snapshot of the state every few steps."""
+    displacements; returns a snapshot of the state (a flush, then its
+    arrays and views) every `every` steps."""
     rng = np.random.default_rng(17)
     cluster = cluster_mod.Cluster()
     state = state_mod.DeviceClusterState(cluster, compaction_threshold=0.5, **state_kwargs)
@@ -162,7 +251,7 @@ def _drive(pods_mod, cloud_mod, cluster_mod, state_mod, **state_kwargs):
                 cluster.delete_pod(pod.namespace, pod.name)
                 pods.pop(pod.name, None)
             cluster.delete_node(gone.name)
-        if step % 3 == 2:
+        if step % every == every - 1:
             snapshots.append(_snapshot(state))
     return snapshots
 
@@ -195,14 +284,43 @@ def _snapshot(state):
     }
 
 
+def _drive_port(every=3):
+    return _drive(__import__("karpenter_tpu_torch.api.pods", fromlist=["x"]),
+                  __import__("karpenter_tpu_torch.cloudprovider", fromlist=["x"]),
+                  __import__("karpenter_tpu_torch.controllers.cluster", fromlist=["x"]),
+                  port_state, every=every, device="cpu")
+
+
 def test_state_follows_the_reference_event_for_event():
     want = _drive(ref_pods, ref_cloud, ref_cluster, ref_state)
-    got = _drive(__import__("karpenter_tpu_torch.api.pods", fromlist=["x"]),
-                 __import__("karpenter_tpu_torch.cloudprovider", fromlist=["x"]),
-                 __import__("karpenter_tpu_torch.controllers.cluster", fromlist=["x"]),
-                 port_state, device="cpu")
+    got = _drive_port()
     assert len(got) == len(want) == 20
     assert any(snap["tags"][5] > 0 for snap in got), "the sequence never compacted"
+    _assert_snapshots_equal(got, want)
+
+
+def test_every_flush_holds_the_reference_arrays(monkeypatch):
+    """A flush after every step of the event sequence: each one's device
+    arrays and sorted views equal the reference state's, and the delta
+    flushes went through scatter_flush, one call for all of a flush's
+    changed arrays (the group pair, the node triple, or all five)."""
+    calls = []
+    real = port_inc.scatter_flush
+
+    def counted(updates):
+        updates = list(updates)
+        calls.append(len(updates))
+        return real(updates)
+
+    monkeypatch.setattr(port_inc, "scatter_flush", counted)
+    want = _drive(ref_pods, ref_cloud, ref_cluster, ref_state, every=1)
+    got = _drive_port(every=1)
+    assert len(got) == len(want) == 60
+    assert calls and set(calls) <= {2, 3, 5} and 5 in calls, calls
+    _assert_snapshots_equal(got, want)
+
+
+def _assert_snapshots_equal(got, want):
     for step, (mine, theirs) in enumerate(zip(got, want)):
         assert mine["tags"] == theirs["tags"], step
         assert mine["members"] == theirs["members"], step

@@ -166,6 +166,11 @@ def _launch(name):
         incremental.scatter(_f32(32, R), _i32(8), _f32(8, R))
     elif name == "gather":
         incremental.gather(_f32(32, R), _i32(8))
+    elif name == "scatter_flush":
+        incremental.scatter_flush([(_f32(32, R), _i32(8), _f32(8, R)), (_i32(32), _i32(8), _i32(8)),
+                                   (_f32(16, 3), _i32(4), _f32(4, 3)), (_bool(16), _i32(4), _bool(4))])
+    elif name == "gather_view":
+        incremental.gather_view([_f32(32, R), _i32(32), _bool(32, 2)], _i32(16))
     elif name == "penalize_prices":
         forecast_kernel.penalize_prices(_f32(T), _f32(T), 0.5)
     elif name == "shard_softmax":
@@ -185,6 +190,11 @@ def _launch(name):
     elif name == "compact_shard":
         mr = pack_kernel.max_rounds(G)
         pack_kernel.compact_shard(_i32(mr, G), _i32(mr, G), 1, 4)
+    elif name == "compact_shards":
+        mr = pack_kernel.max_rounds(G)
+        pack_kernel.compact_shards(_i32(mr, G), _i32(mr, G), [1, 3], 4)
+    elif name == "compact_sharded_payload":
+        pack_kernel.compact_sharded_payload(_rounds(G), _rounds(G), _bool(G), 8)
     else:
         raise KeyError(name)
 
@@ -193,6 +203,7 @@ WRAPPERS = [
     "dominance_prices", "pack_kernel", "pack_kernel_pair", "lp_relax", "compact_plan",
     "pack_kernel_levels", "solve_counterfactuals", "scatter", "gather", "penalize_prices",
     "shard_softmax", "shard_demand", "shard_row_dot", "shard_lp", "compact_shard",
+    "scatter_flush", "gather_view", "compact_shards", "compact_sharded_payload",
 ]
 
 
@@ -239,6 +250,44 @@ def test_levels_launch_carries_its_cluster_plan(recorder):
     plan = pack_kernel.levels_launch_plan(G, T, R)
     # After the nine operands: G, T, R, L, mode, then the plan.
     assert args[9:17] == (G, T, R, L, 1, plan.cluster, plan.lanes, plan.threads)
+
+
+def test_flush_launch_carries_every_array(recorder):
+    """K8's flush: one launch whose table holds every array's row count,
+    width, delta length and element size."""
+    with pytest.raises(_Launched):
+        _launch("scatter_flush")
+    ((function, args, _),) = recorder.calls
+    assert function == "ktt_scatter_flush" and args[0] == 4
+    table = list(args[1])
+    rows = [table[8 * k + 4 : 8 * k + 8] for k in range(4)]
+    assert rows == [[32, R, 8, 4], [32, 1, 8, 4], [16, 3, 4, 4], [16, 1, 4, 1]]
+
+
+def test_view_launch_shares_one_permutation(recorder):
+    """K8's view: one launch, every source's rows, width and element size
+    in its table, the permutation's length beside."""
+    with pytest.raises(_Launched):
+        _launch("gather_view")
+    ((function, args, _),) = recorder.calls
+    assert function == "ktt_gather_view" and args[0] == 3 and args[3] == 16
+    table = list(args[1])
+    assert [table[5 * k + 2 : 5 * k + 5] for k in range(3)] == [[32, R, 4], [32, 1, 4], [32, 2, 1]]
+
+
+def test_sharded_payload_launch_covers_every_shard(recorder):
+    """K9b's one-card route: one launch with G, the shard count and the
+    shard budget; the per-card route lists its shards."""
+    with pytest.raises(_Launched):
+        _launch("compact_sharded_payload")
+    with pytest.raises(_Launched):
+        _launch("compact_shards")
+    (payload, _, _), (shards, shard_args, _) = recorder.calls
+    assert payload == "ktt_compact_sharded_payload"
+    assert recorder.calls[0][1][2:5] == (G, 8, pack_kernel.shard_entry_budget(G, 8))
+    assert shards == "ktt_compact_shards"
+    assert shard_args[2:6] == (G, 4, pack_kernel.shard_entry_budget(G, 4), 2)
+    assert list(shard_args[6]) == [1, 3]
 
 
 def test_persistent_lp_launch_carries_its_tiling(recorder):

@@ -106,13 +106,21 @@ TRIMMED = {
                    "into a copy of dst",
         "gather": "K8's gather (the reference's gather_rows): csrc/incremental.cu on "
                   "the card, the plain version on the CPU",
+        "MAX_ARRAYS": _PORT_ONLY + ": the arrays one K8 launch takes",
+        "_scatter_flush_ref": _PORT_ONLY + ": K8's plain flush",
+        "_gather_view_ref": _PORT_ONLY + ": K8's plain view",
+        "_route": _PORT_ONLY,
+        "_outputs": _PORT_ONLY,
+        "scatter_flush": _PORT_ONLY + ": a flush's scatters of every slot array in one K8 launch",
+        "gather_view": _PORT_ONLY + ": a view's gathers of every source in one K8 launch",
     },
     "models/cluster_state.py": {
         "DeviceClusterState.__init__": "takes the device its arrays live on",
         "DeviceClusterState._dispatch_plan": "one packed copy of every mirror (full), or of "
-                                             "the delta rows and index vectors, then K8's "
-                                             "scatters",
-        "DeviceClusterState.pending_groups": "uploads the permutation, then K8's gathers",
+                                             "the delta rows and index vectors, then one K8 "
+                                             "flush of every changed array",
+        "DeviceClusterState.pending_groups": "uploads the permutation, then one K8 view of "
+                                             "both group arrays",
         "DeviceClusterState.encode_fleet": _HISTORY,
     },
     "utils/tracing.py": {

@@ -10,7 +10,9 @@ through both:
   * the shard-local plan compaction (`compact_plan_sharded`, K9b's plain
     version): words bit-identical to the reference's shard_map program at
     2, 4 and 8 shards, a shard past its entry budget included, then the
-    decode round trip;
+    decode round trip; on 2x2 and 2x4 the one-card payload's plain version,
+    the per-card route forced on one device and a mesh over two devices
+    give the same words, and a mesh on one device is one payload call;
   * the sharded LP (K9a's plain version over the mesh) against the
     reference's GSPMD LP: the objective within rtol 1e-4 (GSPMD and the port
     sum in other orders; `objective_gaps()` below gives the measured gaps,
@@ -29,6 +31,7 @@ through both:
     spawns a process: the chip probe's subprocess is replaced by a fake.
 """
 
+import functools
 import subprocess
 
 import jax
@@ -269,6 +272,82 @@ def test_compact_shard_plain_version_is_the_reference_block_compaction():
             block = jnp.asarray(rounds.round_fill[:, shard * width : (shard + 1) * width])
             want = np.asarray(ref_pack._compact_entry_block(block, budget))
             np.testing.assert_array_equal(got[mode], want)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_case_words(seed, num_groups, shards, overflow):
+    return _ref_words(*_sharded_case(seed, num_groups, shards, overflow), shards)
+
+
+# K9b's routes: the one-card payload's plain version, the per-card route
+# forced on one device (runs of 1 and of 3 shards, each run as if it lay on
+# a card of its own), and a mesh over two devices (its shards alternate, so
+# the per-device segments come back out of the mesh's flat order).
+K9B_ROUTES = ["payload", "per_card_1", "per_card_3", "two_devices"]
+
+
+@pytest.mark.parametrize("route", K9B_ROUTES)
+@pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflow"])
+@pytest.mark.parametrize("shards", [4, 8], ids=["2x2", "2x4"])
+def test_sharded_compaction_routes_give_the_reference_words(shards, overflow, route):
+    num_groups = 32
+    rounds_ffd, rounds_cost, feasible = _sharded_case(7, num_groups, shards, overflow)
+    want = _ref_case_words(7, num_groups, shards, overflow)
+    args = (_torch_rounds(rounds_ffd), _torch_rounds(rounds_cost), torch.from_numpy(feasible))
+    if route == "payload":
+        got = port_pack._compact_sharded_payload_ref(*args, shards)
+    elif route == "two_devices":
+        got = port_pack.compact_plan_sharded(*args, mesh=_two_device_mesh(shards))
+    else:
+        got = port_pack.compact_plan_sharded(*args, mesh=_port_mesh(shards), per_card=int(route[-1]))
+    np.testing.assert_array_equal(got.numpy(), want)
+    _, _, _, ok = port_pack.decompact_plan_sharded(got.numpy(), num_groups, shards)
+    assert ok is not overflow
+
+
+@pytest.fixture
+def k9b_calls(monkeypatch):
+    """K9b's two wrappers counted: {"payload": calls, "shards": the shard
+    ids of each compact_shards call}."""
+    calls = {"payload": 0, "shards": []}
+    payload, shards = port_pack.compact_sharded_payload, port_pack.compact_shards
+
+    def counted_payload(*args):
+        calls["payload"] += 1
+        return payload(*args)
+
+    def counted_shards(fill_ffd, fill_cost, shard_ids, count):
+        calls["shards"].append(list(shard_ids))
+        return shards(fill_ffd, fill_cost, shard_ids, count)
+
+    monkeypatch.setattr(port_pack, "compact_sharded_payload", counted_payload)
+    monkeypatch.setattr(port_pack, "compact_shards", counted_shards)
+    return calls
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+def test_sharded_compaction_takes_one_call_a_card(shards, k9b_calls):
+    """Shards on one device: one compact_sharded_payload call, none of the
+    per-card route. per_card=3: a compact_shards call a run of three. Two
+    devices: one compact_shards call a device, its shards in flat order."""
+    args = [_torch_rounds(r) for r in _sharded_case(5, 32, shards, False)[:2]]
+    feasible = torch.ones(32, dtype=torch.bool)
+    port_pack.compact_plan_sharded(*args, feasible, mesh=_port_mesh(shards))
+    assert k9b_calls == {"payload": 1, "shards": []}
+    port_pack.compact_plan_sharded(*args, feasible, mesh=_port_mesh(shards), per_card=3)
+    flat = list(range(shards))
+    assert k9b_calls == {"payload": 1, "shards": [flat[k : k + 3] for k in range(0, shards, 3)]}
+    k9b_calls["shards"].clear()
+    port_pack.compact_plan_sharded(*args, feasible, mesh=_two_device_mesh(shards))
+    assert k9b_calls == {"payload": 1, "shards": [flat[0::2], flat[1::2]]}
+
+
+def test_per_card_route_groups_shards_by_device():
+    mesh = _two_device_mesh(8)
+    cpu0, cpu1 = torch.device("cpu", 0), torch.device("cpu", 1)
+    assert port_pack._card_shards(mesh, None) == [(cpu0, [0, 2, 4, 6]), (cpu1, [1, 3, 5, 7])]
+    assert port_pack._card_shards(mesh, 3) == [(cpu0, [0, 2, 4]), (cpu0, [6]), (cpu1, [1, 3, 5]), (cpu1, [7])]
+    assert port_pack._card_shards(_port_mesh(4), 2) == [(torch.device("cpu"), [0, 1]), (torch.device("cpu"), [2, 3])]
 
 
 # --- the sharded LP (K9a's plain version) ------------------------------------------
