@@ -13,8 +13,11 @@ limit, and as the last line {"ok": true, "device": {...}}:
               among them) and at [512, 8] and K2
               the pack round loop in both modes on random problems and on
               the 50k-pod x 400-type encoded problem, bit for bit; K4 the
-              plan compaction on those rounds and on dense rounds past the
-              entry budget, word for word; K3 the LP relaxation on
+              plan compaction, in the pair launch's epilogue with
+              feasible_any, the LP's counts and the dense spill, on every
+              one of those problems and on dense problems past the entry
+              budget (G 16 and 64), word for word to the plain composition,
+              the rounds bit for bit to the launch without it; K3 the LP relaxation on
               non-degenerate LPs padded to shapes that reach every launch
               plan (clusters of 2, 4, 8 and 16 blocks, a T the blocks do
               not divide, G 1 to 128, T 16 to 2048, the state in shared
@@ -44,8 +47,9 @@ limit, and as the last line {"ok": true, "device": {...}}:
   4. solve    the main path: 50,000 pending pods over 400 instance types
               through CostSolver(device="cuda").solve with the host gate off
               (KARPENTER_HOST_SOLVE=0); every pod placed exactly once, each
-              of K1, K2, K3 and K4 launched exactly once; warm p50/p99 of
-              solve_encoded over 10 runs
+              of K1, K2 (the pair with its epilogue, K4 inside) and K3
+              launched exactly once; warm p50/p99 of solve_encoded over 10
+              runs
   5. cpu      the same encoded problem through the plain versions on the CPU:
               identical rounds and feasibility, $/hr within 1e-4 relative, LP
               objective within 1e-3 relative; the card's dispatch runs under
@@ -65,7 +69,7 @@ limit, and as the last line {"ok": true, "device": {...}}:
               DeviceClusterState: encode_schedule ->
               CostSolver.solve_many_pipelined on the pre-encoded pair; the
               plan identical to the snapshot path's, $/hr within 1e-4 of the
-              CPU run, K1-K4 launched once each, no pod tensor uploaded and
+              CPU run, K1-K4 run once each (K4 in K2's launch), no pod tensor uploaded and
               a warm solve uploading nothing (convert.upload_packed's
               counters), encode and dispatch under
               set_sync_debug_mode("error"), K8 launched once for the view;
@@ -120,7 +124,7 @@ limit, and as the last line {"ok": true, "device": {...}}:
               selection, drained by worker passes in 2,000-pod windows with
               the host gate off (KARPENTER_HOST_SOLVE=0), the market
               repricing (a spike on eight pools, one feed step) before pass
-              13. Every pod bound exactly once in 25 passes, K1-K4 launched
+              13. Every pod bound exactly once in 25 passes, K1-K4 run
               once a pass, the fleet arrays uploaded once after the reprice
               and never while the market is calm; build_fleet's [T] prices
               bit-identical to forecast.penalize_prices and to K10 (csrc/
@@ -145,9 +149,11 @@ limit, and as the last line {"ok": true, "device": {...}}:
               503 until the warmup ends and 200 after, no rung failed, the
               calibrated break-even printed; then through the threaded loops
               alone: the first 2,000-pod window (its pass the first solve
-              after ready, within 2x of the warm p50), the rest of the
-              50,000-pod storm with a spike on eight pools, every pod bound
-              once, K1-K4 once a device solve, no host solve; the nodes'
+              after ready, within 2x of the warm p50), the rest of a
+              25,000-pod storm (CONTROLLER_PODS: half the by-hand storm, so
+              the process no longer holds up the script) with a spike on
+              eight pools, every pod bound once, K1, the K2 pair with its
+              epilogue and K3 once a device solve, no host solve; the nodes'
               kubelets join, 40% of the pods are deleted, the consolidation
               loop launches K7, deletes or replaces nodes, termination
               drains them, every evicted pod is bound again and the fleet's
@@ -159,8 +165,9 @@ limit, and as the last line {"ok": true, "device": {...}}:
               as the reference's tests and dryrun_multichip run it on 8
               virtual CPU devices: CostSolver over the main path's 50,000
               pods x 400 types with solve_mesh() selecting the mesh (K1 and
-              the K2 pair once, K9a's persistent kernel once for the whole
-              LP, K9b once for the whole payload, no K3 or K4), every pod
+              the K2 pair once with its epilogue but no payload, K9a's
+              persistent kernel once for the whole LP, K9b once for the
+              whole payload, no K3), every pod
               placed once,
               both decoded candidates and feasible_any bit-identical to the
               single-device solve, $/hr within 1.02x and 5% of it, warm p50
@@ -203,7 +210,9 @@ limit, and as the last line {"ok": true, "device": {...}}:
               the call, copies included); K10 on the storm fleet's [T]
               column, beside
               torch.addcmul; K2q at the main path's shape; K2 and K3 at
-              padded G 2,048
+              padded G 2,048; the card's launch floor (an empty kernel, csrc/
+              launch_floor.cu, through the same ctypes and launch_stream
+              path)
  12. layers   one warm solve layer by layer (each bracketed by device syncs),
               and torch.profiler's device time against the solve's wall time
  13. storm_profile  the card storm run again to its pass 2, which runs under
@@ -214,6 +223,11 @@ limit, and as the last line {"ok": true, "device": {...}}:
               the consolidate phase again, K7's times and its kernel
               records in one sweep (checked to be one), which the kernels
               line carries
+ 15. fused    `chip_smoke.py --phase fused` in a fresh process: the fused
+              solve's device records a call by name (one K2 launch, no
+              compaction launch), and K2's pair with its epilogue and
+              without it, in turns in one profile, whose difference is K4's
+              share (the kernels line's K4 entry)
 
 The kernels phase also holds K10, the forecast penalty, bit for bit to the
 numpy column and to its plain version (the reference's magnitudes at 257
@@ -222,6 +236,9 @@ the constrained [L, G', T] dispatch, bit for bit to its plain version on 22
 seeded cases (both modes; conflicts, node
 caps, penalties, padded levels, T 300 ragged, T 1,500, G' up to 2,048 with
 its tables in global scratch).
+
+Each phase's line carries its own seconds and the seconds since the start;
+the line before the kernels line the total.
 
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and prints
@@ -255,12 +272,16 @@ def check(condition: bool, message: str) -> None:
 
 
 _START = time.perf_counter()
+_LAST_PHASE = [_START]
 
 
 def phase(name: str, **fields) -> None:
-    """One phase's line, with the seconds since the script started."""
+    """One phase's line, with its own seconds (since the line before) and
+    the seconds since the script started."""
+    now = time.perf_counter()
     text = " ".join(f"{key}={value}" for key, value in fields.items())
-    print(f"phase {name}: ok {text} at_s={time.perf_counter() - _START:.1f}", flush=True)
+    print(f"phase {name}: ok {text} phase_s={now - _LAST_PHASE[0]:.1f} at_s={now - _START:.1f}", flush=True)
+    _LAST_PHASE[0] = now
 
 
 def kube_reserved_cpu_millis(vcpus: int) -> int:
@@ -1083,6 +1104,55 @@ def random_pack_problem(rng, num_groups: int, num_types: int):
     return vectors, counts, capacity, capacity.copy(), valid, prices
 
 
+def dense_pack_problem(seed: int, num_groups: int, num_types: int = 4):
+    """A pack problem whose rounds are dense: each group requests one or two
+    of the eight axes, so a node of any type holds pods of many groups at
+    once, round after round. At G 16 and 64 the fills of some seeds hold
+    more nonzero cells than the compaction's entry budget (4 x MR)."""
+    rng = np.random.default_rng(seed)
+    dims = 8
+    vectors = np.zeros((num_groups, dims), np.float32)
+    for g in range(num_groups):
+        vectors[g, g % dims] = rng.integers(1, 4)
+        vectors[g, (3 * g + 1) % dims] = rng.integers(0, 2)
+    counts = rng.integers(50, 2000, num_groups).astype(np.int32)
+    capacity = np.stack([rng.integers(20, 60, dims) * (t + 1) for t in range(num_types)]).astype(np.float32)
+    prices = (capacity.sum(axis=1) * rng.uniform(0.9, 1.1, num_types)).astype(np.float32)
+    return vectors, counts, capacity, capacity.copy(), np.ones(num_types, bool), prices
+
+
+# (seed, G) of dense_pack_problem past the entry budget in at least one mode.
+DENSE_PACK_CASES = ((27, 16), (0, 64))
+
+
+def fused_against_plain(args, plain, bare, label: str) -> int:
+    """K2's pair with its epilogue on `args` (one K2 launch, counted on
+    pack_kernel.launches and pack_pair_payload.launches): its payload,
+    feasible_any, solvable and dense spill word for word equal to the plain
+    composition `plain`, its rounds bit for bit equal to the pair launched
+    without the epilogue (`bare`). Returns the largest word difference."""
+    import torch
+
+    from karpenter_tpu_torch.ops import pack_kernel
+
+    before = (pack_kernel.pack_kernel.launches, pack_kernel.pack_pair_payload.launches)
+    got = pack_kernel.pack_pair_payload(*args)
+    after = (pack_kernel.pack_kernel.launches, pack_kernel.pack_pair_payload.launches)
+    check(after == (before[0] + 1, before[1] + 1),
+          f"the fused pair took {after[0] - before[0]} K2 launches at {label}")
+    synchronize(args[0].device)
+    err = 0
+    for name in ("feasible_any", "solvable", "dense", "payload"):
+        a, b = getattr(got, name), getattr(plain, name)
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"the fused pair's {name} differs from the plain version at {label}")
+        err = max(err, int((a.long() - b.long()).abs().max()))
+    for mode, rounds, alone in zip(("ffd", "cost"), got[:2], bare):
+        check(rounds_equal(rounds, alone),
+              f"the fused pair's {mode} rounds differ from the pair without its epilogue at {label}")
+    return err
+
+
 def dense_rounds(num_groups: int, seed: int, density: float, device):
     """PackRounds on `device` whose fills are nonzero with the given density:
     sparse plans inside the compaction's entry budget, dense ones past it."""
@@ -1163,14 +1233,14 @@ def layer_breakdown(groups, fleet, device, reps: int = 5) -> dict:
             "h2d", lambda: fused_args_from_numpy(*padded, device=device))
         effective = timed("k1_dominance", lambda: cuda_kernels.dominance_prices(
             capacity, torch.where(valid, prices, torch.inf)))
-        ffd, cost = timed("k2_pack", lambda: pack_kernel.pack_kernel_pair(
+        # K2's pair with its epilogue: the rounds, feasible_any, the LP's
+        # counts, the dense spill and the compacted payload (K4).
+        pair = timed("k2_pack", lambda: pack_kernel.pack_pair_payload(
             vectors, counts, capacity, total, valid, effective))
-        feasible_any = score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1)
         lp = timed("k3_lp", lambda: score_kernel.lp_relax(
-            vectors, torch.where(feasible_any, counts, 0), capacity, valid, effective))
-        compact = timed("compaction", lambda: pack_kernel.compact_plan(ffd, cost, feasible_any))
+            vectors, pair.solvable, capacity, valid, effective))
         handle = solver.FusedHandle(
-            compact=compact, objective=lp.objective.reshape(1), dense=compact,
+            compact=pair.payload, objective=lp.objective.reshape(1), dense=pair.dense,
             lp=lp.assignment.reshape(-1), num_groups=padded[0].shape[0],
             num_types=padded[2].shape[0],
         )
@@ -1349,6 +1419,32 @@ def device_ms_per_call(fn, kernels, reps: int = 20) -> float:
     check(all(0 < seen[name][0] and short[name] <= max(2, reps * per_call[name] // 100) for name in per_call),
           f"the profiler dropped too many records of {list(per_call)}: launches not seen {short}")
     return sum(seen[name][1] / seen[name][0] * per_call[name] for name in per_call) / 1e3
+
+
+def paired_device_ms(first, second, kernel: str, reps: int = 50) -> tuple:
+    """torch.profiler's device time of `kernel` per call of `first` and of
+    `second`, each launching it once, called in turns in one profile: the
+    records, in the card's order on one stream, alternate between the two.
+    A window that lost a record is measured again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    first()
+    second()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                first()
+                second()
+            torch.cuda.synchronize()
+        records = sorted(
+            (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name),
+            key=lambda e: e.time_range.start)
+        if len(records) == 2 * reps:
+            return tuple(sum(e.time_range.elapsed_us() for e in records[k::2]) / reps / 1e3 for k in (0, 1))
+        print(f"  the profiler kept {len(records)} of {2 * reps} records of {kernel}; measuring again")
+    check(False, f"the profiler dropped records of {kernel} in three windows")
 
 
 def kernel_records(fn, copies: bool = False) -> dict:
@@ -2013,7 +2109,7 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
                   f"solve_mesh() over {shards} virtual shards is {mesh}")
             label = f"{mesh.shape[0]}x{mesh.shape[1]}"
             counters = (cuda_kernels.dominance_prices, pack_kernel.pack_kernel, score_kernel.lp_relax,
-                        pack_kernel.compact_plan, pack_kernel.compact_shard)
+                        pack_kernel.pack_pair_payload, pack_kernel.compact_shard)
             for counter in counters:
                 counter.launches = 0
             lp_shard_kernel.reset_launches()
@@ -2022,13 +2118,14 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
                 "dominance_prices": cuda_kernels.dominance_prices.launches,
                 "pack_kernel": pack_kernel.pack_kernel.launches,
                 "lp_relax": score_kernel.lp_relax.launches,
-                "compact_plan": pack_kernel.compact_plan.launches,
+                "pack_pair_payload": pack_kernel.pack_pair_payload.launches,
                 "lp_shard": lp_shard_kernel.launches(),
                 "compact_shard": pack_kernel.compact_shard.launches,
             }
-            # One card: the whole LP is one launch of K9a's persistent
-            # kernel, the whole payload one launch of K9b.
-            want = {"dominance_prices": 1, "pack_kernel": 1, "lp_relax": 0, "compact_plan": 0,
+            # One card: the K2 pair with its epilogue (no payload), the
+            # whole LP one launch of K9a's persistent kernel, the whole
+            # payload one launch of K9b.
+            want = {"dominance_prices": 1, "pack_kernel": 1, "lp_relax": 0, "pack_pair_payload": 1,
                     "lp_shard": 1, "compact_shard": 1}
             check(launches == want, f"the {label} solve launched {launches}, not {want}")
             check(all_pods_placed_once(result, pods), f"the {label} solve did not place every pod once")
@@ -2072,10 +2169,9 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
             with plain_k9a():
                 k9a_plain_ms = time_cuda(k9a_call, reps=3, warmup=1)
             main_args = fused_args_from_numpy(*padded, device=device)
-            main_ffd, main_cost = pack_kernel.pack_kernel_pair(*main_args[:5], main_lp[4])
-            main_feasible = score_kernel.feasibility_mask(main_args[0], main_args[2], main_args[4]).any(dim=1)
-            k9b_call = functools.partial(pack_kernel.compact_plan_sharded, main_ffd, main_cost, main_feasible,
-                                         mesh=mesh)
+            main_pair = pack_kernel.pack_pair_payload(*main_args[:5], main_lp[4], payload=False)
+            k9b_call = functools.partial(pack_kernel.compact_plan_sharded, main_pair.rounds_ffd,
+                                         main_pair.rounds_cost, main_pair.feasible_any, mesh=mesh)
             k9b_event_ms = time_cuda(k9b_call, reps=50)
             k9b_per_card_event_ms = time_cuda(functools.partial(k9b_call, per_card=3), reps=50)
             with plain_k9b():
@@ -2571,7 +2667,7 @@ def fast_path_phase(catalog, cost_solver, device, cpu_cost: float, num_pods: int
     CostSolver.solve_many_pipelined a pre-encoded pair whose pod tensors are
     already on the card. Held to the snapshot path (solve_many over the
     same pods: the same plan) and to the port's CPU run of these pods
-    (`cpu_cost`: $/hr within 1e-4); K1-K4 launched once each; no
+    (`cpu_cost`: $/hr within 1e-4); K1-K4 run once each (K4 in K2's launch); no
     pod tensor crosses host->device, and a warm solve uploads nothing
     (convert.upload_packed's counters); encode and
     dispatch pass under torch.cuda.set_sync_debug_mode("error"). Then 1%
@@ -2596,7 +2692,7 @@ def fast_path_phase(catalog, cost_solver, device, cpu_cost: float, num_pods: int
     constraints = Constraints()
     kernels = {
         "dominance_prices": cuda_kernels.dominance_prices, "pack_kernel": pack_kernel.pack_kernel,
-        "lp_relax": score_kernel.lp_relax, "compact_plan": pack_kernel.compact_plan,
+        "lp_relax": score_kernel.lp_relax, "pack_pair_payload": pack_kernel.pack_pair_payload,
     }
 
     def pending():
@@ -2627,7 +2723,7 @@ def fast_path_phase(catalog, cost_solver, device, cpu_cost: float, num_pods: int
         after = uploads()
         launches = {name: fn.launches for name, fn in kernels.items()}
         check(all(count == 1 for count in launches.values()),
-              f"the fast-path solve did not launch each of K1-K4 exactly once: {launches}")
+              f"the fast-path solve did not launch K1, the K2 pair with its epilogue and K3 exactly once each: {launches}")
         k8 = {"scatter": incremental.scatter.launches, "gather": incremental.gather.launches}
         return pair, result, encode_ms, tuple(b - a for a, b in zip(before, after)), launches, k8
 
@@ -3125,7 +3221,7 @@ def provision_storm_phase(device) -> dict:
 
     os.environ["KARPENTER_HOST_SOLVE"] = "0"
     counters = (cuda_kernels.dominance_prices, pack_kernel.pack_kernel, score_kernel.lp_relax,
-                pack_kernel.compact_plan, forecast_kernel.penalize_prices, incremental.scatter,
+                pack_kernel.pack_pair_payload, forecast_kernel.penalize_prices, incremental.scatter,
                 incremental.gather)
     for counter in counters:
         counter.launches = 0
@@ -3137,8 +3233,8 @@ def provision_storm_phase(device) -> dict:
     storm_checks(card, "card storm")
     num_passes = len(card["passes"])
     check(all(launches[name] == num_passes
-              for name in ("dominance_prices", "pack_kernel", "lp_relax", "compact_plan")),
-          f"the storm's {num_passes} passes did not each launch K1-K4 once: {launches}")
+              for name in ("dominance_prices", "pack_kernel", "lp_relax", "pack_pair_payload")),
+          f"the storm's {num_passes} passes did not each launch K1, K2 (with K4) and K3 once: {launches}")
     check(solver_mod.SOLVE_DISPATCH_TOTAL.get("host") == host_before, "a storm pass solved on the host")
     check(launches["penalize_prices"] == card["k10_launches"] > 0, "the storm launched no K10 tripwire")
     # The Manager's encoder reaches the card only when a pass takes the fast
@@ -3377,6 +3473,13 @@ def go_parity_phase(device, greedy) -> dict:
 # --- the controller process: cmd/controller.main on the card ---------------
 
 CONTROLLER_CLOUD = "chip-smoke-storm"  # the factory chip_smoke registers for the storm's cloud
+# The controller process's storm: half the by-hand storm's 50,000 pods. Its
+# threaded loops and the kubelets' O(nodes x pods) join set its time (a
+# 50,000-pod storm bought 3,339-10,629 nodes and joined them in 69-383 s),
+# and it runs beside phases 3-10d, so at full depth the script waited on it
+# (about 650 s in all with the build, against 600 at half depth); the
+# by-hand storm keeps the full 50,000.
+CONTROLLER_PODS = 25_000
 CONTROLLER_DELETE_FRACTION = 0.4  # of the bound pods, deleted before consolidation
 CONTROLLER_DELETE_SEED = 23
 CONTROLLER_MAX_DISRUPTION = 32  # consolidation actions in flight (and the fleet's budget)
@@ -3844,7 +3947,7 @@ def kernel_launches() -> dict:
 
     counters = {
         "dominance_prices": cuda_kernels.dominance_prices, "pack_kernel": pack_kernel.pack_kernel,
-        "lp_relax": score_kernel.lp_relax, "compact_plan": pack_kernel.compact_plan,
+        "lp_relax": score_kernel.lp_relax, "pack_pair_payload": pack_kernel.pack_pair_payload,
         "solve_counterfactuals": consolidate_kernel.solve_counterfactuals,
         "scatter": incremental.scatter, "gather": incremental.gather,
     }
@@ -3866,12 +3969,12 @@ def controller_phase() -> dict:
     # unless asked for (models/solver.host_route_open).
     os.environ.pop("KARPENTER_HOST_SOLVE", None)
     device = torch.device("cuda", 0)
-    run = run_controller(None)
+    run = run_controller(None, num_pods=CONTROLLER_PODS)
     launches = run["storm_launches"]
     solves = int(run["device_solves"])
-    check(all(launches[name] == solves for name in ("dominance_prices", "pack_kernel", "lp_relax", "compact_plan"))
+    check(all(launches[name] == solves for name in ("dominance_prices", "pack_kernel", "lp_relax", "pack_pair_payload"))
           and solves >= run["passes"],
-          f"the storm's {solves} device solves did not each launch K1-K4 once: {launches}")
+          f"the storm's {solves} device solves did not each launch K1, K2 (with K4) and K3 once: {launches}")
     k7 = sum(run["sweep_k7"])
     check(run["sweep_k7"] and set(run["sweep_k7"]) == {1},
           f"the consolidation loop's sweeps did not each launch K7 once: {run['sweep_k7']}")
@@ -3935,6 +4038,45 @@ def consolidate_alone() -> None:
           k7_event_ms=f"{result['k7_event_ms']:.4f}", cluster=result["cluster"],
           records_per_sweep=result["records_per_sweep"])
     print("consolidate_result " + json.dumps(result))
+
+
+def fused_alone() -> None:
+    """`chip_smoke.py --phase fused`: the fused solve at the main path's
+    shapes in a process of its own (late in a long run profiler sessions
+    lose records): its device records a call by name, and K2's pair with
+    its epilogue (the main path's call) and without it, called in turns in
+    one profile, whose difference is K4's share of the launch."""
+    import torch
+
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.convert import fused_args_from_numpy
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.ops import cuda_build, cuda_kernels, pack_kernel
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    device = torch.device("cuda", 0)
+    cuda_build.build_all(cuda_build.port_libraries())
+    pods, catalog = make_workload()
+    groups = group_pods(pods)
+    fleet = build_fleet(catalog, Constraints(), pods, pods_need=groups.vectors.max(axis=0))
+    padded = solver.pad_kernel_args(groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
+    args = fused_args_from_numpy(*padded, device=device)
+    vectors, counts, capacity, total, valid, prices = args
+    result = {"records": kernel_records(lambda: solver._cost_fused_body(*args, lp_steps=300), copies=True)}
+    effective = cuda_kernels.dominance_prices(capacity, torch.where(valid, prices, torch.inf))
+    pair_args = (vectors, counts, capacity, total, valid, effective)
+    fused_call = functools.partial(pack_kernel.pack_pair_payload, *pair_args)
+    bare_call = functools.partial(pack_kernel.pack_kernel_pair, *pair_args)
+    with_ms, without_ms = paired_device_ms(fused_call, bare_call, "pack_rounds_kernel", reps=50)
+    result.update(k2_with_epilogue_ms=with_ms, k2_without_epilogue_ms=without_ms,
+                  k2_with_epilogue_event_ms=time_cuda(fused_call, reps=50),
+                  k2_without_epilogue_event_ms=time_cuda(bare_call, reps=50))
+    phase("fused", records_per_call=sum(result["records"].values()),
+          k2_with_epilogue_ms=f"{with_ms:.6f}", k2_without_epilogue_ms=f"{without_ms:.6f}",
+          k4_share_ms=f"{with_ms - without_ms:.6f}", k4_share=f"{100 * (with_ms / without_ms - 1):+.2f}%",
+          k2_with_epilogue_event_ms=f"{result['k2_with_epilogue_event_ms']:.4f}",
+          k2_without_epilogue_event_ms=f"{result['k2_without_epilogue_event_ms']:.4f}")
+    print("fused_result " + json.dumps(result))
 
 
 def sharded_alone() -> None:
@@ -4001,7 +4143,8 @@ def main(argv=None) -> int:
     """With no arguments, every phase. `--greedy-signature` and `--phase
     controller` are the two parts the full run starts in processes of their
     own; `--phase sharded` and `--phase consolidate` run the sharded and the
-    consolidation phase alone."""
+    consolidation phase alone, and `--phase fused` the fused solve's records
+    and K4's share of K2's launch."""
     import torch
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -4019,6 +4162,9 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--phase", "consolidate"]:
         consolidate_alone()
+        return 0
+    if argv == ["--phase", "fused"]:
+        fused_alone()
         return 0
     if argv:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -4043,8 +4189,8 @@ def smoke(children) -> int:
     from karpenter_tpu_torch.models import solver
     from karpenter_tpu_torch.market import forecast
     from karpenter_tpu_torch.ops import (
-        consolidate_kernel, cuda_build, cuda_kernels, forecast_kernel, incremental, native,
-        pack_kernel, score_kernel,
+        consolidate_kernel, cuda_build, cuda_kernels, forecast_kernel, incremental, launch_floor,
+        native, pack_kernel, score_kernel,
     )
     from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
 
@@ -4059,9 +4205,9 @@ def smoke(children) -> int:
     phase("card", smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
           capability=f"{capability[0]}.{capability[1]}")
 
-    # 2. build: one nvcc per kernel source, started together; the host
-    # library (g++) meanwhile.
-    libraries = cuda_build.port_libraries()
+    # 2. build: one nvcc per kernel source (and the launch floor's empty
+    # kernel), started together; the host library (g++) meanwhile.
+    libraries = cuda_build.port_libraries() + [launch_floor.LIBRARY]
     build_s = cuda_build.build_all(libraries)
     for library in libraries:
         library.load()
@@ -4125,40 +4271,32 @@ def smoke(children) -> int:
     problems = [random_pack_problem(rng, g, t) for g, t in pack_shapes]
     problems.append(tuple(padded[:5]) + (main_prices.cpu().numpy(),))
     problems += [problem for _, problem, _ in tied_weight_cases() if problem is not None]
-    compact_pairs = []
+    # The dense problems past the compaction's entry budget (G 16 and 64).
+    problems += [dense_pack_problem(seed, g) for seed, g in DENSE_PACK_CASES]
+    k4_cases = k4_overflowed = 0
+    k4_err = 0
     for problem in problems:
+        label = f"G={problem[0].shape[0]} T={problem[2].shape[0]}"
         args = fused_args_from_numpy(*problem, device=device)
         pair = pack_kernel.pack_kernel_pair(*args)
-        for mode, from_pair in zip(("ffd", "cost"), pair):
+        # The plain composition of the fused solve's tail: both modes'
+        # rounds, feasible_any, solvable, the dense spill and the payload.
+        plain = pack_kernel._pack_pair_payload_ref(*args, True)
+        for mode, from_pair, plain_rounds in zip(("ffd", "cost"), pair, plain[:2]):
             alone = pack_kernel.pack_kernel(*args, mode=mode)
-            plain = pack_kernel._pack_kernel_ref(*args, mode=mode)
             torch.cuda.synchronize()
-            check(rounds_equal(alone, plain), f"K2 {mode} differs from its plain version at G={problem[0].shape[0]} T={problem[2].shape[0]}")
-            check(rounds_equal(from_pair, plain), f"K2 pair {mode} differs from its plain version")
-            k2_err = max(k2_err, rounds_abs_err(from_pair, plain))
+            check(rounds_equal(alone, plain_rounds), f"K2 {mode} differs from its plain version at {label}")
+            check(rounds_equal(from_pair, plain_rounds), f"K2 pair {mode} differs from its plain version")
+            k2_err = max(k2_err, rounds_abs_err(from_pair, plain_rounds))
             k2_cases += 1
         again = pack_kernel.pack_kernel_pair(*args)
         torch.cuda.synchronize()
-        check(all(rounds_equal(a, b) for a, b in zip(pair, again)),
-              f"two launches of K2 differ at G={problem[0].shape[0]} T={problem[2].shape[0]}")
-        feasible = score_kernel.feasibility_mask(args[0], args[2], args[4]).any(dim=1)
-        compact_pairs.append((pair, feasible))
-    # K4 on every pair of rounds above and on dense rounds past the entry
-    # budget (G = 64 takes 35 tiles of the kernel's block).
-    for num_groups, density in ((16, 0.9), (64, 0.5)):
-        compact_pairs.append((
-            tuple(dense_rounds(num_groups, seed, density, device) for seed in (0, 1)),
-            torch.from_numpy(np.random.default_rng(2).random(num_groups) < 0.7).to(device),
-        ))
-    k4_cases = 0
-    k4_err = 0
-    for (ffd_rounds, cost_rounds), feasible in compact_pairs:
-        got = pack_kernel.compact_plan(ffd_rounds, cost_rounds, feasible)
-        want = pack_kernel._compact_plan_ref(ffd_rounds, cost_rounds, feasible)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"K4 differs from its plain version at G={feasible.shape[0]}")
-        k4_err = max(k4_err, int((got.long() - want.long()).abs().max()))
+        check(all(rounds_equal(a, b) for a, b in zip(pair, again)), f"two launches of K2 differ at {label}")
+        # K4 in the pair launch's epilogue: one launch, word for word.
+        k4_err = max(k4_err, fused_against_plain(args, plain, pair, label))
+        k4_overflowed += not pack_kernel.decompact_plan(plain.payload.cpu().numpy(), problem[0].shape[0])[3]
         k4_cases += 1
+    check(k4_overflowed >= 2, f"{k4_overflowed} fused cases overflowed the entry budget, not the dense two")
     # K3 on the non-degenerate LP family, padded out to each shape: every
     # seed at the shapes of the main path's bucket, two seeds at the shapes
     # that reach the rest of the launch plans (every cluster size the rule
@@ -4286,16 +4424,17 @@ def smoke(children) -> int:
     cuda_kernels.dominance_prices.launches = 0
     pack_kernel.pack_kernel.launches = 0
     score_kernel.lp_relax.launches = 0
-    pack_kernel.compact_plan.launches = 0
+    pack_kernel.pack_pair_payload.launches = 0
     torch.cuda.synchronize()
     start = time.perf_counter()
     result = cost_solver.solve(pods, catalog, Constraints())
     first_solve_ms = (time.perf_counter() - start) * 1e3
+    # K2's one launch is the pair with its epilogue (K4 inside it).
     launches = {
         "dominance_prices": cuda_kernels.dominance_prices.launches,
         "pack_kernel": pack_kernel.pack_kernel.launches,
         "lp_relax": score_kernel.lp_relax.launches,
-        "compact_plan": pack_kernel.compact_plan.launches,
+        "pack_pair_payload": pack_kernel.pack_pair_payload.launches,
     }
     check(all(count == 1 for count in launches.values()),
           f"the main path's solve did not launch each kernel exactly once: {launches}")
@@ -4382,15 +4521,21 @@ def smoke(children) -> int:
     large = large_shapes_phase(catalog, device)
     plan_cases = 0
     plan_err = 0.0
-    for num_groups_x, num_types_x in ((2048, 512), (16, 8192)):
-        args = fused_args_from_numpy(*sparse_pack_problem(3, num_groups_x, num_types_x, 200), device=device)
+    # K2's pair, and with its epilogue (K4: the scan at 1,024 threads over
+    # thousands of tiles; at G 8,192 the tables, which its warp counts
+    # reuse, in global scratch).
+    for num_groups_x, num_types_x, real in ((2048, 512, 200), (16, 8192, 200), (8192, 64, 40)):
+        args = fused_args_from_numpy(*sparse_pack_problem(3, num_groups_x, num_types_x, real), device=device)
+        label = f"G={num_groups_x} T={num_types_x}"
         pair = pack_kernel.pack_kernel_pair(*args)
-        for mode, got in zip(("ffd", "cost"), pair):
-            want = pack_kernel._pack_kernel_ref(*args, mode=mode)
+        plain = pack_kernel._pack_pair_payload_ref(*args, True)
+        for mode, got, want in zip(("ffd", "cost"), pair, plain[:2]):
             torch.cuda.synchronize()
-            check(rounds_equal(got, want), f"K2 {mode} differs from its plain version at G={num_groups_x} T={num_types_x}")
+            check(rounds_equal(got, want), f"K2 {mode} differs from its plain version at {label}")
             plan_err = max(plan_err, rounds_abs_err(got, want))
             plan_cases += 1
+        k4_err = max(k4_err, fused_against_plain(args, plain, pair, label))
+        k4_cases += 1
     for shape in ((2048, 512), (16, 8192), (2048, 2048)):
         lp_args = lp_inputs(LP_SEEDS[0], shape, device)
         k3_check(lp_args, score_kernel.lp_relax(*lp_args, steps=300), f"launch plan at {shape}")
@@ -4398,6 +4543,7 @@ def smoke(children) -> int:
     print(f"  launch plans past the old limits: {plan_cases} cases, K2 max abs err {plan_err}, "
           f"K2 at G 2048 T 512: {pack_kernel.pack_launch_plan(2048, 512, 8)}, "
           f"K2 at T 8192: {pack_kernel.pack_launch_plan(16, 8192, 8)}, "
+          f"K2 at G 8192 T 64: {pack_kernel.pack_launch_plan(8192, 64, 8)}, "
           f"K3 at G 2048 T 2048: {score_kernel.lp_launch_plan(2048, 2048, 8)}")
 
     # 10b. the provisioning controllers under a live spot market: 50,000
@@ -4493,12 +4639,11 @@ def smoke(children) -> int:
                 + num_types + 4 * (num_groups * num_types + num_types + 1))
     k3_ops = lp_operations(num_groups, num_types, dims, lp_steps)
 
-    main_ffd, main_cost = pack_kernel.pack_kernel_pair(vectors, counts, capacity, total, valid, main_prices)
-    main_feasible = score_kernel.feasibility_mask(vectors, capacity, valid).any(dim=1)
-    k4_call = functools.partial(pack_kernel.compact_plan, main_ffd, main_cost, main_feasible)
-    k4_event_ms = time_cuda(k4_call, reps=200)
-    k4_ms = device_ms_per_call(k4_call, ["compact_kernel"], reps=200)
-    k4_plain_ms = time_cuda(lambda: pack_kernel._compact_plan_ref(main_ffd, main_cost, main_feasible), reps=50)
+    # K4 runs in the epilogue of K2's pair launch: its share of that launch
+    # is measured in a fresh process at the end (fused_alone).
+    main_fused = pack_kernel.pack_pair_payload(vectors, counts, capacity, total, valid, main_prices)
+    k4_plain_ms = time_cuda(lambda: pack_kernel._compact_plan_ref(
+        main_fused.rounds_ffd, main_fused.rounds_cost, main_fused.feasible_any), reps=50)
     mr = pack_kernel.max_rounds(num_groups)
     # Per mode round_type and round_repl [MR], round_fill [MR, G],
     # unschedulable [G], num_rounds and overflow read, feasible_any read,
@@ -4590,13 +4735,16 @@ def smoke(children) -> int:
             "us_per_step": k3_ms * 1e3 / lp_steps, "cluster": k3_rule.cluster,
         },
         {
+            # In the epilogue of K2's pair launch: `launches` counts the
+            # launches that ran it (the pair's), `ms` its share of them.
             "name": "compact_plan", "route": "cuda",
-            "source": "karpenter_tpu_torch/csrc/compact.cu",
+            "source": "karpenter_tpu_torch/csrc/compact_rounds.cuh",
             "replaces": "karpenter_tpu/ops/pack_kernel.py:616",
-            "launches": launches["compact_plan"], "max_abs_err": k4_err,
-            "launches_controller": controller["storm_launches"]["compact_plan"],
-            "ms": k4_ms, "event_ms": k4_event_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-            "bound_by": k4_by, "library_ms": None,
+            "launches": launches["pack_pair_payload"], "standalone_launches": 0,
+            "fused_into": "pack_kernel", "max_abs_err": k4_err, "cases": k4_cases,
+            "launches_controller": controller["storm_launches"]["pack_pair_payload"],
+            "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
         },
         {
             "name": "solve_counterfactuals", "route": "cuda",
@@ -4682,6 +4830,14 @@ def smoke(children) -> int:
     k10_bound, k10_by = bound(3 * 4 * k10_types, 3 * k10_types)
     print(f"  K10 at T={k10_types}: torch.addcmul {k10_library_ms:.4f} ms, "
           f"{'the same bits' if library_same else 'other bits'} than K10")
+    # The card's launch floor: an empty kernel through the same ctypes and
+    # launch_stream path, timed as K10 and K4 are.
+    floor_call = functools.partial(launch_floor.empty_launch, k10_prices)
+    floor_event_ms = time_cuda(floor_call, reps=200)
+    floor_ms = device_ms_per_call(floor_call, ["empty_kernel"], reps=200)
+    print(f"launch_floor device_ms={floor_ms:.6f} event_ms={floor_event_ms:.4f} "
+          f"k10_device_ms={k10_ms:.6f} k10_event_ms={k10_event_ms:.4f} "
+          f"source=karpenter_tpu_torch/csrc/launch_floor.cu")
     kernels.append({
         "name": "penalize_prices", "route": "cuda",
         "source": "karpenter_tpu_torch/csrc/forecast.cu",
@@ -4779,6 +4935,24 @@ def smoke(children) -> int:
     children.append(consolidate_child)
     records = child_result(consolidate_child, "consolidate_result")["records_per_sweep"]
     kernels[[entry["name"] for entry in kernels].index("solve_counterfactuals")]["records_per_sweep"] = records
+    # 15. the fused solve's device records a call and K4's share of K2's
+    # launch, in a fresh process (see fused_alone).
+    fused_child = run_child(["--phase", "fused"], 300.0)
+    children.append(fused_child)
+    fused = child_result(fused_child, "fused_result")
+    records = fused["records"]
+    print(f"fused_solve_records per_call={sum(records.values())} by_name={json.dumps(records, sort_keys=True)}")
+    check(records.get("pack_rounds_kernel") == 1 and "compact_kernel" not in records,
+          f"the fused solve's records {records} are not one K2 launch and no compaction launch")
+    k2_entry = kernels[[entry["name"] for entry in kernels].index("pack_kernel")]
+    k2_entry.update(ms_with_epilogue=fused["k2_with_epilogue_ms"],
+                    event_ms_with_epilogue=fused["k2_with_epilogue_event_ms"])
+    k4_entry = kernels[[entry["name"] for entry in kernels].index("compact_plan")]
+    k4_entry.update(ms=fused["k2_with_epilogue_ms"] - fused["k2_without_epilogue_ms"],
+                    ms_k2_with_epilogue=fused["k2_with_epilogue_ms"],
+                    ms_k2_without_epilogue=fused["k2_without_epilogue_ms"],
+                    event_ms_k2_with_epilogue=fused["k2_with_epilogue_event_ms"])
+    print(f"wall total_s={time.perf_counter() - _START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

@@ -20,8 +20,8 @@
 // What the design does about it: one launch a card.
 //   * Every shard on one card (the one-card mesh): one launch writes the
 //     whole flat payload of compact_plan_sharded, the layout word for word
-//     (csrc/compact.cu's Rounds, its model): the ffd header (round_type,
-//     round_repl, num_rounds, unschedulable, overflow), the ffd segments of
+//     (csrc/compact_rounds.cuh's Rounds, its model): the ffd header
+//     (round_type, round_repl, num_rounds, unschedulable, overflow), the ffd segments of
 //     shards 0..W-1, the same for cost, then feasible_any. No stack, header
 //     casts or cat follow it.
 //   * Shards on several cards: one launch a card compacts the shards that
@@ -33,8 +33,8 @@
 // one writes feasible_any too). A pair's block reads its column block
 // straight out of the full [MR, G] fill (no copy), places each tile of its
 // threads by a warp ballot and a scan over the warps' counts
-// (csrc/compact.cu's scan), so the entries come out in ascending order, and
-// then zeroes only the budget slots past its own nnz: the placed entries and
+// (csrc/compact_rounds.cuh's scan), so the entries come out in ascending
+// order, and then zeroes only the budget slots past its own nnz: the placed entries and
 // the zeroed slots are disjoint, so no barrier stands between them.
 
 #include <cuda_runtime.h>

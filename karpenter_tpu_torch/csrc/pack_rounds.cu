@@ -77,10 +77,36 @@
 //     drops it; overflow reports the lost round.
 //   * every output is int32 in the reference's PackRounds layout, because
 //     the compaction and decompact_plan read word offsets.
+//
+// The epilogue (the pair, both modes, when the caller hands it output
+// pointers; off for the quirk's launches and on a mesh for the payload):
+// everything the fused solve's tail needs, so that the solve launches no
+// kernel after this one but the LP's.
+//   * feasibility (block 0, before the round loop, from the staged group
+//     vectors): feasible_any[g] = some valid type fits one pod of g, as the
+//     reference's feasibility_mask(...).any(1), capacity + 1e-6 its own
+//     rounded add (__fadd_rn); a warp ORs its types' answers into the tail
+//     of the output buffer, which makes the buffer the whole dense spill
+//     [2 x words + G] the reference concatenates. After the loop block 0
+//     writes it again as a bool [G], and solvable[g] = feasible_any[g] ?
+//     counts[g] : 0 for the LP.
+//   * compaction (K4, compact_rounds.cuh): after a block barrier each block
+//     writes its own mode's segment of the payload from the rounds it has
+//     just written, reading only the rows the loop wrote; block 0 adds the
+//     feasibility tail. Neither block waits for the other: a block's
+//     segment depends on its own rounds alone. The scan's warp counts reuse
+//     the block's tables, which the loop no longer reads.
+// The round loop itself is the same code with and without the epilogue, and
+// both passes are functions of their own (__noinline__), called where few
+// values are live: inlined, they changed the loop's register allocation
+// and slowed it by about 8% on an H100 (the pair 0.216 -> 0.234 ms at the
+// main path, without the epilogue).
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "compact_rounds.cuh"
 
 namespace {
 
@@ -110,6 +136,14 @@ __host__ __device__ inline Layout make_layout(int groups, int max_rounds) {
   l.words = l.overflow + 1;
   return l;
 }
+
+// The epilogue's outputs: feasible null leaves it off. payload may be null
+// with feasible set (a mesh's replicas compact shard by shard instead).
+struct Epilogue {
+  unsigned char* feasible;  // [G] bool
+  int* solvable;            // [G] int32
+  int* payload;             // [2 x compaction::mode_words + G] int32, or null
+};
 
 // The block's control words at the front of dynamic shared memory.
 struct Control {
@@ -236,6 +270,63 @@ __device__ inline unsigned long long warp_min_key(unsigned long long key) {
   return key;
 }
 
+// The epilogue's feasibility pass, by every thread of block 0 before the
+// round loop: for each group, whether one of the thread's valid types fits
+// one pod on every axis, a warp's answer ORed into fits_any[g] (zeroed
+// before the block's first barrier; read after the loop's barriers).
+__device__ __noinline__ void feasibility_pass(const float* vectors, const float* capacity,
+                                              const unsigned char* valid, int groups, int types,
+                                              int dims, int* fits_any) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < types; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    const bool in = t < types && valid[t] != 0;
+    float cap[kMaxDims];
+#pragma unroll
+    for (int r = 0; r < kMaxDims; ++r) {
+      cap[r] = in && r < dims ? __fadd_rn(capacity[size_t(t) * dims + r], 1e-6f) : 0.0f;
+    }
+    for (int g = 0; g < groups; ++g) {
+      const float* vec = vectors + g * dims;
+      bool fits = in;
+#pragma unroll
+      for (int r = 0; r < kMaxDims; ++r) {
+        if (r < dims) fits = fits && vec[r] <= cap[r];
+      }
+      if (__any_sync(kFullMask, fits) && lane == 0) atomicOr(fits_any + g, 1);
+    }
+  }
+}
+
+// The epilogue after the round loop, by every thread of the block: a
+// barrier (the rounds final, the tables free), the block's mode compacted
+// into its payload segment (warp counts in the tables), and block 0's
+// feasibility outputs.
+__device__ __noinline__ void write_epilogue(Epilogue epilogue, const int* o, const int* fits_any,
+                                            const int* counts_in, int groups, int max_rounds,
+                                            int* scratch) {
+  __syncthreads();
+  const Layout layout = make_layout(groups, max_rounds);
+  const int payload_words = compaction::mode_words(groups, max_rounds);
+  if (epilogue.payload != nullptr) {
+    const compaction::Rounds rounds{o + layout.round_type, o + layout.round_fill,
+                                    o + layout.round_repl, o + layout.num_rounds,
+                                    o + layout.unschedulable, o + layout.overflow};
+    compaction::compact_rounds(rounds, groups, max_rounds, o[layout.num_rounds],
+                               epilogue.payload + size_t(blockIdx.x) * payload_words, scratch);
+  }
+  if (blockIdx.x == 0) {
+    int* payload_tail =
+        epilogue.payload == nullptr ? nullptr : epilogue.payload + 2 * size_t(payload_words);
+    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+      const int fits = __ldcg(fits_any + g);
+      epilogue.feasible[g] = fits != 0;
+      epilogue.solvable[g] = fits != 0 ? counts_in[g] : 0;
+      if (payload_tail != nullptr) payload_tail[g] = fits;
+    }
+  }
+}
+
 // kTypesPerThread 1, 2 or 4 keeps each type's constants in registers; 0
 // streams them from global memory for ceil(T / threads) types a thread.
 // kTablesInShared is known at compile time so that the scan's table reads
@@ -250,7 +341,8 @@ pack_rounds_kernel(const float* __restrict__ vectors,
                    const unsigned char* __restrict__ valid,
                    const float* __restrict__ prices, int groups, int types,
                    int dims, int first_mode, int* __restrict__ out,
-                   int* __restrict__ fill_scratch, int* __restrict__ table_scratch) {
+                   int* __restrict__ fill_scratch, int* __restrict__ table_scratch,
+                   Epilogue epilogue) {
   extern __shared__ __align__(16) unsigned char shared_raw[];
   Control* control = reinterpret_cast<Control*>(shared_raw);
   // The tables: after the control words, or in this block's slice of the
@@ -280,6 +372,10 @@ pack_rounds_kernel(const float* __restrict__ vectors,
   int* o = out + size_t(blockIdx.x) * layout.words;
 
   for (int i = tid; i < layout.words; i += threads) o[i] = 0;
+  if (epilogue.feasible != nullptr && blockIdx.x == 0) {
+    // The feasibility tail of the dense spill, past both modes' rounds.
+    for (int g = tid; g < groups; g += threads) out[2 * size_t(layout.words) + g] = 0;
+  }
   for (int i = tid; i < groups * dims; i += threads) s_vectors[i] = vectors[i];
   for (int g = tid; g < groups; g += threads) {
     s_counts[g] = counts_in[g];
@@ -297,6 +393,9 @@ pack_rounds_kernel(const float* __restrict__ vectors,
     control->largest_valid = -1;
   }
   __syncthreads();
+  if (epilogue.feasible != nullptr && blockIdx.x == 0) {
+    feasibility_pass(s_vectors, capacity, valid, groups, types, dims, out + 2 * size_t(layout.words));
+  }
 
   // The per-type constants, in registers for the whole loop (streamed from
   // global memory when kTypesPerThread is 0).
@@ -570,13 +669,17 @@ pack_rounds_kernel(const float* __restrict__ vectors,
       o[layout.overflow] = (pods > 0 || num_rounds > max_rounds) ? 1 : 0;
     }
   }
+  if (epilogue.feasible != nullptr) {
+    write_epilogue(epilogue, o, out + 2 * size_t(layout.words), counts_in, groups, max_rounds,
+                   reinterpret_cast<int*>(s_vectors));
+  }
 }
 
 template <int kTypesPerThread, bool kTablesInShared, bool kQuirk>
 int launch_variant(const void* vectors, const void* counts, const void* capacity,
                    const void* total, const void* valid, const void* prices, int groups,
                    int types, int dims, int first_mode, int num_modes, int threads, void* out,
-                   void* fill_scratch, void* table_scratch, void* stream) {
+                   void* fill_scratch, void* table_scratch, Epilogue epilogue, void* stream) {
   const size_t bytes = shared_bytes(groups, types, dims, fill_scratch == nullptr, kTablesInShared);
   if (bytes > kDefaultSharedLimit) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -591,7 +694,7 @@ int launch_variant(const void* vectors, const void* counts, const void* capacity
           static_cast<const unsigned char*>(valid),
           static_cast<const float*>(prices), groups, types, dims, first_mode,
           static_cast<int*>(out), static_cast<int*>(fill_scratch),
-          static_cast<int*>(table_scratch));
+          static_cast<int*>(table_scratch), epilogue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -599,41 +702,41 @@ template <int kTypesPerThread, bool kQuirk>
 int launch(const void* vectors, const void* counts, const void* capacity, const void* total,
            const void* valid, const void* prices, int groups, int types, int dims,
            int first_mode, int num_modes, int threads, void* out, void* fill_scratch,
-           void* table_scratch, void* stream) {
+           void* table_scratch, Epilogue epilogue, void* stream) {
   if (table_scratch == nullptr) {
     return launch_variant<kTypesPerThread, true, kQuirk>(
         vectors, counts, capacity, total, valid, prices, groups, types, dims, first_mode,
-        num_modes, threads, out, fill_scratch, table_scratch, stream);
+        num_modes, threads, out, fill_scratch, table_scratch, epilogue, stream);
   }
   return launch_variant<kTypesPerThread, false, kQuirk>(
       vectors, counts, capacity, total, valid, prices, groups, types, dims, first_mode,
-      num_modes, threads, out, fill_scratch, table_scratch, stream);
+      num_modes, threads, out, fill_scratch, table_scratch, epilogue, stream);
 }
 
 template <bool kQuirk>
 int launch_any(const void* vectors, const void* counts, const void* capacity, const void* total,
                const void* valid, const void* prices, int groups, int types, int dims,
                int first_mode, int num_modes, int threads, int types_per_thread, void* out,
-               void* fill_scratch, void* table_scratch, void* stream) {
+               void* fill_scratch, void* table_scratch, Epilogue epilogue, void* stream) {
   switch (types_per_thread) {
     case 1:
       return launch<1, kQuirk>(vectors, counts, capacity, total, valid, prices, groups, types,
                                dims, first_mode, num_modes, threads, out, fill_scratch,
-                               table_scratch, stream);
+                               table_scratch, epilogue, stream);
     case 2:
       return launch<2, kQuirk>(vectors, counts, capacity, total, valid, prices, groups, types,
                                dims, first_mode, num_modes, threads, out, fill_scratch,
-                               table_scratch, stream);
+                               table_scratch, epilogue, stream);
     case 4:
       return launch<4, kQuirk>(vectors, counts, capacity, total, valid, prices, groups, types,
                                dims, first_mode, num_modes, threads, out, fill_scratch,
-                               table_scratch, stream);
+                               table_scratch, epilogue, stream);
     case 3:
       return cudaErrorInvalidValue;
     default:
       return launch<0, kQuirk>(vectors, counts, capacity, total, valid, prices, groups, types,
                                dims, first_mode, num_modes, threads, out, fill_scratch,
-                               table_scratch, stream);
+                               table_scratch, epilogue, stream);
   }
 }
 
@@ -642,6 +745,11 @@ int launch_any(const void* vectors, const void* counts, const void* capacity, co
 // Words of one mode's output; the caller allocates num_modes times this.
 extern "C" int ktt_pack_rounds_words(int groups) {
   return make_layout(groups, 2 * groups + 8).words;
+}
+
+// Words of the epilogue's payload: both modes' segments, then feasible_any.
+extern "C" int ktt_pack_rounds_payload_words(int groups) {
+  return 2 * compaction::mode_words(groups, 2 * groups + 8) + groups;
 }
 
 // Dynamic shared memory one block needs, with or without the [G, T] fills
@@ -666,13 +774,19 @@ extern "C" long long ktt_pack_rounds_table_words(int groups, int types, int dims
 // `threads` threads, thread i owning the types i + k * threads for k <
 // types_per_thread (1, 2 or 4 cached in registers, more streamed); quirk 1
 // takes the reference's fits() early exit and its replication rule, and
-// reads total. Returns the launch's cudaGetLastError().
+// reads total. The epilogue: feasible [G] bool and solvable [G] i32, both
+// null or neither, take the feasibility of both modes' launch (first_mode 0,
+// num_modes 2), and out then holds G more words, feasible_any as int32;
+// payload [ktt_pack_rounds_payload_words] i32 (null: none, the only choice
+// without feasible) takes both plans compacted. Returns the launch's
+// cudaGetLastError().
 extern "C" int ktt_pack_rounds(const void* vectors, const void* counts,
                                const void* capacity, const void* total, const void* valid,
                                const void* prices, int groups, int types,
                                int dims, int first_mode, int num_modes,
                                int threads, int types_per_thread, int quirk,
                                void* out, void* fill_scratch, void* table_scratch,
+                               void* feasible, void* solvable, void* payload,
                                void* stream) {
   if (groups <= 0 || types <= 0 || dims <= 0 || dims > kMaxDims ||
       first_mode < kModeFfd || num_modes < 1 ||
@@ -680,15 +794,19 @@ extern "C" int ktt_pack_rounds(const void* vectors, const void* counts,
       threads > kMaxThreads || threads % 32 != 0 || types_per_thread < 1 ||
       static_cast<long long>(threads) * types_per_thread < types ||
       (table_scratch != nullptr && fill_scratch == nullptr) ||
-      (quirk != 0 && total == nullptr)) {
+      (quirk != 0 && total == nullptr) || ((feasible == nullptr) != (solvable == nullptr)) ||
+      (payload != nullptr && feasible == nullptr) ||
+      (feasible != nullptr && (first_mode != kModeFfd || num_modes != 2))) {
     return cudaErrorInvalidValue;
   }
+  const Epilogue epilogue{static_cast<unsigned char*>(feasible), static_cast<int*>(solvable),
+                          static_cast<int*>(payload)};
   if (quirk != 0) {
     return launch_any<true>(vectors, counts, capacity, total, valid, prices, groups, types, dims,
                             first_mode, num_modes, threads, types_per_thread, out, fill_scratch,
-                            table_scratch, stream);
+                            table_scratch, epilogue, stream);
   }
   return launch_any<false>(vectors, counts, capacity, total, valid, prices, groups, types, dims,
                            first_mode, num_modes, threads, types_per_thread, out, fill_scratch,
-                           table_scratch, stream);
+                           table_scratch, epilogue, stream);
 }

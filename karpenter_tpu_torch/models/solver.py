@@ -55,17 +55,15 @@ from karpenter_tpu_torch.ops.encode import InstanceFleet, PodGroups, build_fleet
 from karpenter_tpu_torch.ops.pack_kernel import (
     PackRounds,
     bucket_size,
-    compact_plan,
     compact_plan_sharded,
     decompact_plan_sharded,
     max_rounds,
     pack_kernel,
-    pack_kernel_pair,
+    pack_pair_payload,
     device_resident,
     pad_to,
 )
 from karpenter_tpu_torch.ops.score_kernel import (
-    feasibility_mask,
     lp_relax,
     round_assignment,
 )
@@ -261,17 +259,6 @@ class NativeSolver(Solver):
         return _decode_rounds(round_list, unschedulable_counts, groups, fleet)
 
 
-def _rounds_ints(rounds: PackRounds) -> List[torch.Tensor]:
-    return [
-        rounds.round_type.reshape(-1),
-        rounds.round_fill.reshape(-1),
-        rounds.round_repl.reshape(-1),
-        rounds.num_rounds.reshape(1),
-        rounds.unschedulable.reshape(-1),
-        rounds.overflow.to(torch.int32).reshape(1),
-    ]
-
-
 def _cost_fused_body(vectors, counts, capacity, total, valid, prices, *, lp_steps: int):
     """All three CostSolver candidates as one stream of device work: greedy
     FFD rounds, cost-greedy rounds, and the LP relaxation, with no host sync
@@ -285,24 +272,16 @@ def _cost_fused_body(vectors, counts, capacity, total, valid, prices, *, lp_step
     ANY type whose capacity dominates t's, so the cost objective sees the
     dominating-type minimum price (K1, ops/cuda_kernels.dominance_prices).
     Both pack modes run as one launch of the round-loop kernel (K2,
-    ops/pack_kernel.pack_kernel_pair), and the LP relaxation's every Adam
-    step as one launch of K3 (ops/score_kernel.lp_relax)."""
+    ops/pack_kernel.pack_pair_payload), whose epilogue also writes
+    feasible_any, the LP's counts, the dense spill and the compacted payload
+    (K4); the LP relaxation's every Adam step is one launch of K3
+    (ops/score_kernel.lp_relax)."""
     valid_prices = torch.where(valid, prices, torch.inf)
     effective_prices = dominance_prices(capacity, valid_prices)
-    rounds_ffd, rounds_cost = pack_kernel_pair(
-        vectors, counts, capacity, total, valid, effective_prices
-    )
-    feasible_any = feasibility_mask(vectors, capacity, valid).any(dim=1)
-    solvable = torch.where(feasible_any, counts, 0)
-    lp = lp_relax(vectors, solvable, capacity, valid, effective_prices, steps=lp_steps)
-    dense_ints = torch.cat(
-        _rounds_ints(rounds_ffd)
-        + _rounds_ints(rounds_cost)
-        + [feasible_any.to(torch.int32).reshape(-1)]
-    )
-    compacted = compact_plan(rounds_ffd, rounds_cost, feasible_any)
+    pair = pack_pair_payload(vectors, counts, capacity, total, valid, effective_prices)
+    lp = lp_relax(vectors, pair.solvable, capacity, valid, effective_prices, steps=lp_steps)
     objective = lp.objective.reshape(1).to(torch.float32)
-    return compacted, objective, dense_ints, lp.assignment.reshape(-1)
+    return pair.payload, objective, pair.dense, lp.assignment.reshape(-1)
 
 
 def unpack_dense(ints: np.ndarray, num_groups: int) -> Tuple:
@@ -511,10 +490,12 @@ def _sharded_fused_solve(padded, mesh, lp_steps: int, device: torch.device):
     """The fused solve over a mesh: the same candidates as _cost_fused_body.
     K1 and the K2 pair run once per distinct device of the mesh (on one card
     with a virtual set: once), every shard reading its device's copy; the
-    LP's [G, T] bulk is sharded over the ("groups", "types") mesh (K9a,
-    parallel/sharded_solver.sharded_lp_blocks); the plan compaction runs
-    shard-locally (K9b on every shard) and only the compacted segments are
-    gathered to the first shard, where the payload is fetched. Returns the
+    pair's epilogue writes feasible_any, the LP's counts and the dense spill
+    there. The LP's [G, T] bulk is sharded over the ("groups", "types") mesh
+    (K9a, parallel/sharded_solver.sharded_lp_blocks); the plan compaction
+    runs shard-locally (K9b on every shard) and only the compacted segments
+    are gathered to the first shard, where the payload is fetched; a mesh of
+    one shard takes the payload from the pair's epilogue. Returns the
     four outputs of _cost_fused_body, the LP assignment as a
     ShardedAssignment. The padded G must be a multiple of the mesh's size
     and T of its types axis (pad_kernel_args' g_mult and t_mult)."""
@@ -534,29 +515,23 @@ def _sharded_fused_solve(padded, mesh, lp_steps: int, device: torch.device):
             mesh_device,
         )
         effective_prices = dominance_prices(capacity, torch.where(valid, prices, torch.inf))
-        rounds_ffd, rounds_cost = pack_kernel_pair(
-            vectors, counts, capacity, total, valid, effective_prices
+        pair = pack_pair_payload(
+            vectors, counts, capacity, total, valid, effective_prices, payload=mesh.size <= 1
         )
-        feasible_any = feasibility_mask(vectors, capacity, valid).any(dim=1)
-        solvable = torch.where(feasible_any, counts, 0)
-        replicas[mesh_device] = (
-            (vectors, solvable, capacity, valid, effective_prices),
-            (rounds_ffd, rounds_cost, feasible_any),
-        )
+        replicas[mesh_device] = ((vectors, pair.solvable, capacity, valid, effective_prices), pair)
     problem = shard_lp_problem(mesh, {d: lp_args for d, (lp_args, _) in replicas.items()})
     lp = sharded_lp_blocks(mesh, problem, lp_steps)
-    rounds_ffd, rounds_cost, feasible_any = replicas[mesh.flat[0].device][1]
-    compacted = compact_plan_sharded(
-        rounds_ffd, rounds_cost, feasible_any, mesh=mesh,
-        replicas={d: (r[1][0].round_fill, r[1][1].round_fill) for d, r in replicas.items()},
-    )
-    dense_ints = torch.cat(
-        _rounds_ints(rounds_ffd)
-        + _rounds_ints(rounds_cost)
-        + [feasible_any.to(torch.int32).reshape(-1)]
-    )
+    pair = replicas[mesh.flat[0].device][1]
+    if mesh.size <= 1:
+        compacted = pair.payload
+    else:
+        compacted = compact_plan_sharded(
+            pair.rounds_ffd, pair.rounds_cost, pair.feasible_any, mesh=mesh,
+            replicas={d: (p.rounds_ffd.round_fill, p.rounds_cost.round_fill)
+                      for d, (_, p) in replicas.items()},
+        )
     objective = lp.objective.reshape(1).to(torch.float32)
-    return compacted, objective, dense_ints, ShardedAssignment(mesh, lp.assignment)
+    return compacted, objective, pair.dense, ShardedAssignment(mesh, lp.assignment)
 
 
 def _kind(device) -> str:

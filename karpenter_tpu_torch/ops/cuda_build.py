@@ -62,7 +62,9 @@ class CudaLibrary:
         self.build_log = ""
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        # The headers under csrc/ count too: a source may include any of them.
+        headers = b"".join(path.read_bytes() for path in sorted(CSRC_DIR.glob("*.cuh")))
+        digest = hashlib.sha256(self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{digest.hexdigest()[:16]}.so"
 
     def start_build(self) -> Optional["_Build"]:
@@ -143,8 +145,8 @@ def build_all(libraries: Sequence[CudaLibrary]) -> float:
 
 
 def port_libraries() -> List[CudaLibrary]:
-    """Every kernel source of the port, one library each: K1, K2, K3, K4,
-    K7, K6, K8, K10, K9a and K9b."""
+    """Every kernel source of the port, one library each: K1, K2 (with K4
+    in its epilogue), K3, K7, K6, K8, K10, K9a and K9b."""
     from karpenter_tpu_torch.ops import (
         consolidate_kernel,
         cuda_kernels,
@@ -157,7 +159,7 @@ def port_libraries() -> List[CudaLibrary]:
 
     return [
         cuda_kernels.LIBRARY, pack_kernel.LIBRARY, score_kernel.LIBRARY,
-        pack_kernel.COMPACT_LIBRARY, consolidate_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
+        consolidate_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
         incremental.LIBRARY, forecast_kernel.LIBRARY, lp_shard_kernel.LIBRARY,
         pack_kernel.COMPACT_SHARD_LIBRARY,
     ]

@@ -26,9 +26,12 @@ modes in one launch (`pack_kernel_pair`), one type per thread as
 mode) is a compile-time variant of the same kernel. `_pack_kernel_ref` is its
 plain PyTorch version, which tests the loop condition on the host every
 round. A CPU tensor goes to the plain version, a CUDA tensor to the kernel.
-The plan compaction after it is K4
-(csrc/compact.cu, `compact_plan`): one launch writes the whole payload, and
-`_compact_plan_ref` is its plain version.
+
+The fused solve's tail rides the same launch (`pack_pair_payload`): the
+kernel's epilogue writes feasible_any, the LP's counts, the dense spill and
+K4, the plan compaction (csrc/compact_rounds.cuh), whose plain version is
+`_compact_plan_ref` (`compact_plan` on the CPU). No kernel of the solve runs
+after it but the LP's.
 
 K6, `pack_kernel_levels`, is the constrained solve's [L, G', T] dispatch:
 the same round loop under per-level allow masks, penalties, conflicts and
@@ -66,13 +69,14 @@ LIBRARY = CudaLibrary(
     "pack_rounds.cu",
     {
         "ktt_pack_rounds_words": (ctypes.c_int, [ctypes.c_int]),
+        "ktt_pack_rounds_payload_words": (ctypes.c_int, [ctypes.c_int]),
         "ktt_pack_rounds_shared_bytes": (ctypes.c_longlong, [ctypes.c_int] * 5),
         "ktt_pack_rounds_table_words": (ctypes.c_longlong, [ctypes.c_int] * 3),
         "ktt_pack_rounds": (
             ctypes.c_int,
             [ctypes.c_void_p] * 6
             + [ctypes.c_int] * 8
-            + [ctypes.c_void_p] * 4,
+            + [ctypes.c_void_p] * 7,
         ),
     },
 )
@@ -86,16 +90,6 @@ LEVELS_LIBRARY = CudaLibrary(
         "ktt_pack_levels": (
             ctypes.c_int,
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 6,
-        ),
-    },
-)
-COMPACT_LIBRARY = CudaLibrary(
-    "compact.cu",
-    {
-        "ktt_compact_words": (ctypes.c_int, [ctypes.c_int]),
-        "ktt_compact_plan": (
-            ctypes.c_int,
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
         ),
     },
 )
@@ -351,10 +345,14 @@ def _check_args(vectors, counts, capacity, total, valid_types, prices) -> None:
 
 
 def _launch(vectors, counts, capacity, total, valid_types, prices, first_mode: int,
-            num_modes: int, quirk: bool = False):
+            num_modes: int, quirk: bool = False, *, epilogue: bool = False,
+            payload: bool = False):
     """One launch of the round-loop kernel: block b runs mode first_mode + b,
-    with the fits() early exit when quirk. Returns [num_modes, words] int32 in
-    the reference's dense layout."""
+    with the fits() early exit when quirk. Returns (out, feasible_any,
+    solvable, payload): out is [num_modes * words] int32 in the reference's
+    dense layout; with the epilogue (both modes) G words more, feasible_any
+    as int32, and the [G] feasible_any and solvable, else None; the
+    compacted payload when asked for, else None."""
     num_groups, dims = vectors.shape
     num_types = capacity.shape[0]
     if num_groups == 0 or num_types == 0 or dims == 0:
@@ -367,7 +365,15 @@ def _launch(vectors, counts, capacity, total, valid_types, prices, first_mode: i
     plan = pack_launch_plan(num_groups, num_types, dims)
     lib = LIBRARY.load()
     words = lib.ktt_pack_rounds_words(num_groups)
-    out = torch.empty((num_modes, words), dtype=torch.int32, device=vectors.device)
+    device = vectors.device
+    out = torch.empty(num_modes * words + (num_groups if epilogue else 0), dtype=torch.int32,
+                      device=device)
+    feasible = solvable = compacted = None
+    if epilogue:
+        feasible = torch.empty(num_groups, dtype=torch.bool, device=device)
+        solvable = torch.empty(num_groups, dtype=torch.int32, device=device)
+        if payload:
+            compacted = torch.empty(compact_words(num_groups), dtype=torch.int32, device=device)
     scratch = tables = None
     if not plan.fills_in_shared:
         scratch = torch.empty(
@@ -378,20 +384,22 @@ def _launch(vectors, counts, capacity, total, valid_types, prices, first_mode: i
             (num_modes, pack_table_words(num_groups, num_types, dims)),
             dtype=torch.int32, device=vectors.device,
         )
-    outputs = [out] + [t for t in (scratch, tables) if t is not None]
+    optional = (scratch, tables, feasible, solvable, compacted)
+    outputs = [out] + [t for t in optional if t is not None]
     with launch_stream("pack_kernel", tensors + tuple(outputs)) as stream:
         status = lib.ktt_pack_rounds(
             *(tensor.data_ptr() for tensor in tensors),
             num_groups, num_types, dims, first_mode, num_modes,
             plan.threads, plan.types_per_thread, int(quirk), out.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(),
-            0 if tables is None else tables.data_ptr(), stream,
+            *(0 if t is None else t.data_ptr() for t in optional), stream,
         )
     check_launch(status, "pack_kernel")
     pack_kernel.launches += 1
     if quirk:
         pack_kernel.quirk_launches += 1
-    return out
+    if epilogue:
+        pack_pair_payload.launches += 1
+    return out, feasible, solvable, compacted
 
 
 def rounds_from_words(words: torch.Tensor, num_groups: int) -> PackRounds:
@@ -439,8 +447,8 @@ def pack_kernel(
         raise ValueError(f"pack_kernel: unsupported device {vectors.device}")
     out = _launch(
         vectors, counts, capacity, total, valid_types, prices, _MODES.index(mode), 1, quirk
-    )
-    return rounds_from_words(out[0], vectors.shape[0])
+    )[0]
+    return rounds_from_words(out, vectors.shape[0])
 
 
 pack_kernel.launches = 0
@@ -462,9 +470,82 @@ def pack_kernel_pair(
         )
     if vectors.device.type != "cuda":
         raise ValueError(f"pack_kernel: unsupported device {vectors.device}")
-    out = _launch(vectors, counts, capacity, total, valid_types, prices, 0, 2)
-    num_groups = vectors.shape[0]
-    return rounds_from_words(out[0], num_groups), rounds_from_words(out[1], num_groups)
+    out = _launch(vectors, counts, capacity, total, valid_types, prices, 0, 2)[0]
+    return _pair_from_words(out, vectors.shape[0])
+
+
+def _pair_from_words(out: torch.Tensor, num_groups: int) -> Tuple[PackRounds, PackRounds]:
+    """Views of both modes' rounds at the front of a pair launch's output."""
+    words = rounds_words(num_groups)
+    return (rounds_from_words(out[:words], num_groups),
+            rounds_from_words(out[words : 2 * words], num_groups))
+
+
+class PairPayload(NamedTuple):
+    """Everything the fused solve takes from K2's pair launch."""
+
+    rounds_ffd: PackRounds
+    rounds_cost: PackRounds
+    feasible_any: torch.Tensor  # [G] bool — some valid type fits one pod of g
+    solvable: torch.Tensor  # [G] int32 — counts where feasible_any, else 0 (the LP's)
+    dense: torch.Tensor  # [2 * rounds_words(G) + G] int32 — the dense spill
+    payload: Optional[torch.Tensor]  # [compact_words(G)] int32 — K4's payload, or None
+
+
+def _rounds_ints(rounds: PackRounds) -> List[torch.Tensor]:
+    """One PackRounds' int32 words in the dense spill's order."""
+    return [
+        rounds.round_type.reshape(-1),
+        rounds.round_fill.reshape(-1),
+        rounds.round_repl.reshape(-1),
+        rounds.num_rounds.reshape(1),
+        rounds.unschedulable.reshape(-1),
+        rounds.overflow.to(torch.int32).reshape(1),
+    ]
+
+
+def _pack_pair_payload_ref(vectors, counts, capacity, total, valid_types, prices,
+                           payload: bool) -> PairPayload:
+    """Plain version of pack_pair_payload, on any device: both modes'
+    rounds, then the reference's tail of the fused solve, one operation at
+    a time."""
+    from karpenter_tpu_torch.ops.score_kernel import feasibility_mask
+
+    rounds = tuple(
+        _pack_kernel_ref(vectors, counts, capacity, total, valid_types, prices, quirk=False, mode=mode)
+        for mode in _MODES
+    )
+    feasible_any = feasibility_mask(vectors, capacity, valid_types).any(dim=1)
+    solvable = torch.where(feasible_any, counts, 0)
+    dense = torch.cat(
+        _rounds_ints(rounds[0]) + _rounds_ints(rounds[1]) + [feasible_any.to(torch.int32).reshape(-1)]
+    )
+    compacted = _compact_plan_ref(*rounds, feasible_any) if payload else None
+    return PairPayload(*rounds, feasible_any, solvable, dense, compacted)
+
+
+def pack_pair_payload(vectors, counts, capacity, total, valid_types, prices, *,
+                      payload: bool = True) -> PairPayload:
+    """Both modes' rounds (quirk=False) and the fused solve's tail:
+    feasible_any, the LP's solvable counts, the dense spill and, unless
+    payload=False, K4's compacted payload. On the card ONE launch of K2 with
+    its epilogue (the rounds are views into the dense spill); it counts on
+    pack_kernel.launches and on pack_pair_payload.launches. The plain
+    version for CPU tensors."""
+    _check_args(vectors, counts, capacity, total, valid_types, prices)
+    if vectors.device.type == "cpu":
+        return _pack_pair_payload_ref(vectors, counts, capacity, total, valid_types, prices, payload)
+    if vectors.device.type != "cuda":
+        raise ValueError(f"pack_pair_payload: unsupported device {vectors.device}")
+    dense, feasible_any, solvable, compacted = _launch(
+        vectors, counts, capacity, total, valid_types, prices, 0, 2, epilogue=True, payload=payload
+    )
+    return PairPayload(*_pair_from_words(dense, vectors.shape[0]), feasible_any, solvable, dense,
+                       compacted)
+
+
+# K2 launches with the epilogue (each is one of pack_kernel.launches too).
+pack_pair_payload.launches = 0
 
 
 # --- K6: the constrained multi-level pack, the [L, G', T] dispatch -----------
@@ -1043,7 +1124,8 @@ def bucket_size(n: int, minimum: int = 8) -> int:
 #
 # The dense PackRounds state is mostly padding: round_fill is [MR, G] but a
 # real plan touches a handful of (round, group) cells. The compaction runs ON
-# DEVICE at the tail of the fused solve and squeezes each candidate plan into
+# DEVICE, in the epilogue of K2's pair launch (pack_pair_payload), and
+# squeezes each candidate plan into
 # per-round (type, repl) rows plus a prefix-sum-compacted COO list of the
 # nonzero fill entries, so the eager device->host fetch is a few KB. Decode
 # (decompact_plan) rebuilds the exact dense arrays.
@@ -1099,8 +1181,8 @@ def _compact_plan_ref(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_
 def _check_payload_args(kernel: str, rounds_ffd: PackRounds, rounds_cost: PackRounds,
                         feasible_any) -> None:
     """Raise unless both PackRounds are int32 of the shapes padded G gives
-    them and every argument is contiguous, as K4's and K9b's payload
-    kernels read them."""
+    them and every argument is contiguous, as K9b's payload kernel reads
+    them."""
     if feasible_any.dtype != torch.bool or feasible_any.dim() != 1:
         raise TypeError(f"{kernel} kernel takes feasible_any as a [G] bool tensor")
     num_groups = feasible_any.shape[0]
@@ -1116,32 +1198,20 @@ def _check_payload_args(kernel: str, rounds_ffd: PackRounds, rounds_cost: PackRo
 
 def compact_plan(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasible_any):
     """Both candidate plans plus the feasibility vector as ONE flat int32
-    tensor — the eager device->host payload of a fused cost solve. K4
-    (csrc/compact.cu, one launch) for CUDA tensors, the plain version for
-    CPU tensors."""
+    tensor — the eager device->host payload of a fused cost solve — from
+    CPU tensors (the plain version). On the card K4 runs inside K2's pair
+    launch: pack_pair_payload writes this payload, and a tensor on any
+    other device raises."""
     fields = [*rounds_ffd, *rounds_cost]
     device = feasible_any.device
     if any(tensor.device != device for tensor in fields):
         raise ValueError("compact_plan: every argument must lie on one device")
-    if device.type == "cpu":
-        return _compact_plan_ref(rounds_ffd, rounds_cost, feasible_any)
-    if device.type != "cuda":
-        raise ValueError(f"compact_plan: unsupported device {device}")
-    _check_payload_args("compact_plan", rounds_ffd, rounds_cost, feasible_any)
-    num_groups = feasible_any.shape[0]
-    lib = COMPACT_LIBRARY.load()
-    out = torch.empty(compact_words(num_groups), dtype=torch.int32, device=device)
-    pointers = (ctypes.c_void_p * len(fields))(*(tensor.data_ptr() for tensor in fields))
-    with launch_stream("compact_plan", fields + [feasible_any, out]) as stream:
-        status = lib.ktt_compact_plan(
-            pointers, feasible_any.data_ptr(), num_groups, out.data_ptr(), stream
+    if device.type != "cpu":
+        raise ValueError(
+            f"compact_plan takes CPU tensors, not {device}: on the card the payload comes "
+            "from K2's pair launch, pack_pair_payload"
         )
-    check_launch(status, "compact_plan")
-    compact_plan.launches += 1
-    return out
-
-
-compact_plan.launches = 0
+    return _compact_plan_ref(rounds_ffd, rounds_cost, feasible_any)
 
 
 def decompact_plan(
@@ -1396,7 +1466,9 @@ def compact_plan_sharded(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasib
     without it, the fills are copied there); the segments are gathered to
     the first shard and joined to the replicated headers there. `per_card`
     forces that route on any mesh, each device's shards split into runs of
-    `per_card`, one call each. The arguments lie on the first shard's
+    `per_card`, one call each. A mesh of one shard takes compact_plan, on
+    the CPU only (on the card the sharded solve takes that payload from K2's
+    pair launch). The arguments lie on the first shard's
     device. G must be a multiple of mesh.size
     (models/solver.pad_kernel_args handles it via g_mult)."""
     from karpenter_tpu_torch.parallel import collectives

@@ -268,12 +268,14 @@ def test_cost_solver_on_card_equals_cpu(cuda_device, monkeypatch):
         pack_kernel.pack_kernel.launches,
         score_kernel.lp_relax.launches,
     )
-    compact_before = pack_kernel.compact_plan.launches
+    fused_before = pack_kernel.pack_pair_payload.launches
     got = solver.CostSolver(device="cuda").solve(pods, catalog, Constraints())
     assert cuda_kernels.dominance_prices.launches == before[0] + 1
+    # One K2 launch, the pair with its epilogue: the compaction has no
+    # launch of its own.
     assert pack_kernel.pack_kernel.launches == before[1] + 1
     assert score_kernel.lp_relax.launches == before[2] + 1
-    assert pack_kernel.compact_plan.launches == compact_before + 1
+    assert pack_kernel.pack_pair_payload.launches == fused_before + 1
     want = solver.CostSolver(device="cpu").solve(pods, catalog, Constraints())
     placed = [pod.uid for p in got.packings for node in p.pods_per_node for pod in node]
     assert not got.unschedulable and sorted(placed) == sorted(pod.uid for pod in pods)
@@ -366,56 +368,81 @@ def test_cost_solve_dispatch_does_not_sync(cuda_device):
     args = (groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
     warm = solver.fetch_plan(solver.cost_solve_dispatch(*args, device=cuda_device))
     torch.cuda.synchronize()
-    before = pack_kernel.compact_plan.launches
+    before = pack_kernel.pack_pair_payload.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         handle = solver.cost_solve_dispatch(*args, device=cuda_device)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert pack_kernel.compact_plan.launches == before + 1
+    assert pack_kernel.pack_pair_payload.launches == before + 1
     plan = solver.fetch_plan(handle)
     assert int(plan.rounds_cost.num_rounds) == int(warm.rounds_cost.num_rounds)
     np.testing.assert_allclose(plan.lp_objective, warm.lp_objective, rtol=0)
 
 
-# --- K4: the plan compaction ----------------------------------------------------
+# --- K4: the plan compaction, in K2's pair launch ------------------------------
 
 
-# G = 8 and 16 fit one tile of the kernel's 256 threads per block only at low
-# density; 64 and 1024 (MAX_GROUPS) take 35 and 8,224 tiles.
-@pytest.mark.parametrize("num_groups,density", [(8, 0.05), (16, 0.1), (16, 0.9), (64, 0.02), (64, 0.5), (1024, 0.001)])
-def test_compact_kernel_word_identical_to_plain_version(num_groups, density, cuda_device):
-    ffd = chip_smoke.dense_rounds(num_groups, 0, density, cuda_device)
-    cost = chip_smoke.dense_rounds(num_groups, 1, density, cuda_device)
-    feasible = torch.from_numpy(np.random.default_rng(2).random(num_groups) < 0.7).to(cuda_device)
-    before = pack_kernel.compact_plan.launches
-    got = pack_kernel.compact_plan(ffd, cost, feasible)
-    want = pack_kernel._compact_plan_ref(ffd, cost, feasible)
+def _assert_fused_equals_plain(args, payload=True):
+    """One launch of the pair with its epilogue, word for word equal to the
+    plain composition; its rounds bit-identical to the launch without it."""
+    before = (pack_kernel.pack_kernel.launches, pack_kernel.pack_pair_payload.launches)
+    got = pack_kernel.pack_pair_payload(*args, payload=payload)
+    assert (pack_kernel.pack_kernel.launches, pack_kernel.pack_pair_payload.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = pack_kernel._pack_pair_payload_ref(*args, payload)
+    bare = pack_kernel.pack_kernel_pair(*args)
     torch.cuda.synchronize()
-    assert pack_kernel.compact_plan.launches == before + 1
-    assert torch.equal(got, want)
-    assert pack_kernel.COMPACT_LIBRARY.load().ktt_compact_words(num_groups) == want.shape[0]
+    for rounds, plain, alone in zip(got[:2], want[:2], bare):
+        assert chip_smoke.rounds_equal(rounds, plain)
+        assert chip_smoke.rounds_equal(rounds, alone)
+    for name in ("feasible_any", "solvable", "dense"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    if payload:
+        assert torch.equal(got.payload, want.payload)
+    else:
+        assert got.payload is None
+    return got
+
+
+# Random problems at G 8 to 64 and the dense ones past the entry budget.
+FUSED_CASES = [(f"G{g}-seed{seed}", seed, g) for g in (8, 16, 33, 64) for seed in (0, 1)] + [
+    (f"dense-G{g}-seed{seed}", seed, g) for seed, g in chip_smoke.DENSE_PACK_CASES]
+
+
+@pytest.mark.parametrize("label,seed,num_groups", FUSED_CASES, ids=[c[0] for c in FUSED_CASES])
+def test_compact_kernel_word_identical_to_plain_version(label, seed, num_groups, cuda_device):
+    problem = (chip_smoke.dense_pack_problem(seed, num_groups) if label.startswith("dense")
+               else _pack_problem(seed, num_groups, 64))
+    args = fused_args_from_numpy(*problem, device=cuda_device)
+    got = _assert_fused_equals_plain(args)
+    assert pack_kernel.LIBRARY.load().ktt_pack_rounds_payload_words(num_groups) == got.payload.shape[0]
+    if label.startswith("dense"):
+        assert not pack_kernel.decompact_plan(got.payload.cpu().numpy(), num_groups)[3]
 
 
 def test_compact_kernel_on_pack_rounds(cuda_device):
+    """Every K2 launch plan (one and two types a thread, a ragged warp, the
+    fills in shared memory and in global scratch), and padded G 8,192 (the
+    tables in global scratch too), with and without the payload."""
     for seed, shape in enumerate(PACK_SHAPES):
         args = fused_args_from_numpy(*_pack_problem(seed, *shape), device=cuda_device)
-        ffd, cost = pack_kernel.pack_kernel_pair(*args)
-        feasible = score_kernel.feasibility_mask(args[0], args[2], args[4]).any(dim=1)
-        got = pack_kernel.compact_plan(ffd, cost, feasible)
-        torch.cuda.synchronize()
-        assert torch.equal(got, pack_kernel._compact_plan_ref(ffd, cost, feasible)), shape
+        _assert_fused_equals_plain(args, payload=seed % 3 != 2)
+    args = fused_args_from_numpy(*chip_smoke.sparse_pack_problem(4, 8192, 64, 40), device=cuda_device)
+    assert not pack_kernel.pack_launch_plan(8192, 64, 8).tables_in_shared
+    _assert_fused_equals_plain(args)
 
 
 def test_compact_kernel_rejects_bad_arguments(cuda_device):
+    """compact_plan has no card route: the payload comes from the pair."""
     ffd = chip_smoke.dense_rounds(8, 0, 0.1, cuda_device)
     feasible = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="pack_pair_payload"):
+        pack_kernel.compact_plan(ffd, ffd, feasible)
+    args = list(fused_args_from_numpy(*_pack_problem(0, 8, 8), device=cuda_device))
+    args[1] = args[1].long()
     with pytest.raises(TypeError):
-        pack_kernel.compact_plan(ffd, ffd, feasible.to(torch.int32))
-    with pytest.raises(ValueError):
-        pack_kernel.compact_plan(ffd._replace(round_repl=ffd.round_repl.long()), ffd, feasible)
-    with pytest.raises(ValueError):
-        pack_kernel.compact_plan(ffd, ffd, feasible.cpu())
+        pack_kernel.pack_pair_payload(*args)
 
 
 # --- K7: the consolidation counterfactual --------------------------------------

@@ -94,7 +94,7 @@ class _FakeLibrary:
 
 LIBRARIES = [
     cuda_kernels.LIBRARY, pack_kernel.LIBRARY, pack_kernel.LEVELS_LIBRARY,
-    pack_kernel.COMPACT_LIBRARY, pack_kernel.COMPACT_SHARD_LIBRARY, score_kernel.LIBRARY,
+    pack_kernel.COMPACT_SHARD_LIBRARY, score_kernel.LIBRARY,
     consolidate_kernel.LIBRARY, incremental.LIBRARY, forecast_kernel.LIBRARY,
     lp_shard_kernel.LIBRARY,
 ]
@@ -149,8 +149,8 @@ def _launch(name):
         pack_kernel.pack_kernel_pair(_f32(G, R), _i32(G), _f32(T, R), _f32(T, R), _bool(T), _f32(T))
     elif name == "lp_relax":
         score_kernel.lp_relax(_f32(G, R), _i32(G), _f32(T, R), _bool(T), _f32(T), steps=3)
-    elif name == "compact_plan":
-        pack_kernel.compact_plan(_rounds(G), _rounds(G), _bool(G))
+    elif name == "pack_pair_payload":
+        pack_kernel.pack_pair_payload(_f32(G, R), _i32(G), _f32(T, R), _f32(T, R), _bool(T), _f32(T))
     elif name == "pack_kernel_levels":
         pack_kernel.pack_kernel_levels(
             _f32(G, R), _i32(L, G), _f32(T, R), _f32(T, R), _bool(T), _f32(T), _bool(L, G, T),
@@ -200,7 +200,7 @@ def _launch(name):
 
 
 WRAPPERS = [
-    "dominance_prices", "pack_kernel", "pack_kernel_pair", "lp_relax", "compact_plan",
+    "dominance_prices", "pack_kernel", "pack_kernel_pair", "lp_relax", "pack_pair_payload",
     "pack_kernel_levels", "solve_counterfactuals", "scatter", "gather", "penalize_prices",
     "shard_softmax", "shard_demand", "shard_row_dot", "shard_lp", "compact_shard",
     "scatter_flush", "gather_view", "compact_shards", "compact_sharded_payload",
@@ -238,6 +238,34 @@ def test_every_library_is_mocked():
         lib.source.name for lib in cuda_build.port_libraries()
     }
     assert np.unique([lib.source.name for lib in LIBRARIES]).size == len(LIBRARIES)
+
+
+@pytest.mark.parametrize("payload", [True, False])
+def test_pair_payload_launch_carries_the_epilogue(payload, recorder, monkeypatch):
+    """K2's pair launch with its epilogue: both modes in one launch whose
+    outputs are the dense spill (both modes' words and G more), feasible_any,
+    solvable and, unless it is left off (a mesh's replicas), the payload."""
+    handed = []
+    real = pack_kernel.launch_stream
+
+    def spy(kernel, tensors):
+        handed.append(list(tensors))
+        return real(kernel, tensors)
+
+    monkeypatch.setattr(pack_kernel, "launch_stream", spy)
+    with pytest.raises(_Launched):
+        pack_kernel.pack_pair_payload(_f32(G, R), _i32(G), _f32(T, R), _f32(T, R), _bool(T), _f32(T),
+                                      payload=payload)
+    ((function, args, _),) = recorder.calls
+    assert function == "ktt_pack_rounds"
+    # After the six operands: G, T, R, first mode, modes.
+    assert args[6:11] == (G, T, R, 0, 2)
+    words = 64  # the fake library's ktt_pack_rounds_words
+    outputs = [(t.dtype, tuple(t.shape)) for t in handed[0][6:]]
+    want = [(torch.int32, (2 * words + G,)), (torch.bool, (G,)), (torch.int32, (G,))]
+    if payload:
+        want.append((torch.int32, (pack_kernel.compact_words(G),)))
+    assert outputs == want
 
 
 def test_levels_launch_carries_its_cluster_plan(recorder):

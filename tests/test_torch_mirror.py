@@ -194,9 +194,10 @@ TRIMMED = {
     },
     "models/solver.py": {
         "NativeSolver": _DOCSTRING,
-        "_rounds_ints": "the int32 dense spill of PackRounds as torch tensors",
-        "_cost_fused_body": "K1-K4 on a torch device in one launch stream; the mesh path is "
-                            "_sharded_fused_solve, so no constrain or compact hook",
+        "_cost_fused_body": "K1-K4 on a torch device in one launch stream, the K2 pair's "
+                            "epilogue writing feasible_any, the LP's counts, the dense spill "
+                            "and the payload; the mesh path is _sharded_fused_solve, so no "
+                            "constrain or compact hook",
         "FusedHandle": "torch tensors, a slot for the staged copy; on a mesh lp is a "
                        "ShardedAssignment",
         "FetchedPlan": "copies the LP assignment with .cpu() in place of device_get",
@@ -248,8 +249,9 @@ TRIMMED = {
         "quarantine_devices": "takes the device type whose mesh ids it quarantines",
         "ShardedAssignment": _PORT_ONLY + ": the deferred LP assignment in shard blocks",
         "_sharded_fused_solve": "the counterpart of _sharded_fused_kernel: K1 and the K2 pair "
-                                "once a device of the mesh, K9a over the mesh, K9b on every "
-                                "shard; raises for a mesh of another device type",
+                                "(its epilogue's tail) once a device of the mesh, K9a over the "
+                                "mesh, K9b on every shard; raises for a mesh of another device "
+                                "type",
         "_kind": _PORT_ONLY + ": the device type of a solve",
         "_device_count": "the mesh ids of a device type, not cached (a virtual set may be "
                          "declared for a while)",
