@@ -154,8 +154,17 @@ limit, and as the last line {"ok": true, "device": {...}}:
               the process no longer holds up the script) with a spike on
               eight pools, every pod bound once, K1, the K2 pair with its
               epilogue and K3 once a device solve, no host solve; the nodes'
-              kubelets join, 40% of the pods are deleted, the consolidation
-              loop launches K7, deletes or replaces nodes, termination
+              kubelets join and heartbeat every 10 s
+              (--node-unreachable-timeout 40); the node-lifecycle sweeps: a
+              spot interruption on 8 seeded nodes, one other seeded node's
+              kubelet gone dark, an orphaned pod and a leaked instance, all
+              at once, until the victims are drained and deleted, the dark
+              node escalated by the health sweep, every displaced pod bound
+              again once by replacement solves on the card (K1, the K2 pair
+              and K3 once each, no host solve), the orphan reaped by podgc
+              and the leak terminated by instancegc (the
+              `controller_lifecycle` line); 40% of the pods are deleted,
+              the consolidation loop launches K7, deletes or replaces nodes, termination
               drains them, every evicted pod is bound again and the fleet's
               $/hr falls; /metrics parses, /debug/stacks has profile
               samples; after the stop /healthz answers 503
@@ -197,6 +206,19 @@ limit, and as the last line {"ok": true, "device": {...}}:
               solve_mesh() on the machine and torch.cuda.device_count(), and
               with more than one card also solves over the real cards.
               `chip_smoke.py --phase sharded` runs it alone.
+ 10e. multiprocess  the multi-process lead/follower dispatch
+              (parallel/spmd.py): two processes (`chip_smoke.py --phase
+              multiprocess-rank`) join one gloo group and share the card,
+              two shards each (a 2x2 mesh, a row a process); rank 0 runs
+              CostSolver.solve_encoded on the main path's 50,000 pods x 400
+              types, rank 1 its follower loop; each rank launches K1 and the
+              K2 pair once a solve, K9a's per-phase kernels on its two
+              shards (2 x 903), K9b once, no K3; the decodes and $/hr equal
+              the one-process 2x2 mesh's (persistent K9a), the decodes, the
+              LP and the plan the one-process 2x2 mesh's through K9a's
+              per-phase route bit for bit; the solve p50, each rank's
+              device ms by kernel, the collectives a solve; either rank
+              failing fails the phase
  11. timing   each kernel's device time per call (torch.profiler: the
               kernels' own time, `ms`) and its time between CUDA events
               around the wrapper (host enqueue included, `event_ms`), its
@@ -2325,6 +2347,241 @@ def sharded_phase(device, pods, catalog, groups, fleet, levels_operands, large_l
     return out
 
 
+# --- the multi-process sharded solve ------------------------------------------
+
+# Two processes share the one card over gloo (NCCL puts one rank on a card),
+# two shards each: the 2x2 mesh of the sharded phase, a row a process.
+MULTIPROCESS_RANKS = 2
+MULTIPROCESS_SHARDS = 2
+MULTIPROCESS_SOLVES = 5  # timed solves, after one warm solve; then one profiled
+MULTIPROCESS_TIMEOUT_S = 420.0
+
+
+def device_ms_by_kernel(prof) -> dict:
+    """{kernel: [records, device ms]} of a torch.profiler session (copies
+    and fills under their own names)."""
+    import re
+
+    import torch
+
+    out = {}
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA or event.self_device_time_total <= 0:
+            continue
+        match = re.search(r"(\w+_kernel)", event.key)
+        name = match.group(1) if match else event.key[:40]
+        entry = out.setdefault(name, [0, 0.0])
+        entry[0] += event.count
+        entry[1] += event.self_device_time_total / 1e3
+    return out
+
+
+def multiprocess_rank(rank: int, port: int, out_dir: str) -> None:
+    """`chip_smoke.py --phase multiprocess-rank RANK PORT DIR`: one process
+    of the 2-process group on the card. Rank 0 leads the production solve
+    (CostSolver.solve_encoded on the main path's 50,000 pods x 400 types,
+    over the global 2x2 mesh: parallel/spmd.lead_dispatch), rank 1 follows
+    it (parallel/spmd.follower_step): one warm solve, MULTIPROCESS_SOLVES
+    timed, one under torch.profiler, then rank 0's decoded dispatch and
+    lead_stop. Each rank checks its own launches a solve (K1 and the K2 pair
+    once, K9a's per-phase kernels on its two shards, K9b once, no K3) and
+    writes its numbers (rank 0 also its plan) to DIR."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from karpenter_tpu_torch.api import wellknown
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.ops import cuda_build, cuda_kernels, lp_shard_kernel, pack_kernel, score_kernel
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+    from karpenter_tpu_torch.parallel import collectives, multihost, spmd
+    from karpenter_tpu_torch.parallel import mesh as mesh_mod
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    cuda_build.build_all(cuda_build.port_libraries())
+    os.environ["KARPENTER_HOST_SOLVE"] = "0"
+    check(multihost.init_distributed(
+        {"KARPENTER_COORDINATOR": f"127.0.0.1:{port}", "KARPENTER_NUM_PROCESSES": str(MULTIPROCESS_RANKS),
+         "KARPENTER_PROCESS_ID": str(rank)},
+        backend=multihost.backend_for("cuda", shared_card=True), timeout_s=MULTIPROCESS_TIMEOUT_S),
+        "the process group did not form")
+    counters = (cuda_kernels.dominance_prices, pack_kernel.pack_pair_payload, score_kernel.lp_relax,
+                pack_kernel.compact_shard)
+
+    def launches():
+        out = {counter.__name__: counter.launches for counter in counters}
+        out.update(lp_shard=lp_shard_kernel.launches(), lp_shard_persistent=lp_shard_kernel.shard_lp.launches)
+        return out
+
+    def measured(step):
+        before = (launches(), dict(spmd.TRANSPORT), dict(collectives.EXCHANGES))
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3
+        return {"ms": ms, "launches": {k: v - before[0][k] for k, v in launches().items()},
+                "broadcasts": spmd.TRANSPORT["broadcasts"] - before[1]["broadcasts"],
+                "transport_ms": (spmd.TRANSPORT["seconds"] - before[1]["seconds"]) * 1e3,
+                "exchanges": collectives.EXCHANGES["exchanges"] - before[2]["exchanges"]}
+
+    result = {"rank": rank}
+    with mesh_mod.virtual_devices(device, MULTIPROCESS_SHARDS):
+        if rank == 0:
+            pods, catalog = make_workload()
+            groups = group_pods(pods)
+            fleet = build_fleet(catalog, Constraints(), pods, pods_need=groups.vectors.max(axis=0))
+            mesh = solver.solve_mesh(device)
+            check(mesh is not None and mesh.shape == (2, 2) and mesh.spans_processes
+                  and [shard.rank for shard in mesh.flat] == [0, 0, 1, 1],
+                  f"rank 0's mesh is {mesh}, not 2x2 over two processes")
+            cost_solver = solver.CostSolver(device=device)
+
+            def step():
+                result["plan"] = cost_solver.solve_encoded(groups, fleet)
+        else:
+            def step():
+                check(spmd.follower_step(wellknown.NUM_RESOURCE_DIMS, device) is not None,
+                      "the follower got a stop header before the last solve")
+
+        step()
+        samples = [measured(step) for _ in range(MULTIPROCESS_SOLVES)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        by_kernel = device_ms_by_kernel(prof)
+        steps = 3 * 300 + 3
+        for sample in samples:
+            got = sample["launches"]
+            want = {"dominance_prices": 1, "pack_pair_payload": 1, "lp_relax": 0, "compact_shard": 1,
+                    "lp_shard": MULTIPROCESS_SHARDS * steps, "lp_shard_persistent": 0}
+            check(got == want, f"rank {rank}'s solve launched {got}, not {want}")
+        if rank == 0:
+            plan = result.pop("plan")
+            check(all_pods_placed_once(plan, pods), "the 2-process solve did not place every pod once")
+            handle = solver.cost_solve_dispatch(groups.vectors, groups.counts, fleet.capacity, fleet.total,
+                                                fleet.prices, device=device)
+            fetched = solver.fetch_plan(handle)
+            arrays = {f"{name}_{field}": np.asarray(getattr(getattr(fetched, name), field))
+                      for name in ("rounds_ffd", "rounds_cost") for field in pack_kernel.PackRounds._fields}
+            np.savez(os.path.join(out_dir, "plan.npz"), feasible_any=np.asarray(fetched.feasible_any),
+                     lp_objective=np.float32(fetched.lp_objective), lp_assignment=fetched.lp_assignment(),
+                     **arrays)
+            result.update(cost=plan.projected_cost(), signature=repr(plan_signature(plan)),
+                          shards=handle.shards)
+            spmd.lead_stop()
+        else:
+            check(spmd.follower_step(wellknown.NUM_RESOURCE_DIMS, device) is not None,
+                  "the follower missed the decoded dispatch")
+            check(spmd.follower_step(wellknown.NUM_RESOURCE_DIMS, device) is None,
+                  "the follower got no stop header")
+    result["backend"] = str(torch.distributed.get_backend())
+    multihost.shutdown_distributed()
+    result.update(samples=samples, device_ms_by_kernel=by_kernel)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as handle_out:
+        json.dump(result, handle_out)
+    print(f"multiprocess rank {rank} done", flush=True)
+
+
+def multiprocess_phase(device, pods, groups, fleet) -> dict:
+    """The multi-process lead/follower dispatch on the card: two ranks
+    (`--phase multiprocess-rank`) share the card over gloo, two shards
+    each; rank 0 runs the production solve at the main path's shapes. Its
+    decodes and $/hr must equal the one-process 2x2 mesh's (the sharded
+    phase's, the persistent K9a route), and its decodes, LP and plan the
+    one-process 2x2 mesh's through K9a's per-phase route bit for bit (the
+    route a mesh across processes takes). Prints the solve p50, each rank's
+    device ms by kernel, and the collectives a solve. Either rank failing
+    fails the phase. Returns the numbers the kernels line reports."""
+    import tempfile
+
+    import torch
+
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.ops import pack_kernel
+    from karpenter_tpu_torch.parallel import mesh as mesh_mod
+
+    args = (groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices)
+    cost_solver = solver.CostSolver(device=device)
+    alone = {}
+    with mesh_mod.virtual_devices(device, MULTIPROCESS_RANKS * MULTIPROCESS_SHARDS):
+        for route, context in (("persistent", contextlib.nullcontext), ("per_phase", per_phase_k9a)):
+            with context():
+                plan = cost_solver.solve_encoded(groups, fleet)
+                fetched = solver.fetch_plan(solver.cost_solve_dispatch(*args, device=device))
+                samples = []
+                for _ in range(MULTIPROCESS_SOLVES):
+                    start = time.perf_counter()
+                    cost_solver.solve_encoded(groups, fleet)
+                    samples.append((time.perf_counter() - start) * 1e3)
+                alone[route] = {"plan": fetched, "cost": plan.projected_cost(),
+                                "signature": repr(plan_signature(plan)), "p50_ms": float(np.percentile(samples, 50))}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mp-") as out_dir:
+        port = free_port()
+        ranks = [run_child(["--phase", "multiprocess-rank", str(rank), str(port), out_dir], MULTIPROCESS_TIMEOUT_S)
+                 for rank in range(MULTIPROCESS_RANKS)]
+        outputs = []
+        try:
+            for rank, (process, timeout_s) in enumerate(ranks):
+                try:
+                    out, err = process.communicate(timeout=timeout_s)
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError(f"check failed: multiprocess rank {rank} did not finish in {timeout_s:.0f} s")
+                errors = "\n".join(line for line in err.splitlines() if "\tINFO\t" not in line)
+                check(process.returncode == 0,
+                      f"multiprocess rank {rank} failed (rc {process.returncode}):\n{out[-2000:]}\n{errors[-4000:]}")
+                outputs.append(out)
+        finally:
+            for process, _ in ranks:
+                if process.poll() is None:
+                    process.kill()
+                    process.communicate()
+        records = []
+        for rank in range(MULTIPROCESS_RANKS):
+            with open(os.path.join(out_dir, f"rank{rank}.json")) as handle:
+                records.append(json.load(handle))
+        words = dict(np.load(os.path.join(out_dir, "plan.npz")))
+    lead = records[0]
+    check(lead["shards"] == 4, f"the 2-process dispatch reports {lead['shards']} shards")
+    for route, want in alone.items():
+        plan = want["plan"]
+        for name in ("rounds_ffd", "rounds_cost"):
+            for field in pack_kernel.PackRounds._fields:
+                check(np.array_equal(words[f"{name}_{field}"], np.asarray(getattr(getattr(plan, name), field))),
+                      f"the 2-process decode differs from the one-process 2x2 ({route}): {name} {field}")
+        check(np.array_equal(words["feasible_any"], plan.feasible_any),
+              f"the 2-process feasible_any differs from the one-process 2x2 ({route})")
+        check(lead["cost"] == want["cost"],
+              f"the 2-process $/hr {lead['cost']} differs from the one-process 2x2's {want['cost']} ({route})")
+    per_phase = alone["per_phase"]
+    check(float(words["lp_objective"]) == per_phase["plan"].lp_objective
+          and np.array_equal(words["lp_assignment"], per_phase["plan"].lp_assignment())
+          and lead["signature"] == per_phase["signature"],
+          "the 2-process LP or plan differs from the one-process 2x2 per-phase route's")
+    solve_ms = [sample["ms"] for sample in lead["samples"]]
+    per_solve = {rank: {key: float(np.median([s[key] for s in record["samples"]]))
+                        for key in ("broadcasts", "transport_ms", "exchanges", "ms")}
+                 for rank, record in enumerate(records)}
+    device_ms = {rank: {name: round(ms, 4) for name, (count, ms) in sorted(record["device_ms_by_kernel"].items())}
+                 for rank, record in enumerate(records)}
+    for rank in range(MULTIPROCESS_RANKS):
+        print(f"  multiprocess rank {rank} device ms by kernel (one solve): {json.dumps(device_ms[rank])}")
+    launches = records[0]["samples"][0]["launches"]
+    phase("multiprocess", ranks=MULTIPROCESS_RANKS, shards_per_rank=MULTIPROCESS_SHARDS, mesh="2x2",
+          backend=lead["backend"], pods=len(pods), solve_p50_ms=f"{np.percentile(solve_ms, 50):.3f}",
+          solve_max_ms=f"{max(solve_ms):.3f}", cost_per_hr=f"{lead['cost']:.6f}",
+          one_process_cost_per_hr=f"{alone['persistent']['cost']:.6f}",
+          one_process_p50_ms=f"{alone['persistent']['p50_ms']:.3f}",
+          one_process_per_phase_p50_ms=f"{alone['per_phase']['p50_ms']:.3f}",
+          decodes="bit-identical (2x2 persistent and per-phase)", lp="bit-identical (2x2 per-phase)",
+          **{f"rank{rank}_{key}": f"{value:.3f}" for rank, entry in per_solve.items() for key, value in entry.items()},
+          launches=json.dumps(launches, separators=(",", ":")))
+    return {"solve_p50_ms": float(np.percentile(solve_ms, 50)), "per_solve": per_solve,
+            "one_process_p50_ms": {route: entry["p50_ms"] for route, entry in alone.items()},
+            "device_ms_by_kernel": device_ms, "launches_per_rank": launches, "cost": lead["cost"]}
+
+
 # --- K8, the incremental encode ----------------------------------------------
 
 def k8_cases():
@@ -3501,6 +3758,20 @@ CONTROLLER_MARKET_POLL_S = 15.0
 # (run_controller("cpu") at full width, selection_concurrency 1 against 8:
 # PERF.md).
 CONTROLLER_SELECTION_CONCURRENCY = 1
+# The node-lifecycle sweeps, once the storm's kubelets have joined: a spot
+# interruption (EC2's two-minute notice) on a seeded handful of the storm's
+# nodes, one kubelet whose heartbeat stops, one pod bound to a node that
+# never existed (podgc's orphan) and one owned instance no node accounts for
+# (instancegc's leak), all at once.
+CONTROLLER_INTERRUPTED_NODES = 8
+CONTROLLER_LIFECYCLE_SEED = 31
+CONTROLLER_INTERRUPTION_DEADLINE_S = 120.0
+# Every joined kubelet heartbeats this often; a node unheard for
+# --node-unreachable-timeout is stale (kube's node-monitor-grace-period is
+# 40 s), and the health sweep escalates it after 3 stale sightings 2 s apart.
+CONTROLLER_HEARTBEAT_S = 10.0
+CONTROLLER_UNREACHABLE_S = 40.0
+CONTROLLER_LIFECYCLE_TIMEOUT_S = 180.0
 
 
 def free_port() -> int:
@@ -3621,6 +3892,7 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
         "--consolidation-cooldown", "1", "--consolidation-max-disruption", str(max_disruption),
         "--disruption-budget", str(max_disruption), "--market-poll-interval", str(market_poll_s),
         "--selection-concurrency", str(selection_concurrency),
+        "--node-unreachable-timeout", str(CONTROLLER_UNREACHABLE_S),
     ]
 
     # Each provisioning pass the batch loop runs: its wall time and its
@@ -3653,6 +3925,7 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
     readyz = []
     polling = threading.Event()
     polling.set()
+    dark = set()  # the nodes whose kubelet stopped heartbeating
 
     def poll_readyz():
         while polling.is_set():
@@ -3783,17 +4056,37 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
               warm_solve_p50_ms=f"{warm_solve:.3f}", device_solves=int(device_solves),
               launches=json.dumps(storm_launches, separators=(",", ":")))
 
-        # The kubelets join: every node reports ready; the node loop strips
-        # the not-ready taint.
+        # The kubelets join: every node reports ready (the node loop strips
+        # the not-ready taint). A joined kubelet then heartbeats every
+        # CONTROLLER_HEARTBEAT_S from a thread of its own, so that a join
+        # wave slowed by the node loop's O(pods) ready edges (thousands of
+        # nodes) never starves the heartbeats of the nodes already joined;
+        # the kubelets gone dark stop.
+        heard = {}
+
         def join():
             while kubelets.is_set():
                 for node in cluster.list_nodes():
-                    if not node.ready and node.deletion_timestamp is None:
+                    if not node.ready and node.deletion_timestamp is None and node.name not in dark:
                         cluster.heartbeat_node(node.name, ready=True)
+                        heard[node.name] = time.perf_counter()
+                time.sleep(0.2)
+
+        def heartbeat():
+            while kubelets.is_set():
+                now = time.perf_counter()
+                for name, last in list(heard.items()):
+                    if name in dark or now - last < CONTROLLER_HEARTBEAT_S:
+                        continue
+                    if cluster.heartbeat_node(name, ready=True) is None:
+                        heard.pop(name, None)
+                    else:
+                        heard[name] = now
                 time.sleep(0.2)
 
         kubelets.set()
         threading.Thread(target=join, name="kubelets", daemon=True).start()
+        threading.Thread(target=heartbeat, name="kubelet-heartbeats", daemon=True).start()
 
         def not_joined():
             return [n for n in cluster.list_nodes()
@@ -3807,10 +4100,13 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
               f"{len(not_joined())} of {len(cluster.list_nodes())} nodes never became ready "
               f"({sum(not n.ready for n in not_joined())} of them not reported ready)")
         joined_s = time.perf_counter() - storm_end
-
-        # Consolidation: a seeded share of the pods goes away.
+        # The fleet's prices, read before the interruptions black their
+        # pools out of the catalog.
         price_of = {(it.name, o.zone, o.capacity_type): o.price
                     for it in cloud.get_instance_types() for o in it.offerings}
+        lifecycle = lifecycle_sweeps(manager, cloud, binds, reschedules, lock, dark)
+
+        # Consolidation: a seeded share of the pods goes away.
         nodes_before = len(cluster.list_nodes())
         cost_before = fleet_cost(cluster, price_of)
         rng = np.random.default_rng(CONTROLLER_DELETE_SEED)
@@ -3938,7 +4234,105 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
         "evicted": len(moved), "rebound_s": (max(rebind_times) - consolidation_start) if rebind_times else 0.0,
         "joined_s": joined_s, "settle_s": settle_s, "cost_before": cost_before, "cost_after": cost_after,
         "nodes_after": len(live_nodes), "series": series, "profile_samples": profile_samples,
+        "lifecycle": lifecycle,
     }
+
+
+def lifecycle_sweeps(manager, cloud, binds, reschedules, lock, dark) -> dict:
+    """The node-lifecycle sweeps through the controller's own loops, once
+    the storm is bound and its kubelets heartbeat: a spot interruption on
+    CONTROLLER_INTERRUPTED_NODES seeded nodes, one seeded other node's
+    kubelet gone dark, an orphaned pod and a leaked instance, all at once.
+    Then until every victim is drained and deleted, every displaced pod is
+    bound again (once, to a live node) by replacement solves that all ran on
+    the device route (the caller holds them to K1, the K2 pair and K3 once
+    each on the card), the dark node is escalated by the health sweep, the
+    orphan is reaped by podgc and the leak terminated by instancegc. Prints
+    the `controller_lifecycle` line and returns its numbers."""
+    from karpenter_tpu_torch.api.pods import PodSpec
+    from karpenter_tpu_torch.cloudprovider import CloudInstance
+    from karpenter_tpu_torch.controllers import health, instancegc, interruption, podgc
+    from karpenter_tpu_torch.models import solver as solver_mod
+
+    cluster = manager.cluster
+    loaded = sorted({p.node_name for p in cluster.list_pods() if p.node_name})
+    rng = np.random.default_rng(CONTROLLER_LIFECYCLE_SEED)
+    chosen = [loaded[i] for i in rng.choice(len(loaded), CONTROLLER_INTERRUPTED_NODES + 1, replace=False)]
+    victims, dark_node = chosen[:-1], chosen[-1]
+    displaced = {p.uid: p for p in cluster.list_pods() if p.node_name in set(chosen)}
+    gone = set(chosen)
+    before = {
+        "events": interruption.INTERRUPTION_EVENTS_TOTAL.get("spot-interruption"),
+        "displaced": interruption.INTERRUPTION_DISPLACED_TOTAL.get(),
+        "unhealthy": health.NODE_UNHEALTHY_TOTAL.get("stale-heartbeat"),
+        "podgc": podgc.PODGC_DELETED_TOTAL.get(),
+        "instancegc": instancegc.INSTANCEGC_TERMINATED_TOTAL.get(),
+        "device": solver_mod.SOLVE_DISPATCH_TOTAL.get("device"),
+        "host": solver_mod.SOLVE_DISPATCH_TOTAL.get("host"),
+        "launches": kernel_launches(),
+    }
+    pool_risk = {(n.instance_type, n.zone): manager.price_book.pool_risk((n.instance_type, n.zone))
+                 for n in (cluster.get_node(name) for name in victims)}
+    start = time.perf_counter()
+    dark.add(dark_node)
+    for name in victims:
+        cloud.inject_interruption(cluster.get_node(name), deadline_in=CONTROLLER_INTERRUPTION_DEADLINE_S)
+    orphan = PodSpec(name="chip-smoke-orphan", requests={"cpu": "100m"}, node_name="chip-smoke-gone-node")
+    cluster.apply_pod(orphan)
+    sample = cluster.get_node(victims[0])
+    leak = CloudInstance(instance_id="chip-smoke-leak", provider_id=f"fake:///{sample.zone}/chip-smoke-leak",
+                         instance_type=sample.instance_type, zone=sample.zone, capacity_type="spot",
+                         launched_at=cluster.clock.now() - instancegc.LAUNCH_GRACE_SECONDS - 1.0)
+    cloud.instances[leak.provider_id] = leak
+
+    def state():
+        live = {n.name for n in cluster.list_nodes() if n.deletion_timestamp is None}
+        with lock:
+            waiting = [uid for uid, pod in displaced.items()
+                       if binds[uid] != 1 + reschedules[uid]
+                       or getattr(cluster.try_get_pod(pod.namespace, pod.name), "node_name", None) not in live - gone]
+        return {
+            "victims_left": sum(cluster.try_get_node(name) is not None for name in victims),
+            "dark_left": int(cluster.try_get_node(dark_node) is not None),
+            "pods_waiting": len(waiting),
+            "orphan_left": int(cluster.try_get_pod(orphan.namespace, orphan.name) is not None),
+            "leak_left": int(leak.provider_id in cloud.instances),
+        }
+
+    check(wait_for(lambda: not any(state().values()), CONTROLLER_LIFECYCLE_TIMEOUT_S, poll_s=0.5),
+          f"the lifecycle sweeps did not settle in {CONTROLLER_LIFECYCLE_TIMEOUT_S:.0f} s: {state()}")
+    settled_s = time.perf_counter() - start
+    launches = {name: count - before["launches"][name] for name, count in kernel_launches().items()}
+    solves = solver_mod.SOLVE_DISPATCH_TOTAL.get("device") - before["device"]
+    host = solver_mod.SOLVE_DISPATCH_TOTAL.get("host") - before["host"]
+    check(host == 0 and solves >= 1, f"{solves:.0f} replacement solves on the device route, {host:.0f} on the host")
+    seen = interruption.INTERRUPTION_EVENTS_TOTAL.get("spot-interruption") - before["events"]
+    escalated = health.NODE_UNHEALTHY_TOTAL.get("stale-heartbeat") - before["unhealthy"]
+    reaped = podgc.PODGC_DELETED_TOTAL.get() - before["podgc"]
+    terminated = instancegc.INSTANCEGC_TERMINATED_TOTAL.get() - before["instancegc"]
+    check(seen == len(victims), f"the interruption sweep saw {seen:.0f} of {len(victims)} notices")
+    check(cloud.poll_interruptions() == [], "an interruption notice was never acked")
+    check(all(name in cloud.deleted_nodes for name in chosen), "a drained node was not deleted at the provider")
+    check(escalated >= 1, "the health sweep escalated no stale node")
+    check(reaped >= 1 and terminated >= 1 and "chip-smoke-leak" in cloud.terminated_instances,
+          f"podgc reaped {reaped:.0f} pods and instancegc terminated {terminated:.0f} instances")
+    # The interrupted pools' hazard (quantized, so a pool already at risk
+    # may stay on its step): every one at risk now.
+    after = {pool: manager.price_book.pool_risk(pool) for pool in pool_risk}
+    check(all(risk > 0.0 for risk in after.values()),
+          f"the PriceBook left an interrupted pool without risk: {after}")
+    noted = sum(after[pool] > risk for pool, risk in pool_risk.items())
+    result = {
+        "interruptions_seen": int(seen), "nodes_drained": len(victims), "dark_nodes": 1,
+        "health_escalated": int(escalated), "pods_displaced": len(displaced),
+        "interruption_displaced": int(interruption.INTERRUPTION_DISPLACED_TOTAL.get() - before["displaced"]),
+        "pods_rebound": len(displaced), "replacement_solves": int(solves), "host_solves": int(host),
+        "k1": launches["dominance_prices"], "k2": launches["pack_pair_payload"], "k3": launches["lp_relax"],
+        "podgc_reaped": int(reaped), "instancegc_terminated": int(terminated), "pools_noted": noted,
+        "settled_s": settled_s,
+    }
+    phase("controller_lifecycle", **result)
+    return result
 
 
 def kernel_launches() -> dict:
@@ -3975,6 +4369,10 @@ def controller_phase() -> dict:
     check(all(launches[name] == solves for name in ("dominance_prices", "pack_kernel", "lp_relax", "pack_pair_payload"))
           and solves >= run["passes"],
           f"the storm's {solves} device solves did not each launch K1, K2 (with K4) and K3 once: {launches}")
+    lifecycle = run["lifecycle"]
+    check(all(lifecycle[kernel] == lifecycle["replacement_solves"] for kernel in ("k1", "k2", "k3")),
+          f"the {lifecycle['replacement_solves']} replacement solves did not each launch K1, K2 (with K4) "
+          f"and K3 once: {lifecycle}")
     k7 = sum(run["sweep_k7"])
     check(run["sweep_k7"] and set(run["sweep_k7"]) == {1},
           f"the consolidation loop's sweeps did not each launch K7 once: {run['sweep_k7']}")
@@ -4017,7 +4415,8 @@ def controller_phase() -> dict:
         nodes_after=run["nodes_after"], metrics_series=run["series"], profile_samples=run["profile_samples"],
     )
     return {"k7_launches": k7, "k7_ms": k7_ms, "k7_event_ms": k7_event_ms, "k7_shape": k7_shape,
-            "k7_cluster": k7_plan.cluster, "storm_launches": launches, "device_solves": solves}
+            "k7_cluster": k7_plan.cluster, "storm_launches": launches, "device_solves": solves,
+            "lifecycle": run["lifecycle"]}
 
 
 def consolidate_alone() -> None:
@@ -4110,6 +4509,24 @@ def sharded_alone() -> None:
     sharded_device_ms(sharded)
 
 
+def multiprocess_alone() -> None:
+    """`chip_smoke.py --phase multiprocess`: the multiprocess phase by
+    itself, the kernels built first."""
+    import torch
+
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.ops import cuda_build
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    device = torch.device("cuda", 0)
+    phase("build", seconds=f"{cuda_build.build_all(cuda_build.port_libraries()):.2f}")
+    os.environ["KARPENTER_HOST_SOLVE"] = "0"
+    pods, catalog = make_workload()
+    groups = group_pods(pods)
+    fleet = build_fleet(catalog, Constraints(), pods, pods_need=groups.vectors.max(axis=0))
+    multiprocess_phase(device, pods, groups, fleet)
+
+
 def run_child(args, timeout_s: float):
     """Start `chip_smoke.py <args>` in a process of its own on the same card;
     its output is read when the caller asks for it (child_result)."""
@@ -4140,11 +4557,12 @@ def child_result(child, marker: str):
 
 
 def main(argv=None) -> int:
-    """With no arguments, every phase. `--greedy-signature` and `--phase
-    controller` are the two parts the full run starts in processes of their
-    own; `--phase sharded` and `--phase consolidate` run the sharded and the
-    consolidation phase alone, and `--phase fused` the fused solve's records
-    and K4's share of K2's launch."""
+    """With no arguments, every phase. `--greedy-signature`, `--phase
+    controller` and `--phase multiprocess-rank` are the parts the full run
+    starts in processes of their own; `--phase sharded`, `--phase
+    consolidate` and `--phase multiprocess` run the sharded, the
+    consolidation and the multiprocess phase alone, and `--phase fused` the
+    fused solve's records and K4's share of K2's launch."""
     import torch
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -4165,6 +4583,12 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--phase", "fused"]:
         fused_alone()
+        return 0
+    if argv == ["--phase", "multiprocess"]:
+        multiprocess_alone()
+        return 0
+    if len(argv) == 5 and argv[:2] == ["--phase", "multiprocess-rank"]:
+        multiprocess_rank(int(argv[2]), int(argv[3]), argv[4])
         return 0
     if argv:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -4559,6 +4983,13 @@ def smoke(children) -> int:
     # 10c. the controller process (cmd/controller.main), started after the
     # build.
     controller = child_result(controller_child, "controller_result")
+    lifecycle = controller["lifecycle"]
+
+    # 10e. the multi-process sharded solve: two processes share the card
+    # over gloo, two shards each (after the controller child, so that its
+    # timings carry no other process's load but its follower's).
+    multiprocess = multiprocess_phase(device, pods, groups, fleet)
+    mp_launches = multiprocess["launches_per_rank"]
 
     # 11. kernel timing at the main path's shapes.
     num_types, dims = capacity.shape
@@ -4700,6 +5131,8 @@ def smoke(children) -> int:
             "replaces": "karpenter_tpu/ops/pallas_kernels.py:63",
             "launches": launches["dominance_prices"], "max_abs_err": k1_err,
             "launches_controller": controller["storm_launches"]["dominance_prices"],
+            "launches_controller_lifecycle": lifecycle["k1"],
+            "launches_multiprocess_per_rank": mp_launches["dominance_prices"],
             "ms": k1_ms, "event_ms": k1_event_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
             "bound_by": k1_by, "library_ms": None, "blocks": k1_plan.blocks, "rows_per_block": k1_plan.rows,
             "ms_t4096": k1_wide_ms, "event_ms_t4096": k1_wide_event_ms, "blocks_t4096": k1_wide_plan.blocks,
@@ -4714,6 +5147,8 @@ def smoke(children) -> int:
             "us_per_round": k2_mode_us[k2_slow_mode][1], "slower_mode": k2_slow_mode,
             "launches_single_mode": storm["k2_single_launches"],
             "launches_controller": controller["storm_launches"]["pack_kernel"],
+            "launches_controller_lifecycle": lifecycle["k2"],
+            "launches_multiprocess_per_rank": mp_launches["pack_pair_payload"],
         },
         {
             "name": "pack_kernel_quirk", "route": "cuda",
@@ -4730,6 +5165,8 @@ def smoke(children) -> int:
             "replaces": "karpenter_tpu/ops/score_kernel.py:77",
             "launches": launches["lp_relax"], "max_abs_err": k3_err,
             "launches_controller": controller["storm_launches"]["lp_relax"],
+            "launches_controller_lifecycle": lifecycle["k3"],
+            "launches_multiprocess_per_rank": mp_launches["lp_relax"],
             "ms": k3_ms, "event_ms": k3_event_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
             "bound_by": k3_by, "library_ms": None,
             "us_per_step": k3_ms * 1e3 / lp_steps, "cluster": k3_rule.cluster,
@@ -4895,6 +5332,10 @@ def smoke(children) -> int:
         "objective_rel_per_phase": sharded["per_phase"]["objective_rel"],
         "ms_per_phase_g2048": sharded["g2048"]["per_phase_ms"],
         "event_ms_per_phase_g2048": sharded["g2048"]["per_phase_event_ms"],
+        # The 2-process mesh (the per-phase route, each rank its two shards).
+        "launches_multiprocess_per_rank": mp_launches["lp_shard"],
+        "ms_multiprocess_by_rank": {rank: sum(ms for name, ms in by_kernel.items() if "lp_shard" in name)
+                                    for rank, by_kernel in multiprocess["device_ms_by_kernel"].items()},
     })
     kernels.append({
         "name": "compact_shard", "route": "cuda",
@@ -4911,6 +5352,9 @@ def smoke(children) -> int:
         # shards in runs of three, a launch each.
         "event_ms_per_card": wide["k9b_per_card_event_ms"],
         "event_ms_per_card_2x2": square["k9b_per_card_event_ms"],
+        "launches_multiprocess_per_rank": mp_launches["compact_shard"],
+        "ms_multiprocess_by_rank": {rank: sum(ms for name, ms in by_kernel.items() if "compact_shard" in name)
+                                    for rank, by_kernel in multiprocess["device_ms_by_kernel"].items()},
     })
     phase("timing", shapes=f"T={num_types},R={dims},G={num_groups}", k7_shapes=f"C={c_pad},G={g_pad},N={k7_bins},T={k7_types}",
           k6_shapes="G={},T={},L={}".format(k6_operands[0].shape[0], k6_operands[2].shape[0], k6_operands[1].shape[0]),

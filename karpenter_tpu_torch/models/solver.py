@@ -498,7 +498,13 @@ def _sharded_fused_solve(padded, mesh, lp_steps: int, device: torch.device):
     one shard takes the payload from the pair's epilogue. Returns the
     four outputs of _cost_fused_body, the LP assignment as a
     ShardedAssignment. The padded G must be a multiple of the mesh's size
-    and T of its types axis (pad_kernel_args' g_mult and t_mult)."""
+    and T of its types axis (pad_kernel_args' g_mult and t_mult).
+
+    On a mesh across processes every process runs this same call
+    (parallel/spmd.py) over its own devices and shards, and every output is
+    replicated: the payload and the LP's blocks are gathered to every
+    process, as the reference's multi-host program replicates them."""
+    from karpenter_tpu_torch.parallel.collectives import replicate
     from karpenter_tpu_torch.parallel.sharded_solver import shard_lp_problem, sharded_lp_blocks
 
     if mesh.device_type != device.type:
@@ -521,7 +527,7 @@ def _sharded_fused_solve(padded, mesh, lp_steps: int, device: torch.device):
         replicas[mesh_device] = ((vectors, pair.solvable, capacity, valid, effective_prices), pair)
     problem = shard_lp_problem(mesh, {d: lp_args for d, (lp_args, _) in replicas.items()})
     lp = sharded_lp_blocks(mesh, problem, lp_steps)
-    pair = replicas[mesh.flat[0].device][1]
+    pair = replicas[mesh.devices[0]][1]
     if mesh.size <= 1:
         compacted = pair.payload
     else:
@@ -531,7 +537,7 @@ def _sharded_fused_solve(padded, mesh, lp_steps: int, device: torch.device):
                       for d, (_, p) in replicas.items()},
         )
     objective = lp.objective.reshape(1).to(torch.float32)
-    return compacted, objective, pair.dense, ShardedAssignment(mesh, lp.assignment)
+    return compacted, objective, pair.dense, ShardedAssignment(mesh, replicate(mesh, lp.assignment))
 
 
 def _kind(device) -> str:
@@ -1472,25 +1478,45 @@ def _dispatch_sharded(vectors, counts, capacity, total, prices, lp_steps, mesh, 
     killable per-card probe marks the non-responders wedged), rebuilds the
     mesh on the survivors and retries ONCE — the solve stays on the
     surviving cards, never on one card or the CPU. With no wedged card
-    found, or nothing left to shrink to, the original error propagates."""
+    found, or nothing left to shrink to, the original error propagates. On
+    a mesh across processes rank 0 replicates the solve to the followers
+    first (parallel/spmd.lead_dispatch), and a failure propagates: a
+    one-sided shrink would desynchronize the collective order."""
+    from karpenter_tpu_torch.parallel import spmd
 
     def attempt(mesh):
         padded = pad_kernel_args(
             vectors, counts, capacity, total, prices, g_mult=mesh.size, t_mult=mesh.shape[1]
         )
-        return _sharded_fused_solve(padded, mesh, lp_steps, device), padded, mesh.size
+        if spmd.is_multiprocess():
+            # Every process must run the same solve (SPMD): replicate this
+            # one to the followers first.
+            def kernel(*operands, lp_steps):
+                return _sharded_fused_solve(operands, mesh, lp_steps, device)
+
+            out = spmd.lead_dispatch(kernel, padded, lp_steps, mesh=mesh)
+        else:
+            out = _sharded_fused_solve(padded, mesh, lp_steps, device)
+        return out, padded, mesh.size
 
     try:
         return attempt(mesh)
     except Exception as error:  # noqa: BLE001 — classified below
         from karpenter_tpu_torch.utils import backend_health
 
+        if isinstance(error, spmd.SpmdUnsupportedError):
+            # A transport-capability error, not a dead card: probing the
+            # mesh would waste the quarantine budget and mislabel healthy
+            # cards.
+            raise
         wedged = backend_health.quarantine_mesh(mesh.ids(), error)
         if not wedged:
             raise
         retry_mesh = solve_mesh(device)
-        if retry_mesh is None:
-            # No healthy card left: surface the failure to the caller.
+        if retry_mesh is None or spmd.is_multiprocess():
+            # No healthy card left (or a mesh across processes, where a
+            # one-sided shrink would desynchronize the collective order):
+            # surface the failure to the caller.
             raise
         klog.named("solver").warning(
             "sharded dispatch failed (%s); retrying on shrunk %d-shard mesh",

@@ -1443,12 +1443,13 @@ def compact_sharded_payload(rounds_ffd: PackRounds, rounds_cost: PackRounds, fea
 
 def _card_shards(mesh, per_card: Optional[int]) -> List[Tuple[torch.device, List[int]]]:
     """The per-card route's launches: (device, flat shard indices) for each
-    device of the mesh in order, its shards in flat order; with `per_card`,
-    each device's shards split into runs of that many, as if each run lay
-    on a card of its own."""
+    device of this process's shards in order, its shards in flat order; with
+    `per_card`, each device's shards split into runs of that many, as if
+    each run lay on a card of its own."""
     cards = []
     for device in mesh.devices:
-        ids = [index for index, shard in enumerate(mesh.flat) if shard.device == device]
+        ids = [index for index, shard in enumerate(mesh.flat)
+               if mesh.is_local(index) and shard.device == device]
         step = per_card or len(ids)
         cards += [(device, ids[start : start + step]) for start in range(0, len(ids), step)]
     return cards
@@ -1464,32 +1465,32 @@ def compact_plan_sharded(rounds_ffd: PackRounds, rounds_cost: PackRounds, feasib
     shards it holds, reading that device's copy of the (ffd, cost) fill
     matrices (`replicas` maps each device other than the first to it;
     without it, the fills are copied there); the segments are gathered to
-    the first shard and joined to the replicated headers there. `per_card`
+    the first shard and joined to the replicated headers there. On a mesh
+    across processes each process compacts its own shards, every process
+    gathers every shard's segments (parallel/collectives.gather_parts) and
+    joins the whole payload, as the reference replicates it. `per_card`
     forces that route on any mesh, each device's shards split into runs of
     `per_card`, one call each. A mesh of one shard takes compact_plan, on
     the CPU only (on the card the sharded solve takes that payload from K2's
-    pair launch). The arguments lie on the first shard's
+    pair launch). The arguments lie on this process's first shard's
     device. G must be a multiple of mesh.size
     (models/solver.pad_kernel_args handles it via g_mult)."""
     from karpenter_tpu_torch.parallel import collectives
 
     if mesh.size <= 1:
         return compact_plan(rounds_ffd, rounds_cost, feasible_any)
-    if per_card is None and len(mesh.devices) == 1:
+    if per_card is None and len(mesh.devices) == 1 and not mesh.spans_processes:
         return compact_sharded_payload(rounds_ffd, rounds_cost, feasible_any, mesh.size)
     fills = dict(replicas or {})
-    parts, order = [], []
+    parts = {}
     for device, ids in _card_shards(mesh, per_card):
         if device not in fills:
             fills[device] = (rounds_ffd.round_fill.to(device), rounds_cost.round_fill.to(device))
-        parts.append(compact_shards(*fills[device], ids, mesh.size))
-        order += ids
-    parts = collectives.gather_to_first(mesh, parts)
-    if order == sorted(order):
-        segments = torch.cat(parts)
-    else:  # back to the mesh's flat order
-        by_shard = dict(zip(order, (segment for part in parts for segment in part)))
-        segments = torch.stack([by_shard[index] for index in range(mesh.size)])
+        for index, segment in zip(ids, compact_shards(*fills[device], ids, mesh.size)):
+            parts[index] = segment
+    parts = collectives.gather_parts(mesh, parts)
+    first = mesh.devices[0]
+    segments = torch.stack([parts[index].to(first) for index in range(mesh.size)])
     return _assemble_sharded(rounds_ffd, rounds_cost, feasible_any, segments)
 
 

@@ -1,8 +1,10 @@
 """Mesh construction and block layouts for the sharded solve.
 
 The port of karpenter_tpu/parallel/mesh.py. A mesh is a [groups, types]
-grid of shards in one process; each shard has an id and the torch.device
-its blocks live on.
+grid of shards; each shard has an id, the torch.device its blocks live on
+and the rank of the process that holds it. Every process of a group sees
+the same global grid, in one fixed shard order, and runs kernels for its
+own shards only (parallel/multihost.py, parallel/spmd.py).
 
 Axes:
   "groups": pod groups — shard (i, j) owns the i-th contiguous block of
@@ -15,7 +17,9 @@ card, its id the card's ordinal. The reference's tests and chip drive run on
 a virtual device set (8 CPU devices in one process); the port's declare one
 with `virtual_devices(device, count)`, N shards of one device, ids 0..N-1,
 for the length of a `with` block: the tests over the CPU, chip_smoke over
-the one card. Production declares nothing.
+the one card. Production declares nothing. In a process group of P
+processes, each holding n shards, the global set is P * n shards, rank r's
+with ids r * n .. r * n + n - 1, as jax.devices() lists a multi-host slice.
 """
 
 from __future__ import annotations
@@ -31,10 +35,12 @@ TYPES_AXIS = "types"
 
 class Shard(NamedTuple):
     """One position of the mesh: an id (the card's ordinal, or the index in
-    a virtual set) and the device its blocks live on."""
+    a virtual set; global across a process group), the device its blocks
+    live on in the process that holds it, and that process's rank."""
 
     id: int
     device: torch.device
+    rank: int = 0
 
 
 def _factor(n: int) -> Tuple[int, int]:
@@ -51,19 +57,28 @@ def _factor(n: int) -> Tuple[int, int]:
 
 class Mesh:
     """A [groups, types] grid of shards, row-major: shard (i, j) is
-    flat[i * types + j]. Every shard lies on a device of one type."""
+    flat[i * types + j]. Every shard lies on a device of one type. `rank` is
+    this process's: its shards are the local ones; a mesh over several
+    processes holds at least one shard of each of them."""
 
     axis_names = (GROUPS_AXIS, TYPES_AXIS)
 
-    def __init__(self, shards: Sequence[Shard], shape: Tuple[int, int]):
+    def __init__(self, shards: Sequence[Shard], shape: Tuple[int, int], rank: Optional[int] = None):
         shards = list(shards)
         if shape[0] * shape[1] != len(shards) or not shards:
             raise ValueError(f"a {shape} mesh cannot hold {len(shards)} shards")
         kinds = {shard.device.type for shard in shards}
         if len(kinds) != 1:
             raise ValueError(f"a mesh lies on one device type, got {sorted(kinds)}")
+        if rank is None:
+            from karpenter_tpu_torch.parallel.multihost import process_index
+
+            rank = process_index()
         self.flat: List[Shard] = shards
         self.shape = (int(shape[0]), int(shape[1]))
+        self.rank = int(rank)
+        if not any(shard.rank == self.rank for shard in shards):
+            raise ValueError(f"a mesh of process {self.rank} holds none of its shards")
 
     @property
     def size(self) -> int:
@@ -74,11 +89,29 @@ class Mesh:
         return self.flat[0].device.type
 
     @property
+    def ranks(self) -> List[int]:
+        """The processes holding the mesh's shards, ascending."""
+        return sorted({shard.rank for shard in self.flat})
+
+    @property
+    def spans_processes(self) -> bool:
+        return len(self.ranks) > 1
+
+    def is_local(self, index: int) -> bool:
+        """Whether the shard at flat position `index` is this process's."""
+        return self.flat[index].rank == self.rank
+
+    def indices_of(self, rank: int) -> List[int]:
+        """The flat positions of `rank`'s shards, ascending."""
+        return [index for index, shard in enumerate(self.flat) if shard.rank == rank]
+
+    @property
     def devices(self) -> List[torch.device]:
-        """The distinct devices under the shards, in order of first use."""
+        """The distinct devices under this process's shards, in order of
+        first use."""
         seen: List[torch.device] = []
         for shard in self.flat:
-            if shard.device not in seen:
+            if shard.rank == self.rank and shard.device not in seen:
                 seen.append(shard.device)
         return seen
 
@@ -113,20 +146,36 @@ def virtual_devices(device, count: int) -> Iterator[List[Shard]]:
         _VIRTUAL = previous
 
 
-def mesh_devices(kind: str = "cuda") -> List[Shard]:
-    """Every shard a mesh of `kind` ("cuda" or "cpu") may use: the declared
-    virtual set when it is of that kind; else one shard per visible card
-    for "cuda" and one CPU shard for "cpu"."""
+def _local_devices(kind: str) -> List[torch.device]:
+    """This process's shards' devices: the declared virtual set when it is
+    of `kind`; else one per visible card for "cuda" and one CPU for "cpu"."""
     if _VIRTUAL is not None and _VIRTUAL[0].type == kind:
         device, count = _VIRTUAL
-        return [Shard(i, device) for i in range(count)]
+        return [device] * count
     if kind == "cuda":
         if not torch.cuda.is_available():
             return []
-        return [Shard(i, torch.device("cuda", i)) for i in range(torch.cuda.device_count())]
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if kind == "cpu":
-        return [Shard(0, torch.device("cpu"))]
+        return [torch.device("cpu")]
     raise ValueError(f"unsupported device type {kind!r}")
+
+
+def mesh_devices(kind: str = "cuda") -> List[Shard]:
+    """Every shard a mesh of `kind` ("cuda" or "cpu") may use: this
+    process's (_local_devices, ids 0..n-1) alone, or in a process group of
+    P processes the global set, rank r's n shards with ids r * n .. r * n +
+    n - 1 (every process holds n). A remote shard's device is the one the
+    same position has here; only its holder touches it."""
+    from karpenter_tpu_torch.parallel.multihost import process_count
+
+    local = _local_devices(kind)
+    processes = process_count()
+    return [
+        Shard(rank * len(local) + index, device, rank)
+        for rank in range(processes)
+        for index, device in enumerate(local)
+    ]
 
 
 def make_mesh(shards: Optional[Sequence[Shard]] = None, kind: str = "cuda") -> Mesh:
@@ -148,7 +197,23 @@ def make_mesh(shards: Optional[Sequence[Shard]] = None, kind: str = "cuda") -> M
                 f"no healthy devices left (wedged: {sorted(wedged)})"
             )
     shards = list(shards)
+    from karpenter_tpu_torch.parallel.multihost import process_count
+
+    missing = sorted(set(range(process_count())) - {shard.rank for shard in shards})
+    if missing:
+        # Every process runs its own shards' kernels: one that holds none
+        # would have no part in the solve's collectives.
+        raise RuntimeError(f"a mesh across processes holds no shard of ranks {missing}")
     return Mesh(shards, _factor(len(shards)))
+
+
+def local_mesh(mesh: Mesh) -> Mesh:
+    """The mesh of this process's shards alone: `mesh` itself when it lies
+    in one process."""
+    if not mesh.spans_processes:
+        return mesh
+    local = [shard for shard in mesh.flat if shard.rank == mesh.rank]
+    return Mesh(local, _factor(len(local)), rank=mesh.rank)
 
 
 def pad_multiple(n: int, multiple: int) -> int:

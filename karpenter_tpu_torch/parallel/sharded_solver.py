@@ -7,12 +7,14 @@ holds block (i, j) of the logits, the Adam moments, the softmax and the
 feasibility mask, the i-th block of the group tables and the j-th of the
 type tables. The route follows from the mesh:
 
-  * shards on more than one device: one Adam step is K9a's three phases on
-    every shard (ops/lp_shard_kernel) with the cross-shard reductions of
-    parallel/collectives.py between them: the row max and row sum of the
-    softmax over the types axis, the demand over the groups axis, the row
-    dot over the types axis. This is the reference's GSPMD program written
-    out, and the only route with transport between cards;
+  * shards on more than one device, or in more than one process: one Adam
+    step is K9a's three phases on every shard (ops/lp_shard_kernel) with
+    the cross-shard reductions of parallel/collectives.py between them: the
+    row max and row sum of the softmax over the types axis, the demand over
+    the groups axis, the row dot over the types axis. This is the
+    reference's GSPMD program written out, and the only route with
+    transport between cards or processes. Each process runs the phases of
+    its own shards; a grid holds None where another process's shard is;
   * every shard on one card: the blocks are stacked and the whole LP is
     one launch of K9a's persistent kernel (`lp_shard_kernel.shard_lp`),
     which takes the same reductions inside the launch. On the CPU the
@@ -41,7 +43,7 @@ from karpenter_tpu_torch.ops.score_kernel import (
     feasibility_mask,
 )
 from karpenter_tpu_torch.parallel import collectives
-from karpenter_tpu_torch.parallel.mesh import Mesh, block, make_mesh, pad_multiple
+from karpenter_tpu_torch.parallel.mesh import Mesh, block, local_mesh, make_mesh, pad_multiple
 
 Grid = collectives.Grid
 
@@ -79,7 +81,10 @@ class ShardedLP(NamedTuple):
 
 
 def _grid(mesh: Mesh, make: Callable) -> Grid:
-    return [[make(row, col) for col in range(mesh.shape[1])] for row in range(mesh.shape[0])]
+    """make(row, col) for this process's shards, None for the others'."""
+    columns = mesh.shape[1]
+    return [[make(row, col) if mesh.is_local(row * columns + col) else None for col in range(columns)]
+            for row in range(mesh.shape[0])]
 
 
 def _check_divides(mesh: Mesh, groups: int, types: int) -> None:
@@ -94,8 +99,9 @@ def shard_lp_problem(mesh: Mesh, replicas: Dict[torch.device, Sequence[torch.Ten
     """Lay an LP over `mesh` from one full copy of its operands per device
     of the mesh: replicas[device] = (vectors [G, R] f32, counts [G] (any
     number type), capacity [T, R] f32, valid [T] bool, prices [T] f32) on
-    that device. Each shard slices its device's copy."""
-    vectors, _, capacity, _, _ = replicas[mesh.flat[0].device]
+    that device (this process's devices, on a mesh across processes). Each
+    shard slices its device's copy."""
+    vectors, _, capacity, _, _ = replicas[mesh.devices[0]]
     groups, types = vectors.shape[0], capacity.shape[0]
     _check_divides(mesh, groups, types)
 
@@ -173,22 +179,15 @@ def _kernel_phases() -> Phases:
 def _softmax(mesh, problem, state, scratch, ref, row_dot, bias, phases) -> Tuple[Grid, Optional[Grid]]:
     """K9a's softmax phase on every shard, then its reductions over the
     types axis: (row max, row sum) grids, the sum None without `ref`."""
-    maxima, sums = [], []
-    for row in range(mesh.shape[0]):
-        row_max, row_sum = [], []
-        for col in range(mesh.shape[1]):
-            device = mesh.shard(row, col).device
-            top, total = phases.softmax(
-                state.logits[row][col], state.mu[row][col], state.nu[row][col],
-                scratch.share[row][col], scratch.d_share[row][col], problem.feasible[row][col],
-                None if row_dot is None else row_dot[row][col],
-                None if ref is None else ref[row][col],
-                None if bias is None else bias[device],
-            )
-            row_max.append(top)
-            row_sum.append(total)
-        maxima.append(row_max)
-        sums.append(row_sum)
+    phase = _grid(mesh, lambda row, col: phases.softmax(
+        state.logits[row][col], state.mu[row][col], state.nu[row][col],
+        scratch.share[row][col], scratch.d_share[row][col], problem.feasible[row][col],
+        None if row_dot is None else row_dot[row][col],
+        None if ref is None else ref[row][col],
+        None if bias is None else bias[mesh.shard(row, col).device],
+    ))
+    maxima = [[None if out is None else out[0] for out in row] for row in phase]
+    sums = [[None if out is None else out[1] for out in row] for row in phase]
     maxima = collectives.max_over_types(mesh, maxima)
     return maxima, (None if ref is None else collectives.sum_over_types(mesh, sums))
 
@@ -269,9 +268,10 @@ def _run_persistent(mesh, problem, state, bias, steps: int, final: bool):
 
 def _route(mesh: Mesh) -> Callable:
     """The LP's route over `mesh`: K9a's persistent kernel when every shard
-    lies on one card; else its phases with the collectives between (across
-    devices, and on the CPU, where the wrappers run the plain versions)."""
-    if len(mesh.devices) == 1 and mesh.devices[0].type == "cuda":
+    lies on one card of one process; else its phases with the collectives
+    between (across devices or processes, and on the CPU, where the
+    wrappers run the plain versions)."""
+    if not mesh.spans_processes and len(mesh.devices) == 1 and mesh.devices[0].type == "cuda":
         return _run_persistent
     return _run_phases
 
@@ -294,7 +294,9 @@ def sharded_lp_blocks(mesh: Mesh, problem: ShardedProblem, steps: int = 300) -> 
     nodes = _grid(mesh, lambda r, c: (
         demand[r][c] / torch.clamp(problem.capacity[r][c], min=1e-3)).amax(dim=1))
     partials = _grid(mesh, lambda r, c: torch.sum(problem.prices[r][c] * nodes[r][c]))
-    objective = collectives.sum_over_types(mesh, partials)[0][0]
+    # Every row's sum is the objective (demand and nodes are replicated
+    # down the columns): this process takes its first shard's.
+    objective = collectives.first_local(mesh, collectives.sum_over_types(mesh, partials))
     return ShardedLP(assignment=assignment, nodes=nodes, objective=objective)
 
 
@@ -340,7 +342,7 @@ def sharded_lp_solve(
     ]
     problem = shard_lp_problem(mesh, _replicas(mesh, arrays))
     lp = sharded_lp_blocks(mesh, problem, steps)
-    nodes = torch.cat([part.to(mesh.flat[0].device) for part in lp.nodes[0]])
+    nodes = torch.cat([part.to(mesh.devices[0]) for part in lp.nodes[0]])
     return LPResult(
         assignment=collectives.assemble(mesh, lp.assignment),
         fractional_nodes=nodes,
@@ -381,7 +383,7 @@ def sharded_lp_train_step(mesh: Optional[Mesh] = None):
         # demand: sum_t p * logsumexp_r(20 * D / max(K, 1e-3)) / 20.
         partials = _grid(mesh, lambda r, c: torch.sum(problem.prices[r][c] * torch.logsumexp(
             demand[r][c] / torch.clamp(problem.capacity[r][c], min=1e-3) * 20.0, dim=1) / 20.0))
-        loss = collectives.sum_over_types(mesh, partials)[0][0]
+        loss = collectives.first_local(mesh, collectives.sum_over_types(mesh, partials))
         return state._replace(count=state.count + 1), loss
 
     return step_fn, mesh
@@ -408,9 +410,11 @@ def constrained_level_sharding(mesh: Optional[Mesh] = None):
     dispatch(operands, mode) takes constraints.solve.pad_levels' numpy
     operands and returns the LevelPack as numpy (rounds, chosen_level,
     group_level, level_unsched), as ops/pack_kernel.level_pack_to_host
-    gives the single-device one. (None, 1) on a single-shard mesh."""
-    mesh = mesh or make_mesh()
-    if mesh is None or mesh.size <= 1:
+    gives the single-device one. (None, 1) on a single-shard mesh. The
+    dispatch stays in one process, as the reference's: on a mesh across
+    processes the levels split over this process's shards."""
+    mesh = local_mesh(mesh or make_mesh())
+    if mesh.size <= 1:
         return None, 1
 
     def dispatch(operands, mode: str):

@@ -17,8 +17,7 @@ stops the Manager (warmup_error): the port never pins the CPU or routes
 solves to the host behind the card's back. On the card the host solve path
 is opt-in (models/solver.host_route_open: KARPENTER_HOST_SOLVE=1 or auto).
 
-Left out, against the reference: the podgc, instancegc, interruption and
-health controllers and their loops; the solver sidecar (`make_solver
+Left out, against the reference: the solver sidecar (`make_solver
 ("remote")` raises).
 """
 
@@ -36,9 +35,13 @@ from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.controllers.cluster import Cluster
 from karpenter_tpu_torch.controllers.consolidation import ConsolidationController
 from karpenter_tpu_torch.controllers.counter import CounterController
+from karpenter_tpu_torch.controllers.health import HealthController
 from karpenter_tpu_torch.controllers.metrics import MetricsController, POLL_SECONDS
 from karpenter_tpu_torch.controllers.node import NodeController
+from karpenter_tpu_torch.controllers.instancegc import InstanceGcController
+from karpenter_tpu_torch.controllers.interruption import InterruptionController
 from karpenter_tpu_torch.controllers.market import MarketController
+from karpenter_tpu_torch.controllers.podgc import PodGcController
 from karpenter_tpu_torch.controllers.provisioning import (
     BATCH_IDLE_SECONDS,
     ProvisioningController,
@@ -633,6 +636,8 @@ class Manager:
         )
         self.counter = CounterController(cluster)
         self.metrics = MetricsController(cluster)
+        self.podgc = PodGcController(cluster)
+        self.instancegc = InstanceGcController(cluster, cloud)
         # Live market (market/): ONE PriceBook per controller process,
         # built BEFORE the controllers that feed or read it.
         from karpenter_tpu_torch.market.pricebook import PriceBook, set_active_book
@@ -640,6 +645,24 @@ class Manager:
         self.price_book = PriceBook(
             clock=cluster.clock,
             reprice_threshold=options.reprice_threshold,
+        )
+        self.interruption = InterruptionController(
+            cluster,
+            cloud,
+            self.provisioning,
+            self.termination,
+            escalate_fraction=options.interruption_escalate_fraction,
+            cluster_state=self.cluster_state,
+            price_book=self.price_book,
+        )
+        self.health = HealthController(
+            cluster,
+            cloud,
+            self.provisioning,
+            self.termination,
+            unreachable_timeout=options.node_unreachable_timeout,
+            drain_stuck_timeout=options.drain_stuck_timeout,
+            cluster_state=self.cluster_state,
         )
         self.consolidation = ConsolidationController(
             cluster,
@@ -750,6 +773,27 @@ class Manager:
             ),
             "metrics": ReconcileLoop(
                 "metrics", self.metrics.reconcile, concurrency=1
+            ),
+            # Orphaned-pod reaper (kube-controller-manager podgc analogue):
+            # a periodic self-requeuing sweep, like the metrics poll.
+            "podgc": ReconcileLoop(
+                "podgc", self.podgc.reconcile, concurrency=1
+            ),
+            # Leaked-capacity reaper: periodic self-requeuing sweep
+            # reconciling provider instances (by ownership tag) against
+            # Nodes — the money-side analogue of podgc.
+            "instancegc": ReconcileLoop(
+                "instancegc", self.instancegc.reconcile, concurrency=1
+            ),
+            # Interruption sweep: poll provider reclaim notices, drain
+            # ahead of the deadline, replace before the pods land.
+            "interruption": ReconcileLoop(
+                "interruption", self.interruption.reconcile, concurrency=1
+            ),
+            # Node-health sweep: heartbeat staleness + NotReady detection
+            # with flap hysteresis, escalating through the drain ladder.
+            "health": ReconcileLoop(
+                "health", self.health.reconcile, concurrency=1
             ),
             # Consolidation sweep: re-solve the live cluster for cost and
             # shed/replace capacity the workload no longer justifies.
@@ -910,6 +954,10 @@ class Manager:
             self.loops["selection"].enqueue((pod.namespace, pod.name))
         for node in self.cluster.list_nodes():
             self.loops["node"].enqueue(node.name)
+        self.loops["podgc"].enqueue("sweep")
+        self.loops["instancegc"].enqueue("sweep")
+        self.loops["interruption"].enqueue("sweep")
+        self.loops["health"].enqueue("sweep")
         self.loops["consolidation"].enqueue("sweep")
         self.loops["drift"].enqueue("sweep")
         self.loops["market"].enqueue("sweep")

@@ -14,12 +14,6 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 
-# The leaked-capacity GC's launch->register grace (the reference's
-# controllers/instancegc.LAUNCH_GRACE_SECONDS): node-liveness-timeout is
-# validated against it. The GC controller is not ported; its constant is.
-LAUNCH_GRACE_SECONDS = 300.0
-
-
 class OptionsError(Exception):
     pass
 
@@ -257,6 +251,8 @@ class Options:
     def _node_health_errors(self) -> List[str]:
         """Node-health timeout validation, including the ordering contract
         with the leaked-capacity GC (controllers/instancegc.py)."""
+        from karpenter_tpu_torch.controllers.instancegc import LAUNCH_GRACE_SECONDS
+
         errors: List[str] = []
         for flag, value in (
             ("node-unreachable-timeout", self.node_unreachable_timeout),

@@ -64,6 +64,11 @@ VERBATIM = [
     "controllers/drift.py",
     "controllers/node.py",
     "cmd/__init__.py",
+    "controllers/podgc.py",
+    "controllers/instancegc.py",
+    "controllers/interruption.py",
+    "controllers/health.py",
+    "utils/options.py",
 ]
 _DOCSTRING = "docstring only: names the port's files and devices"
 _NO_SPANS = "no tracing spans"
@@ -129,10 +134,7 @@ TRIMMED = {
         "_ProfileSession": "a torch.profiler capture exported as a Chrome trace in place of "
                            "jax.profiler.start_trace",
     },
-    "utils/options.py": {
-        "LAUNCH_GRACE_SECONDS": "a copy of controllers/instancegc's constant, which "
-                                "Options validates against: the GC controller is not ported",
-    },
+    "utils/options.py": {},
     "market/__init__.py": {},
     "market/pricebook.py": {"stamp_epoch": _HISTORY},
     "market/forecast.py": {
@@ -144,11 +146,9 @@ TRIMMED = {
                        "(remote) is not ported and raises",
         "LeaderLock.__init__": "the lock file lies in the process's temporary directory",
         "Manager.__init__": "places the solver, encoder and consolidation solve on a device "
-                            "the caller picks; no podgc, instancegc, interruption or health "
-                            "controllers or loops; keeps the error of a failed card warmup",
+                            "the caller picks; keeps the error of a failed card warmup",
         "Manager._reprice_requeue": "counts its calls (reprice_requeues)",
-        "Manager.start": "no podgc, instancegc, interruption or health seed enqueues; refuses "
-                         "after a failed card warmup",
+        "Manager.start": "refuses after a failed card warmup",
         "Manager.start_standby": "docstring only: the warmup's debt is the kernels' builds "
                                  "and first launches",
         "Manager._kick_warmup": "probes the solver's device; a DEGRADED verdict stops the "
@@ -259,8 +259,8 @@ TRIMMED = {
         "sharded_solve_active": "per device type of the solve",
         "solve_mesh": "per device type of the solve",
         "constrained_level_hook": "(dispatch, shards) from the solve's device's mesh",
-        "_dispatch_sharded": "retries through _sharded_fused_solve on the shrunk mesh; no "
-                             "multi-host dispatch (the sidecar's, not ported)",
+        "_dispatch_sharded": "retries through _sharded_fused_solve on the shrunk mesh; across "
+                             "processes spmd.lead_dispatch of a call of it",
     },
     "parallel/__init__.py": {},
     "parallel/mesh.py": {
@@ -268,7 +268,11 @@ TRIMMED = {
         "Mesh": _PORT_ONLY + ": " + _MESH,
         "virtual_devices": _PORT_ONLY + ": declares N shards of one device, the counterpart "
                            "of --xla_force_host_platform_device_count",
-        "mesh_devices": _PORT_ONLY + ": the counterpart of jax.devices()",
+        "_local_devices": _PORT_ONLY + ": this process's shards' devices",
+        "mesh_devices": _PORT_ONLY + ": the counterpart of jax.devices(), global across a "
+                        "process group",
+        "local_mesh": _PORT_ONLY + ": the mesh of this process's shards, for the dispatches "
+                      "that stay in one process",
         "make_mesh": "shards of a device type in place of jax devices; " + _MESH,
         "block": _PORT_ONLY + ": contiguous blocks in place of solver_shardings",
     },
@@ -381,6 +385,12 @@ VERBATIM_DEFINITIONS = [
     ("utils/backend_health.py", "_parse_chip_ok"),
     ("utils/backend_health.py", "quarantine_mesh"),
     ("models/solver.py", "_pad_multiple"),
+    ("utils/tracing.py", "trace_id_to_words"),
+    ("utils/tracing.py", "words_to_trace_id"),
+    ("parallel/multihost.py", "DistributedConfig"),
+    ("parallel/spmd.py", "OP_STOP"),
+    ("parallel/spmd.py", "OP_SOLVE"),
+    ("parallel/spmd.py", "HEADER_WORDS"),
 ]
 
 
