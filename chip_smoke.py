@@ -219,6 +219,29 @@ limit, and as the last line {"ok": true, "device": {...}}:
               per-phase route bit for bit; the solve p50, each rank's
               device ms by kernel, the collectives a solve; either rank
               failing fails the phase
+ 10f. apiserver  the controller on a live apiserver with the EC2 provider,
+              in `chip_smoke.py --phase apiserver` (started with the
+              controller phase): that process is the store, serving
+              tests/fake_apiserver.py's FakeApiServer over HTTP on a
+              loopback port (its import pointed at the port's kubeapi), with
+              the kubelets' status patches; a child (`--phase
+              apiserver-controller`) runs cmd/controller.main on the card
+              with `--cluster-store http://127.0.0.1:<port>`, leader election
+              on the apiserver's Lease and `Ec2CloudProvider` over
+              `FakeEc2` with the main path's 400 types as EC2 records in its
+              three zones (a registered provider factory). /readyz 503, then
+              200; a Provisioner and 5,000 pending pods of the main path's
+              shape mix through HTTP POSTs; every pod bound exactly once
+              through the Binding subresource (counted by the apiserver);
+              every node's provider id one live FakeEc2 instance, each from
+              a recorded create_fleet call; K1, the K2 pair (K4) and K3 once
+              a device solve, no host solve after ready. Then 40% of the
+              pods deleted through the API and consolidation for at most 60
+              s: every sweep one K7 launch, every removed node terminated
+              through FakeEc2.terminate_instances, every displaced pod
+              bound again once, the $/hr lower. The solve p50, the time
+              from the last POST to the last bind, the controller's HTTP
+              requests and watch events by kind, each kernel's launches
  11. timing   each kernel's device time per call (torch.profiler: the
               kernels' own time, `ms`) and its time between CUDA events
               around the wrapper (host enqueue included, `event_ms`), its
@@ -271,6 +294,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import dataclasses
 import json
 import os
 import subprocess
@@ -3169,6 +3193,44 @@ def storm_workload(num_pods: int = NUM_PODS, num_types: int = NUM_TYPES, seed: i
     return [pods[i] for i in order], catalog
 
 
+# The apiserver phase's deployment: the controller against an apiserver over
+# HTTP with the EC2 provider (over its FakeEc2 API) in place of the fake
+# cloud.
+APISERVER_CLUSTER = "chip-smoke"
+APISERVER_CLOUD = "chip-smoke-ec2"  # the factory the apiserver phase's controller registers
+EC2_INSTANCE_PROFILE = "chip-smoke-nodes"
+
+
+def ec2_instance_type_infos(api_module, num_types: int = NUM_TYPES, seed: int = 0, package=None):
+    """make_catalog's types as EC2 DescribeInstanceTypes records (`api_module`
+    is either package's cloudprovider/ec2/api.py): each type's vCPUs, memory
+    and on-demand price, and one network interface of max_pods - 1
+    addresses, so the ENI formula gives the catalog's max pods. The x
+    family is named rx: the provider's opinionated filter keeps only the
+    families Kubernetes runs on (m, c, r, a, t3, t4, p, inf, g). FakeEc2
+    prices spot at its flat share of on-demand."""
+    infos = []
+    for instance_type in make_catalog(num_types, seed, package):
+        name = instance_type.name if instance_type.name[0] in "cmr" else "r" + instance_type.name
+        on_demand = min(o.price for o in instance_type.offerings if o.capacity_type == "on-demand")
+        infos.append(api_module.InstanceTypeInfo(
+            name=name, vcpus=int(instance_type.capacity["cpu"]),
+            memory_mib=int(instance_type.capacity["memory"]) // 2**20,
+            max_network_interfaces=1, ipv4_addresses_per_interface=int(instance_type.capacity["pods"]) - 1,
+            price_on_demand=on_demand,
+        ))
+    return infos
+
+
+def ec2_provisioner(provisioner_module, requirements_module, wellknown):
+    """The storm's spot-only provisioner with the EC2 provider's blob (its
+    instance profile; the provider's defaulting hook adds the subnet and
+    security-group selectors)."""
+    provisioner = spot_provisioner(provisioner_module, requirements_module, wellknown)
+    provisioner.spec.constraints.provider = {"instanceProfile": EC2_INSTANCE_PROFILE}
+    return provisioner
+
+
 def k10_cases_list():
     """K10's cases: the reference's magnitudes (prices 0.01-64, risks in
     steps of 1/32) at 257 and 4,096 types, one type, zero risk, and the main
@@ -3831,6 +3893,89 @@ def fleet_cost(cluster, price_of) -> float:
                for n in cluster.list_nodes() if n.deletion_timestamp is None)
 
 
+class ControllerProbe:
+    """What both controller phases record around the controller's loops, put
+    in by `install` and taken out by `remove`: each provisioning pass the
+    batch loop runs (its start, its wall time, its solve stage from the
+    controller's own histogram, the pods it scheduled) and each consolidation
+    sweep's counterfactual solve (its problem, its start, its time, the K7
+    launches it made). `counts` reads the solve routes' and the kernels'
+    counters and `since` their change from an earlier reading; `stages` the
+    provisioning stages' histograms; `await_ready` checks the boot."""
+
+    def __init__(self):
+        self.passes, self.sweeps = [], []
+        self.originals = None
+
+    def install(self) -> None:
+        from karpenter_tpu_torch.controllers import provisioning
+        from karpenter_tpu_torch.ops import consolidate, consolidate_kernel
+
+        provision, candidates = self.originals = (provisioning.ProvisionerWorker.provision,
+                                                  consolidate.solve_candidates)
+
+        def timed_provision(worker):
+            solve_before = provisioning.SOLVE_DURATION._sums.get((), 0.0)
+            start = time.perf_counter()
+            stats = provision(worker)
+            self.passes.append({"at": start, "ms": (time.perf_counter() - start) * 1e3,
+                                "solve_ms": (provisioning.SOLVE_DURATION._sums.get((), 0.0) - solve_before) * 1e3,
+                                "scheduled": stats.scheduled_pods})
+            return stats
+
+        def timed_candidates(problem, device=None):
+            launched = consolidate_kernel.solve_counterfactuals.launches
+            start = time.perf_counter()
+            verdicts = candidates(problem, device=device)
+            self.sweeps.append({"problem": problem, "at": start, "ms": (time.perf_counter() - start) * 1e3,
+                                "k7": consolidate_kernel.solve_counterfactuals.launches - launched})
+            return verdicts
+
+        provisioning.ProvisionerWorker.provision = timed_provision
+        consolidate.solve_candidates = timed_candidates
+
+    def remove(self) -> None:
+        from karpenter_tpu_torch.controllers import provisioning
+        from karpenter_tpu_torch.ops import consolidate
+
+        if self.originals is not None:
+            provisioning.ProvisionerWorker.provision, consolidate.solve_candidates = self.originals
+            self.originals = None
+
+    @staticmethod
+    def counts() -> dict:
+        from karpenter_tpu_torch.models import solver as solver_mod
+
+        return {"launches": kernel_launches(), "device": solver_mod.SOLVE_DISPATCH_TOTAL.get("device"),
+                "host": solver_mod.SOLVE_DISPATCH_TOTAL.get("host")}
+
+    @staticmethod
+    def since(before: dict) -> dict:
+        now = ControllerProbe.counts()
+        return {"launches": {name: count - before["launches"][name] for name, count in now["launches"].items()},
+                "device": now["device"] - before["device"], "host": now["host"] - before["host"]}
+
+    @staticmethod
+    def stages() -> dict:
+        """Each provisioning stage's summed seconds and its count."""
+        from karpenter_tpu_torch.controllers import provisioning
+
+        return {name: (hist._sums.get((), 0.0), hist.count())
+                for name, hist in (("schedule", provisioning.SCHEDULING_DURATION),
+                                   ("solve", provisioning.SOLVE_DURATION),
+                                   ("bind", provisioning.BIND_DURATION))}
+
+    @staticmethod
+    def await_ready(manager, timeout_s: float = 300.0) -> None:
+        """The warmup ends without error; on the card the host solve route
+        is closed."""
+        check(wait_for(lambda: manager.ready.is_set() or manager.warmup_error is not None, timeout_s)
+              and manager.warmup_error is None,
+              f"the controller never became ready (warmup error: {manager.warmup_error!r})")
+        check(manager.solver.device.type == "cpu" or not manager.solver.host_fallback_available(),
+              "the host solve route is open on the card by default")
+
+
 def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYPES,
                    delete_fraction: float = CONTROLLER_DELETE_FRACTION,
                    max_disruption: int = CONTROLLER_MAX_DISRUPTION, watch_s: float = CONTROLLER_WATCH_S,
@@ -3860,13 +4005,12 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
     from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
     from karpenter_tpu_torch.cmd import controller
     from karpenter_tpu_torch.controllers import consolidation as consolidation_mod
-    from karpenter_tpu_torch.controllers import provisioning
     from karpenter_tpu_torch.controllers.cluster import Cluster
     from karpenter_tpu_torch.market.feed import MarketFeed, catalog_pools
     from karpenter_tpu_torch.market.pricebook import set_active_book
     from karpenter_tpu_torch.models import solver as solver_mod
     from karpenter_tpu_torch.models import warmup
-    from karpenter_tpu_torch.ops import consolidate, consolidate_kernel, encode
+    from karpenter_tpu_torch.ops import encode
     from karpenter_tpu_torch import runtime as port_runtime
     from karpenter_tpu_torch.runtime import RECONCILE_TOTAL
 
@@ -3895,33 +4039,8 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
         "--node-unreachable-timeout", str(CONTROLLER_UNREACHABLE_S),
     ]
 
-    # Each provisioning pass the batch loop runs: its wall time and its
-    # solve stage (the controller's own histogram, summed over the pass).
-    passes = []
-    original_provision = provisioning.ProvisionerWorker.provision
-
-    def timed_provision(worker):
-        solve_before = provisioning.SOLVE_DURATION._sums.get((), 0.0)
-        start = time.perf_counter()
-        stats = original_provision(worker)
-        passes.append({"at": start, "ms": (time.perf_counter() - start) * 1e3,
-                       "solve_ms": (provisioning.SOLVE_DURATION._sums.get((), 0.0) - solve_before) * 1e3,
-                       "scheduled": stats.scheduled_pods})
-        return stats
-
-    # Each consolidation sweep's counterfactual solve: its problem, its time
-    # and the K7 launches it made.
-    sweeps = []
-    original_candidates = consolidate.solve_candidates
-
-    def timed_candidates(problem, device=None):
-        launched = consolidate_kernel.solve_counterfactuals.launches
-        start = time.perf_counter()
-        verdicts = original_candidates(problem, device=device)
-        sweeps.append({"problem": problem, "ms": (time.perf_counter() - start) * 1e3, "at": start,
-                       "k7": consolidate_kernel.solve_counterfactuals.launches - launched})
-        return verdicts
-
+    probe_loops = ControllerProbe()
+    passes, sweeps = probe_loops.passes, probe_loops.sweeps
     readyz = []
     polling = threading.Event()
     polling.set()
@@ -3936,8 +4055,7 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
                     return
             time.sleep(0.02)
 
-    provisioning.ProvisionerWorker.provision = timed_provision
-    consolidate.solve_candidates = timed_candidates
+    probe_loops.install()
     poller = threading.Thread(target=poll_readyz, name="readyz-poll", daemon=True)
     kubelets = threading.Event()
     manager = None
@@ -3949,11 +4067,7 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
         healthz, _ = http_get(probe + "/healthz")
         check(healthz == 200, f"/healthz answered {healthz} right after boot, not 200")
         # Alone (--phase controller) the warmup builds every kernel (~90 s).
-        check(wait_for(lambda: manager.ready.is_set() or manager.warmup_error is not None, 300.0)
-              and manager.warmup_error is None,
-              f"the controller never became ready (warmup error: {manager.warmup_error!r})")
-        check(manager.solver.device.type == "cpu" or not manager.solver.host_fallback_available(),
-              "the host solve route is open on the card by default")
+        ControllerProbe.await_ready(manager)
         poller.join(timeout=10.0)
         polling.clear()
         statuses = [status for _, status in readyz]
@@ -3975,9 +4089,7 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
         check(manager.cloud is cloud, "main did not build the registered cloud")
 
         # The storm, through the loops alone.
-        host_before = solver_mod.SOLVE_DISPATCH_TOTAL.get("host")
-        device_before = solver_mod.SOLVE_DISPATCH_TOTAL.get("device")
-        launches_before = kernel_launches()
+        storm_before = ControllerProbe.counts()
         cluster.apply_provisioner(spot_provisioner(provisioner_module, requirements_module, wellknown))
         check(wait_for(lambda: manager.provisioning.worker("default") is not None, 30.0),
               "the provisioning loop never reconciled the provisioner")
@@ -4037,9 +4149,8 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
         check(set(binds) == uids and set(binds.values()) == {1} and not reschedules,
               "the storm did not bind every pod exactly once")
         storm_passes = [p for p in passes if storm_start <= p["at"] < storm_end and p["scheduled"]]
-        storm_launches = {name: count - launches_before[name] for name, count in kernel_launches().items()}
-        device_solves = solver_mod.SOLVE_DISPATCH_TOTAL.get("device") - device_before
-        host_solves = solver_mod.SOLVE_DISPATCH_TOTAL.get("host") - host_before
+        storm_counts = ControllerProbe.since(storm_before)
+        storm_launches, device_solves, host_solves = (storm_counts[key] for key in ("launches", "device", "host"))
         check(host_solves == 0, f"{host_solves:.0f} solves took the host path after the controller was ready")
         check(sum(p["scheduled"] for p in storm_passes) == len(pods),
               f"the storm's passes scheduled {sum(p['scheduled'] for p in storm_passes)} of {len(pods)} pods")
@@ -4116,8 +4227,7 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
         sweeps_before = sum(RECONCILE_TOTAL.get("consolidation", r) for r in ("success", "requeue", "error"))
         actions_before = {kind: consolidation_mod.CONSOLIDATION_ACTIONS_TOTAL.get(kind, "executed")
                           for kind in ("delete", "replace")}
-        launches_before = kernel_launches()
-        device_before = solver_mod.SOLVE_DISPATCH_TOTAL.get("device")
+        consolidation_before = ControllerProbe.counts()
         consolidation_start = time.perf_counter()
         for i in sorted(doomed):
             cluster.delete_pod(pods[i].namespace, pods[i].name)
@@ -4169,7 +4279,7 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
               f"consolidation did not settle after the budget went to 0: {executed():.0f} actions executed, "
               f"{unsettled()}")
         settle_s = time.perf_counter() - stopped_at
-        consolidation_launches = {name: count - launches_before[name] for name, count in kernel_launches().items()}
+        consolidation_launches = ControllerProbe.since(consolidation_before)["launches"]
         live_nodes = {n.name for n in cluster.list_nodes()}
         check(all(getattr(cluster.try_get_pod(p.namespace, p.name), "node_name", None) in live_nodes
                   for p in remaining)
@@ -4200,12 +4310,11 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
         profile_samples = json.loads(body)["profile_samples"]
         check(profile_samples > 0, "/debug/stacks took no profile sample")
         sweep_count = sum(RECONCILE_TOTAL.get("consolidation", r) for r in ("success", "requeue", "error")) - sweeps_before
-        consolidation_solves = solver_mod.SOLVE_DISPATCH_TOTAL.get("device") - device_before
+        consolidation_solves = ControllerProbe.since(consolidation_before)["device"]
     finally:
         kubelets.clear()
         polling.clear()
-        provisioning.ProvisionerWorker.provision = original_provision
-        consolidate.solve_candidates = original_candidates
+        probe_loops.remove()
         if manager is not None:
             manager.stop()
             manager.elector.release()
@@ -4220,10 +4329,8 @@ def run_controller(device, *, num_pods: int = NUM_PODS, num_types: int = NUM_TYP
         "applied_s": applied_s, "first_bind_s": first_bind, "last_bind_s": last_bind,
         "pass_p50_ms": float(np.percentile(storm_ms, 50)), "pass_max_ms": max(storm_ms),
         "passes": len(storm_passes), "first_solve_ms": first_solve, "warm_solve_p50_ms": warm_solve,
-        "stage_means_ms": {name: hist._sums.get((), 0.0) / max(hist.count(), 1) * 1e3
-                           for name, hist in (("schedule", provisioning.SCHEDULING_DURATION),
-                                              ("solve", provisioning.SOLVE_DURATION),
-                                              ("bind", provisioning.BIND_DURATION))},
+        "stage_means_ms": {name: total / max(count, 1) * 1e3
+                           for name, (total, count) in ControllerProbe.stages().items()},
         "storm_launches": storm_launches, "device_solves": device_solves, "host_solves": host_solves,
         "reprice_generations": book.generation - generation,
         "deleted": len(doomed), "remaining": len(remaining), "sweeps": sweep_count,
@@ -4419,6 +4526,635 @@ def controller_phase() -> dict:
             "lifecycle": run["lifecycle"]}
 
 
+# --- the controller on a live apiserver with the EC2 provider ----------------
+
+# The apiserver phase: a scale-up burst of the main path's shape mix (the
+# provisioner batches it in 2,000-pod windows), then consolidation with 40%
+# of it deleted. The controller's kube client keeps the reference's QPS 200,
+# burst 300 (options.go:33-34), so 5,000 Binding POSTs alone take 25 s.
+APISERVER_PODS = 5_000
+APISERVER_DELETE_FRACTION = 0.4
+APISERVER_DELETE_SEED = 29
+APISERVER_POST_THREADS = 8  # the store process's clients creating the pods
+APISERVER_CONSOLIDATION_S = 60.0  # consolidation runs at most this long, then the budget goes to 0
+APISERVER_HISTORY = 500_000  # the fake apiserver's watch history (events), past every event of the run
+APISERVER_TIMEOUT_S = 300.0  # each wait of the phase
+
+
+def fake_apiserver_module():
+    """tests/fake_apiserver.py, the repository's in-process kube-apiserver
+    double (CRUD with resourceVersions, the binding, eviction and status
+    subresources, Lease CAS, watch streams, served over HTTP by its
+    serve_http), loaded as tests/port_twins.py loads the port's twin of a
+    test helper: its one import of the JAX package's kubeapi client points
+    at the port's, so chip_smoke imports nothing of the JAX package."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "port_twins.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_port_twins", path)
+    port_twins = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(port_twins)
+    return port_twins.TwinPackage("port", "chip_smoke").module("fake_apiserver")
+
+
+def _path_kind(path: str) -> str:
+    """A request path's resource (and subresource): pods, pods/binding,
+    nodes, leases, provisioners/status, ..."""
+    parts = [part for part in path.split("?")[0].split("/") if part]
+    for resource in ("pods", "nodes", "provisioners", "leases", "daemonsets", "poddisruptionbudgets"):
+        if resource in parts:
+            rest = parts[parts.index(resource) + 1:]
+            return resource + (f"/{rest[1]}" if len(rest) > 1 else "")
+    return "other"
+
+
+class ApiServerTally:
+    """What the fake apiserver answered, counted in its handler: the Binding
+    POSTs it admitted per pod (and when), the statuses of the node POSTs per
+    provider id, the displacements per pod (a PATCH clearing spec.nodeName)."""
+
+    def __init__(self, server):
+        import threading
+        from collections import Counter
+
+        self.lock = threading.Lock()
+        self.binds = Counter()
+        self.bind_times = {}
+        self.displaced = Counter()
+        self.node_posts = {}  # provider id -> the statuses of the node POSTs that carried it
+        handle = server.handle
+
+        def counting(method, path, query="", body=None):
+            status, payload = handle(method, path, query, body)
+            kind = _path_kind(path)
+            with self.lock:
+                if kind == "pods/binding" and method == "POST" and status < 300:
+                    name = path.split("/")[-2]
+                    self.binds[name] += 1
+                    self.bind_times.setdefault(name, []).append(time.perf_counter())
+                elif kind == "nodes" and method == "POST":
+                    provider_id = ((body or {}).get("spec") or {}).get("providerID", "")
+                    self.node_posts.setdefault(provider_id, []).append(status)
+                elif (kind == "pods" and method == "PATCH" and status < 300
+                      and "nodeName" in ((body or {}).get("spec") or {})
+                      and body["spec"]["nodeName"] is None):
+                    self.displaced[path.split("/")[-1]] += 1
+            return status, payload
+
+        server.handle = counting
+
+
+class ControllerChild:
+    """The apiserver phase's controller process (`chip_smoke.py --phase
+    apiserver-controller`), driven by one command a line on its stdin; each
+    command's answer is an `apiserver_ack <json>` line on its stdout."""
+
+    def __init__(self, url: str, metrics_port: int, probe_port: int, device=None):
+        import queue
+        import threading
+
+        self.process = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase", "apiserver-controller", url,
+             str(metrics_port), str(probe_port)] + ([str(device)] if device is not None else []),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, bufsize=1)
+        self.lines = queue.Queue()
+        self.printed = []
+        self.errors = []
+
+        def read_out():
+            for line in self.process.stdout:
+                self.lines.put(line.rstrip("\n"))
+            self.lines.put(None)
+
+        def read_err():
+            for line in self.process.stderr:
+                if "\tINFO\t" not in line:
+                    self.errors.append(line.rstrip("\n"))
+                    del self.errors[:-200]
+
+        threading.Thread(target=read_out, name="controller-stdout", daemon=True).start()
+        threading.Thread(target=read_err, name="controller-stderr", daemon=True).start()
+
+    def ask(self, command: str, timeout_s: float = 120.0) -> dict:
+        import queue
+
+        try:
+            self.process.stdin.write(command + "\n")
+            self.process.stdin.flush()
+        except BrokenPipeError:
+            pass
+        deadline = time.perf_counter() + timeout_s
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.0, deadline - time.perf_counter()))
+            except queue.Empty:
+                line = None
+            if line is None:
+                check(False, f"the apiserver phase's controller did not answer {command!r} "
+                             f"(rc {self.process.poll()}):\n" + "\n".join(self.errors[-40:]))
+            if line.startswith("apiserver_ack "):
+                return json.loads(line[len("apiserver_ack "):])
+            self.printed.append(line)
+            print(line, flush=True)
+
+    def stop(self) -> None:
+        if self.process.poll() is None:
+            self.process.kill()
+        self.process.wait()
+
+
+def private_dns_name(instance_id: str, zone: str) -> str:
+    """An instance's private DNS name (its node's name) from its whole id.
+    FakeEc2 names an instance from its id modulo 256 and its index in the
+    fleet call, so past 256 ids two instances in a zone can share a name;
+    the second node's POST then answers 409, the launch adopts the first
+    node and the instance leaks until instancegc's grace runs out. A VPC's
+    addresses are unique, and so are these."""
+    number = int(instance_id.rsplit("-", 1)[1])
+    return f"ip-10-{number >> 16 & 255}-{number >> 8 & 255}-{number & 255}.{zone}.compute.internal"
+
+
+def apiserver_controller(url: str, metrics_port: int, probe_port: int, device=None) -> None:
+    """The controller process of the apiserver phase: cmd/controller.main on
+    the card with `--cluster-store <url>` (the store process's fake
+    apiserver over HTTP), leader election on the apiserver's Lease, and the
+    EC2 provider over FakeEc2 (the main path's catalog as EC2 records, its
+    three zones, each instance named from its whole id: private_dns_name)
+    registered as a provider factory. Then commands from the
+    store process on stdin (`apiserver_phase`): mark, provisioner, report,
+    consolidate, freeze, stop. `device` None is the card; "cpu" runs the
+    kernels' plain versions (a rehearsal: the host route as the caller's
+    environment sets it)."""
+    import threading
+    from collections import Counter
+
+    from karpenter_tpu_torch.cloudprovider import registry
+    from karpenter_tpu_torch.cloudprovider.ec2 import Ec2CloudProvider
+    from karpenter_tpu_torch.cloudprovider.ec2 import api as ec2_api
+    from karpenter_tpu_torch.cloudprovider.ec2.fake import FakeEc2
+    from karpenter_tpu_torch.cloudprovider.ec2.instances import PROVIDER_ID_FORMAT
+    from karpenter_tpu_torch.cmd import controller
+    from karpenter_tpu_torch.controllers import consolidation as consolidation_mod
+    from karpenter_tpu_torch.controllers import instancegc
+    from karpenter_tpu_torch.kubeapi.client import KUBE_API_LANE_WAIT, KUBE_API_REQUEST_DURATION, HttpTransport
+    from karpenter_tpu_torch.kubeapi.cluster import ApiServerCluster
+    from karpenter_tpu_torch.models import solver as solver_mod
+    from karpenter_tpu_torch.models import warmup
+
+    if device is None:
+        # The deployment as shipped: on the card the host route is closed.
+        os.environ.pop("KARPENTER_HOST_SOLVE", None)
+    world = {"fleet_ids": []}
+
+    def ec2_cloud():
+        api = FakeEc2(instance_type_infos=ec2_instance_type_infos(ec2_api), zones=ZONES,
+                      cluster_name=APISERVER_CLUSTER)
+        create_fleet = api.create_fleet
+
+        def recorded_fleet(request):
+            result = create_fleet(request)
+            with api._lock:
+                for instance_id in result.instance_ids:
+                    instance = api.instances.get(instance_id)
+                    if instance is not None:
+                        api.instances[instance_id] = dataclasses.replace(
+                            instance, private_dns_name=private_dns_name(instance_id, instance.zone))
+            world["fleet_ids"].extend(result.instance_ids)
+            return result
+
+        api.create_fleet = recorded_fleet
+        world["api"] = api
+        return Ec2CloudProvider(api=api, cluster_name=APISERVER_CLUSTER)
+
+    registry.register_factory(APISERVER_CLOUD, ec2_cloud)
+    lock = threading.Lock()
+    requests, events = Counter(), Counter()
+    original_request, original_stream = HttpTransport.request, HttpTransport.stream
+    original_on_watch = ApiServerCluster._on_watch
+
+    def counted_request(transport, method, path, query="", body=None, timeout_s=None):
+        with lock:
+            requests[f"{method} {_path_kind(path)}"] += 1
+        return original_request(transport, method, path, query, body, timeout_s)
+
+    def counted_stream(transport, path, query=""):
+        with lock:
+            requests[f"WATCH {_path_kind(path)}"] += 1
+        return original_stream(transport, path, query)
+
+    def counted_on_watch(cluster, kind, event_type, obj):
+        with lock:
+            events[f"{kind} {event_type}"] += 1
+        return original_on_watch(cluster, kind, event_type, obj)
+
+    probe = ControllerProbe()
+    HttpTransport.request, HttpTransport.stream = counted_request, counted_stream
+    ApiServerCluster._on_watch = counted_on_watch
+    probe.install()
+    argv = [
+        "--cluster-name", APISERVER_CLUSTER, "--cluster-store", url, "--solver", "cost",
+        "--cloud-provider", APISERVER_CLOUD, "--metrics-port", str(metrics_port),
+        "--health-probe-port", str(probe_port), "--consolidation-cooldown", "1",
+        "--consolidation-max-disruption", str(CONTROLLER_MAX_DISRUPTION),
+        "--disruption-budget", str(CONTROLLER_MAX_DISRUPTION),
+        "--market-poll-interval", str(CONTROLLER_MARKET_POLL_S),
+        "--selection-concurrency", str(CONTROLLER_SELECTION_CONCURRENCY),
+    ]
+    boot = time.perf_counter()
+    manager = controller.main(argv, block=False, device=device)
+    main_s = time.perf_counter() - boot
+    check(isinstance(manager.cluster, ApiServerCluster) and manager.cloud.api is world["api"],
+          "main did not build the apiserver store and the registered EC2 cloud")
+    mark = {}
+
+    def since(counter, key):
+        return {name: count - mark[key].get(name, 0) for name, count in counter.items()
+                if count != mark[key].get(name, 0)}
+
+    def report() -> dict:
+        api = world["api"]
+        with api._lock:
+            live = [PROVIDER_ID_FORMAT.format(zone=i.zone, instance_id=i.instance_id)
+                    for i in api.instances.values()]
+            live_ids = sorted(api.instances)
+            terminated = [i for call in api.calls["terminate_instances"] for i in call]
+            fleet_calls = len(api.calls["create_fleet"])
+        with lock:
+            counted = {"requests": since(requests, "requests"), "events": since(events, "events")}
+        solves = ControllerProbe.since(mark)
+
+        def seconds(histogram) -> dict:
+            with histogram._lock:
+                return {key[0]: total - mark["seconds"].get(id(histogram), {}).get(key[0], 0.0)
+                        for key, total in histogram._sums.items()}
+
+        return {
+            "lane_wait_s": seconds(KUBE_API_LANE_WAIT), "request_s": seconds(KUBE_API_REQUEST_DURATION),
+            "stage_s": {name: total - mark["stages"][name][0] for name, (total, _) in ControllerProbe.stages().items()},
+            "instances": live, "instance_ids": live_ids, "fleet_ids": list(world["fleet_ids"]),
+            "fleet_calls": fleet_calls, "terminated": terminated,
+            "instancegc_terminated": instancegc.INSTANCEGC_TERMINATED_TOTAL.get() - mark["instancegc"],
+            "launches": solves["launches"], "device_solves": solves["device"], "host_solves": solves["host"],
+            "passes": probe.passes[mark["passes"]:],
+            "sweeps": [{key: value for key, value in sweep.items() if key != "problem"}
+                       for sweep in probe.sweeps[mark["sweeps"]:]],
+            "actions": {kind: consolidation_mod.CONSOLIDATION_ACTIONS_TOTAL.get(kind, "executed")
+                        for kind in ("delete", "replace")},
+            **counted,
+        }
+
+    def answer(payload) -> None:
+        print("apiserver_ack " + json.dumps(payload), flush=True)
+
+    try:
+        for line in sys.stdin:
+            command = line.strip()
+            if command == "mark":
+                ControllerProbe.await_ready(manager)
+                with lock:
+                    mark.update(requests=Counter(requests), events=Counter(events))
+                mark["seconds"] = {}
+                for histogram in (KUBE_API_LANE_WAIT, KUBE_API_REQUEST_DURATION):
+                    with histogram._lock:
+                        mark["seconds"][id(histogram)] = {key[0]: total for key, total in histogram._sums.items()}
+                mark.update(ControllerProbe.counts(), stages=ControllerProbe.stages(),
+                            instancegc=instancegc.INSTANCEGC_TERMINATED_TOTAL.get(),
+                            passes=len(probe.passes), sweeps=len(probe.sweeps))
+                answer({"main_s": main_s, "warmup_s": manager.warmup_s,
+                        "rung_failures": warmup.WARMUP_RUNG_FAILURES.get(),
+                        "calibrated": solver_mod.break_even() is not None,
+                        "leader": manager.elector.is_leader.is_set(),
+                        "boot_requests": dict(mark["requests"]), "boot_events": dict(mark["events"])})
+            elif command == "provisioner":
+                answer({"reconciled": wait_for(
+                    lambda: manager.provisioning.worker("default") is not None, 60.0)})
+            elif command == "report":
+                answer(report())
+            elif command == "consolidate":
+                manager.loops["consolidation"].enqueue("sweep")
+                answer({})
+            elif command == "freeze":
+                manager.disruption_ledger.budget = 0
+                answer({})
+            elif command == "stop":
+                break
+    finally:
+        HttpTransport.request, HttpTransport.stream = original_request, original_stream
+        ApiServerCluster._on_watch = original_on_watch
+        probe.remove()
+        manager.stop()
+        manager.elector.release()
+        manager.cluster.close()
+    answer({"stopped": True})
+
+
+def apiserver_phase(device=None, num_pods: int = APISERVER_PODS,
+                    consolidation_s: float = APISERVER_CONSOLIDATION_S) -> dict:
+    """The `apiserver` phase, run by `chip_smoke.py --phase apiserver` in a
+    process of its own: this process is the store (the fake apiserver served
+    over HTTP on a loopback port, the kubelets, kubectl), a child the
+    controller (`apiserver_controller`, on the card). The controller boots
+    (/readyz 503, then 200); a Provisioner and APISERVER_PODS pending pods of
+    the main path's shape mix arrive through HTTP POSTs; every pod is bound
+    exactly once through the Binding subresource; the kubelets join every
+    node; every node is one live FakeEc2 instance launched by a recorded
+    create_fleet call; each device solve launched K1, the K2 pair (K4 in its
+    epilogue) and K3 once, no host solve after ready. Then 40% of the pods
+    are deleted through the API and consolidation runs at most
+    APISERVER_CONSOLIDATION_S: a K7 sweep launches, every node it removes
+    is terminated through FakeEc2.terminate_instances, every displaced pod
+    is bound again once, and the fleet's $/hr falls. Prints the phase's
+    lines; returns its numbers. `device` "cpu" rehearses it here (the CPU
+    counts no kernel launch: the launch checks are the card's)."""
+    import threading
+
+    from karpenter_tpu_torch.api import provisioner as provisioner_module
+    from karpenter_tpu_torch.api import requirements as requirements_module
+    from karpenter_tpu_torch.api import wellknown
+    from karpenter_tpu_torch.cloudprovider.ec2 import api as ec2_api
+    from karpenter_tpu_torch.cloudprovider.ec2.fake import SPOT_DISCOUNT
+    from karpenter_tpu_torch.kubeapi import KubeClient, convert
+    from karpenter_tpu_torch.kubeapi.client import HttpTransport
+    from karpenter_tpu_torch.kubeapi.cluster import PROVISIONERS
+
+    fake = fake_apiserver_module()
+    server = fake.FakeApiServer(history_limit=APISERVER_HISTORY)
+    tally = ApiServerTally(server)
+    httpd = fake.serve_http(server, 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    metrics_port, probe_port = free_port(), free_port()
+    while probe_port == metrics_port:
+        probe_port = free_port()
+    probe = f"http://127.0.0.1:{probe_port}"
+    on_demand = {info.name: info.price_on_demand for info in ec2_instance_type_infos(ec2_api)}
+    on_card = device is None
+
+    def stored(kind: str) -> list:
+        """The store's objects of a kind, read in place under its lock (a
+        LIST through the handler deep-copies every object, which at 5,000
+        pods would hold the apiserver's lock for much of each poll): the
+        fields the phase reads."""
+        with server._lock:
+            return [{"metadata": {key: obj["metadata"].get(key) for key in
+                                  ("name", "labels", "annotations", "deletionTimestamp")},
+                     "spec": dict(obj.get("spec") or {})}
+                    for obj in server._collection(kind).values()]
+
+    def fleet_cost() -> float:
+        cost = 0.0
+        for node in stored("nodes"):
+            labels = node["metadata"]["labels"]
+            price = on_demand[labels[wellknown.INSTANCE_TYPE_LABEL]]
+            cost += price * (SPOT_DISCOUNT if labels[wellknown.CAPACITY_TYPE_LABEL] == "spot" else 1.0)
+        return cost
+
+    readyz = []
+    kubelets_stop = threading.Event()
+    child = ControllerChild(url, metrics_port, probe_port, device)
+    try:
+        boot = time.perf_counter()
+
+        def ready():
+            status, _ = http_get(probe + "/readyz", timeout=2.0)
+            if status is not None:
+                readyz.append(status)
+            return status == 200
+
+        check(wait_for(ready, APISERVER_TIMEOUT_S, poll_s=0.05), f"/readyz never answered 200: {set(readyz)}")
+        ready_s = time.perf_counter() - boot
+        check(503 in readyz and set(readyz) <= {503, 200},
+              f"/readyz did not answer 503 before the warmup ended and 200 after: {sorted(set(readyz))}")
+        booted = child.ask("mark", APISERVER_TIMEOUT_S)
+        check(booted["rung_failures"] == 0 and booted["calibrated"] and booted["leader"],
+              f"the controller's boot: {booted}")
+        phase("apiserver_boot", ready_s=f"{ready_s:.3f}", main_s=f"{booted['main_s']:.3f}",
+              warmup_s=f"{booted['warmup_s']:.3f}", readyz_polls=len(readyz))
+        leases = [lease["spec"]["holderIdentity"] for lease in
+                  server.handle("GET", "/apis/coordination.k8s.io/v1/namespaces/kube-system/leases")[1]["items"]]
+        check(len(leases) == 1, f"the controller holds no Lease on the apiserver: {leases}")
+
+        # kubectl: the provisioner, then the pods, through the API.
+        client = KubeClient(HttpTransport(url), qps=1e6, burst=10**6)
+        client.create(PROVISIONERS, convert.provisioner_to_kube(
+            ec2_provisioner(provisioner_module, requirements_module, wellknown)))
+        check(child.ask("provisioner")["reconciled"], "the controller never reconciled the provisioner")
+        pods, _ = storm_workload(num_pods)
+        bodies = [convert.pod_to_kube(pod) for pod in pods]
+        posts_start = time.perf_counter()
+        posted = [0.0] * APISERVER_POST_THREADS
+
+        def post(index):
+            for body in bodies[index::APISERVER_POST_THREADS]:
+                client.create(f"/api/v1/namespaces/{body['metadata']['namespace']}/pods", body)
+            posted[index] = time.perf_counter()
+
+        posters = [threading.Thread(target=post, args=(i,), name=f"kubectl-{i}")
+                   for i in range(APISERVER_POST_THREADS)]
+        for thread in posters:
+            thread.start()
+        for thread in posters:
+            thread.join()
+        last_post = max(posted)
+
+        def unbound() -> int:
+            return sum(1 for pod in stored("pods") if not pod["spec"].get("nodeName"))
+
+        def all_bound() -> bool:
+            with tally.lock:
+                if len(tally.binds) < len(pods):
+                    return False
+            return unbound() == 0
+
+        check(wait_for(all_bound, APISERVER_TIMEOUT_S, poll_s=0.2),
+              f"{unbound()} of {len(pods)} pods were never bound")
+        with tally.lock:
+            binds = dict(tally.binds)
+            last_bind = max(times[0] for times in tally.bind_times.values())
+            first_bind = min(times[0] for times in tally.bind_times.values())
+        phase("apiserver_bound", pods=len(pods), posts_s=f"{last_post - posts_start:.3f}",
+              first_bind_s=f"{first_bind - posts_start:.3f}",
+              last_post_to_last_bind_s=f"{last_bind - last_post:.3f}")
+        names = {pod.name for pod in pods}
+        check(set(binds) == names and set(binds.values()) == {1},
+              "the storm did not bind every pod exactly once through the Binding subresource: "
+              f"{len(set(binds) & names)} of {len(names)} bound, counts {sorted(set(binds.values()))}")
+
+        # The kubelets: every node reports Ready (a status merge-patch, what
+        # a kubelet's status loop sends) and heartbeats every
+        # CONTROLLER_HEARTBEAT_S; the node loop strips the not-ready taint.
+        def heartbeat():
+            while True:
+                stamp = convert.rfc3339(time.time())
+                for node in stored("nodes"):
+                    if node["metadata"].get("deletionTimestamp"):
+                        continue
+                    server.handle("PATCH", f"/api/v1/nodes/{node['metadata']['name']}", body={
+                        "status": {"conditions": [{"type": "Ready", "status": "True",
+                                                   "lastHeartbeatTime": stamp}]}})
+                if kubelets_stop.wait(CONTROLLER_HEARTBEAT_S):
+                    return
+
+        threading.Thread(target=heartbeat, name="kubelets", daemon=True).start()
+
+        def not_joined() -> int:
+            return sum(1 for node in stored("nodes")
+                       if any(t["key"] == wellknown.NOT_READY_TAINT_KEY for t in node["spec"].get("taints") or []))
+
+        joined_start = time.perf_counter()
+        check(wait_for(lambda: not_joined() == 0, APISERVER_TIMEOUT_S, poll_s=0.5),
+              f"{not_joined()} nodes never joined")
+        joined_s = time.perf_counter() - joined_start
+
+        def nodes_are_instances(terminations_allowed: bool):
+            """The nodes against FakeEc2's live instances once no launch or
+            termination is in flight (an instance bought a moment before
+            its node is POSTed, or terminated a moment before its node's
+            finalizer goes, is not a leak): waits up to APISERVER_TIMEOUT_S
+            for them to agree; the report and the nodes, by name. A leaked
+            instance could vanish inside that wait (instancegc reaps an
+            orphan once its grace runs out), so agreement alone is not
+            enough: every node POST was admitted, instancegc terminated
+            nothing, and, before consolidation, nothing was terminated."""
+            found = {}
+
+            def agree():
+                found["state"] = state = child.ask("report")
+                found["nodes"] = nodes = stored("nodes")
+                ids = [node["spec"].get("providerID") for node in nodes]
+                return len(set(ids)) == len(ids) and set(ids) == set(state["instances"])
+
+            if not wait_for(agree, APISERVER_TIMEOUT_S, poll_s=1.0):
+                state, nodes = found["state"], found["nodes"]
+                ids = {node["spec"].get("providerID") for node in nodes}
+                extra = sorted(set(state["instances"]) - ids)
+                with tally.lock:
+                    posts = {provider_id: tally.node_posts.get(provider_id) for provider_id in extra[:10]}
+                check(False, f"the {len(nodes)} nodes are not the {len(state['instances'])} live FakeEc2 "
+                             f"instances: {len(extra)} instances without a node (their node POSTs: {posts}), "
+                             f"{len(ids - set(state['instances']))} nodes without an instance")
+            state = found["state"]
+            check(set(state["instance_ids"]) <= set(state["fleet_ids"]),
+                  "a live instance does not come from a recorded create_fleet call")
+            with tally.lock:
+                refused = {provider_id: statuses for provider_id, statuses in tally.node_posts.items()
+                           if any(status >= 300 for status in statuses)}
+            check(not refused, f"{len(refused)} node POSTs were refused (a launch adopted another's node "
+                               f"and leaked its instance): {dict(list(refused.items())[:10])}")
+            check(state["instancegc_terminated"] == 0,
+                  f"instancegc terminated {state['instancegc_terminated']:.0f} orphaned instances")
+            check(terminations_allowed or not state["terminated"],
+                  f"{len(state['terminated'])} instances were terminated before consolidation")
+            return state, {node["metadata"]["name"]: node["spec"]["providerID"] for node in found["nodes"]}
+
+        storm, storm_nodes = nodes_are_instances(terminations_allowed=False)
+        launches, solves = storm["launches"], int(storm["device_solves"])
+        check(storm["host_solves"] == 0, f"{storm['host_solves']:.0f} solves took the host path after ready")
+        check(solves >= 1 and (not on_card or all(launches[name] == solves for name in
+                                                  ("dominance_prices", "pack_pair_payload", "lp_relax"))),
+              f"the {solves} device solves did not each launch K1, the K2 pair (K4) and K3 once: {launches}")
+        storm_passes = [p for p in storm["passes"] if p["scheduled"]]
+        check(sum(p["scheduled"] for p in storm_passes) == len(pods),
+              f"the passes scheduled {sum(p['scheduled'] for p in storm_passes)} of {len(pods)} pods")
+        solve_p50 = float(np.percentile([p["solve_ms"] for p in storm_passes], 50))
+        phase("apiserver_storm", pods=len(pods), passes=len(storm_passes),
+              pass_ms=",".join(f"{p['ms']:.0f}" for p in storm_passes),
+              stage_s=json.dumps({k: round(v, 3) for k, v in storm["stage_s"].items()}, separators=(",", ":")),
+              lane_wait_s=json.dumps({k: round(v, 3) for k, v in storm["lane_wait_s"].items()}, separators=(",", ":")),
+              request_s=json.dumps({k: round(v, 3) for k, v in storm["request_s"].items()}, separators=(",", ":")),
+              solve_p50_ms=f"{solve_p50:.3f}", solve_max_ms=f"{max(p['solve_ms'] for p in storm_passes):.3f}",
+              device_solves=solves, host_solves=int(storm["host_solves"]),
+              nodes=len(storm_nodes), fleet_calls=storm["fleet_calls"], joined_s=f"{joined_s:.3f}",
+              launches=json.dumps(launches, separators=(",", ":")))
+
+        # Consolidation: a seeded share of the pods goes away through the API.
+        cost_before = fleet_cost()
+        rng = np.random.default_rng(APISERVER_DELETE_SEED)
+        doomed = set(rng.choice(len(pods), int(APISERVER_DELETE_FRACTION * len(pods)), replace=False).tolist())
+        remaining = {pod.name for i, pod in enumerate(pods) if i not in doomed}
+        for i in sorted(doomed):
+            client.delete(f"/api/v1/namespaces/{pods[i].namespace}/pods/{pods[i].name}")
+        consolidation_start = time.perf_counter()
+        child.ask("consolidate")
+        claim_keys = (wellknown.CONSOLIDATION_ACTION_ANNOTATION, wellknown.DRIFT_ACTION_ANNOTATION)
+
+        def acted() -> bool:
+            state = child.ask("report")
+            return any(sweep["k7"] for sweep in state["sweeps"]) and sum(
+                state["actions"][kind] - storm["actions"][kind] for kind in state["actions"]) > 0
+
+        wait_for(acted, consolidation_s, poll_s=1.0)
+        time.sleep(max(0.0, consolidation_s - (time.perf_counter() - consolidation_start)))
+        child.ask("freeze")
+        frozen = time.perf_counter()
+
+        def settled() -> bool:
+            nodes = stored("nodes")
+            live = {node["metadata"]["name"] for node in nodes
+                    if not node["metadata"].get("deletionTimestamp")
+                    and not any(key in (node["metadata"].get("annotations") or {}) for key in claim_keys)}
+            if len(live) != len(nodes):
+                return False
+            pods_now = {pod["metadata"]["name"]: pod for pod in stored("pods")}
+            if set(pods_now) != remaining:
+                return False
+            with tally.lock:
+                if any(tally.binds[name] != 1 + tally.displaced[name] for name in remaining):
+                    return False
+            return all(pod["spec"].get("nodeName") in live for pod in pods_now.values())
+
+        check(wait_for(settled, APISERVER_TIMEOUT_S, poll_s=1.0), "consolidation did not settle")
+        settle_s = time.perf_counter() - frozen
+        final, final_nodes = nodes_are_instances(terminations_allowed=True)
+        sweeps = final["sweeps"][len(storm["sweeps"]):]
+        check(sweeps and (not on_card or all(sweep["k7"] == 1 for sweep in sweeps)),
+              f"the consolidation sweeps did not each launch K7 once: {[s['k7'] for s in sweeps]}")
+        removed = {name: provider_id for name, provider_id in storm_nodes.items() if name not in final_nodes}
+        terminated = {f"/{instance_id}" for instance_id in final["terminated"]}
+        check(all(any(provider_id.endswith(t) for t in terminated) for provider_id in removed.values()),
+              "a node consolidation removed was not terminated through FakeEc2.terminate_instances")
+        with tally.lock:
+            moved = {name: count for name, count in tally.displaced.items() if name in remaining}
+            check(all(tally.binds[name] == 1 + tally.displaced[name] for name in remaining),
+                  "a displaced pod was not bound again exactly once")
+        check(final["host_solves"] == 0, f"{final['host_solves']:.0f} solves took the host path")
+        all_launches = final["launches"]
+        all_solves = int(final["device_solves"])
+        check(not on_card or all(all_launches[name] == all_solves
+                                 for name in ("dominance_prices", "pack_pair_payload", "lp_relax")),
+              f"the {all_solves} device solves did not each launch K1, the K2 pair (K4) and K3 once: {all_launches}")
+        cost_after = fleet_cost()
+        check(cost_after < cost_before, f"consolidation did not lower the fleet's $/hr: {cost_before} -> {cost_after}")
+        actions = {kind: final["actions"][kind] - storm["actions"][kind] for kind in final["actions"]}
+        phase("apiserver_consolidation", deleted=len(doomed), sweeps=len(sweeps),
+              k7_launches=sum(sweep["k7"] for sweep in sweeps),
+              sweep_p50_ms=f"{np.percentile([s['ms'] for s in sweeps], 50):.3f}",
+              actions=json.dumps(actions, separators=(",", ":")), nodes=f"{len(storm_nodes)}->{len(final_nodes)}",
+              removed=len(removed), displaced=len(moved), rebinds=sum(moved.values()),
+              settle_s=f"{settle_s:.3f}", cost_before=f"{cost_before:.6f}", cost_after=f"{cost_after:.6f}",
+              device_solves=all_solves - solves)
+        phase("apiserver_http", controller_requests=json.dumps(final["requests"], separators=(",", ":"), sort_keys=True),
+              controller_watch_events=json.dumps(final["events"], separators=(",", ":"), sort_keys=True),
+              boot_requests=sum(booted["boot_requests"].values()))
+        kubelets_stop.set()
+        check(child.ask("stop", APISERVER_TIMEOUT_S).get("stopped"), "the controller did not stop")
+        check(child.process.wait(timeout=60) == 0, f"the controller exited with {child.process.returncode}")
+    except RuntimeError as error:
+        raise RuntimeError(f"{error}\nthe controller's last warnings:\n" + "\n".join(child.errors[-60:])) from error
+    finally:
+        kubelets_stop.set()
+        child.stop()
+        httpd.shutdown()
+        httpd.server_close()
+    return {
+        "pods": len(pods), "ready_s": ready_s, "solve_p50_ms": solve_p50,
+        "last_post_to_last_bind_s": last_bind - last_post, "storm_launches": launches,
+        "device_solves": all_solves, "launches": all_launches,
+        "k7_launches": sum(sweep["k7"] for sweep in sweeps), "sweeps": len(sweeps),
+        "requests": final["requests"], "watch_events": final["events"],
+        "cost_before": cost_before, "cost_after": cost_after,
+    }
+
+
 def consolidate_alone() -> None:
     """`chip_smoke.py --phase consolidate`: K7 built, the consolidation
     phase by itself, then K7's device and event times at its sweep."""
@@ -4558,14 +5294,21 @@ def child_result(child, marker: str):
 
 def main(argv=None) -> int:
     """With no arguments, every phase. `--greedy-signature`, `--phase
-    controller` and `--phase multiprocess-rank` are the parts the full run
-    starts in processes of their own; `--phase sharded`, `--phase
+    controller`, `--phase apiserver` (with its `--phase
+    apiserver-controller`) and `--phase multiprocess-rank` are the parts
+    the full run starts in processes of their own (`--phase apiserver` also
+    runs that phase alone); `--phase sharded`, `--phase
     consolidate` and `--phase multiprocess` run the sharded, the
     consolidation and the multiprocess phase alone, and `--phase fused` the
     fused solve's records and K4's share of K2's launch."""
     import torch
 
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:2] == ["--phase", "apiserver-controller"] and argv[5:] == ["cpu"]:
+        # The apiserver phase's controller in a rehearsal on the CPU
+        # (apiserver_phase("cpu")).
+        apiserver_controller(argv[2], int(argv[3]), int(argv[4]), "cpu")
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the card", file=sys.stderr)
         return 2
@@ -4586,6 +5329,12 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--phase", "multiprocess"]:
         multiprocess_alone()
+        return 0
+    if argv == ["--phase", "apiserver"]:
+        print("apiserver_result " + json.dumps(apiserver_phase()))
+        return 0
+    if len(argv) == 5 and argv[:2] == ["--phase", "apiserver-controller"]:
+        apiserver_controller(argv[2], int(argv[3]), int(argv[4]))
         return 0
     if len(argv) == 5 and argv[:2] == ["--phase", "multiprocess-rank"]:
         multiprocess_rank(int(argv[2]), int(argv[3]), argv[4])
@@ -4649,6 +5398,10 @@ def smoke(children) -> int:
     children.append(greedy_child)
     controller_child = run_child(["--phase", "controller"], 1100.0)
     children.append(controller_child)
+    # The apiserver phase (10f) is two processes of its own, the store and
+    # the controller, started together with the controller phase's.
+    apiserver_child = run_child(["--phase", "apiserver"], 1100.0)
+    children.append(apiserver_child)
 
     # Encode the main path's workload once (host work, timed).
     pods, catalog = make_workload()
@@ -4984,6 +5737,9 @@ def smoke(children) -> int:
     # build.
     controller = child_result(controller_child, "controller_result")
     lifecycle = controller["lifecycle"]
+    # 10f. the controller on a live apiserver with the EC2 provider.
+    apiserver = child_result(apiserver_child, "apiserver_result")
+    apiserver_launches = apiserver["launches"]
 
     # 10e. the multi-process sharded solve: two processes share the card
     # over gloo, two shards each (after the controller child, so that its
@@ -5132,6 +5888,7 @@ def smoke(children) -> int:
             "launches": launches["dominance_prices"], "max_abs_err": k1_err,
             "launches_controller": controller["storm_launches"]["dominance_prices"],
             "launches_controller_lifecycle": lifecycle["k1"],
+            "launches_apiserver": apiserver_launches["dominance_prices"],
             "launches_multiprocess_per_rank": mp_launches["dominance_prices"],
             "ms": k1_ms, "event_ms": k1_event_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
             "bound_by": k1_by, "library_ms": None, "blocks": k1_plan.blocks, "rows_per_block": k1_plan.rows,
@@ -5148,6 +5905,7 @@ def smoke(children) -> int:
             "launches_single_mode": storm["k2_single_launches"],
             "launches_controller": controller["storm_launches"]["pack_kernel"],
             "launches_controller_lifecycle": lifecycle["k2"],
+            "launches_apiserver": apiserver_launches["pack_pair_payload"],
             "launches_multiprocess_per_rank": mp_launches["pack_pair_payload"],
         },
         {
@@ -5166,6 +5924,7 @@ def smoke(children) -> int:
             "launches": launches["lp_relax"], "max_abs_err": k3_err,
             "launches_controller": controller["storm_launches"]["lp_relax"],
             "launches_controller_lifecycle": lifecycle["k3"],
+            "launches_apiserver": apiserver_launches["lp_relax"],
             "launches_multiprocess_per_rank": mp_launches["lp_relax"],
             "ms": k3_ms, "event_ms": k3_event_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
             "bound_by": k3_by, "library_ms": None,
@@ -5180,6 +5939,7 @@ def smoke(children) -> int:
             "launches": launches["pack_pair_payload"], "standalone_launches": 0,
             "fused_into": "pack_kernel", "max_abs_err": k4_err, "cases": k4_cases,
             "launches_controller": controller["storm_launches"]["pack_pair_payload"],
+            "launches_apiserver": apiserver_launches["pack_pair_payload"],
             "plain_ms": k4_plain_ms,
             "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
         },
@@ -5191,6 +5951,7 @@ def smoke(children) -> int:
             "ms": k7_ms, "event_ms": k7_event_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound,
             "bound_by": k7_by, "library_ms": None,
             "launches_controller": controller["k7_launches"], "ms_controller": controller["k7_ms"],
+            "launches_apiserver": apiserver["k7_launches"],
             "event_ms_controller": controller["k7_event_ms"], "shape_controller": controller["k7_shape"],
             "cluster_controller": controller["k7_cluster"], "cluster": sweep["cluster"],
         },

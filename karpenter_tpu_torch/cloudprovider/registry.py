@@ -4,10 +4,6 @@ Ref: pkg/cloudprovider/registry/register.go — the reference selects the
 provider at compile time via build tags and installs its Default/Validate
 hooks into the API package. We select at runtime (config/env) and do the same
 hook installation.
-
-The port registers the in-memory fake provider; asking for "ec2" raises
-KeyError, since the EC2 provider is not ported. A caller plugs another
-provider in with register_factory and passes its name.
 """
 
 from __future__ import annotations
@@ -47,11 +43,9 @@ def _register_builtins() -> None:
     register_factory("fake", FakeCloudProvider)
 
     def _ec2_factory():
-        raise KeyError(
-            "cloud provider 'ec2' is not ported to karpenter_tpu_torch "
-            "(cloudprovider/ec2 and its AWS wire layer); use 'fake' or "
-            "register a factory"
-        )
+        from karpenter_tpu_torch.cloudprovider.ec2 import Ec2CloudProvider
+
+        return Ec2CloudProvider()
 
     register_factory("ec2", _ec2_factory)
 

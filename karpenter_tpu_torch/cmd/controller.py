@@ -4,9 +4,12 @@ The port of karpenter_tpu/cmd/controller.py (ref: cmd/controller/main.go:61-99)
 — parse options, build logging, acquire leadership, construct the cloud
 provider (installing its API hooks), register the controllers, serve metrics
 + health. The solver, encoder and consolidation solve run on the CUDA card
-(`main(..., device="cpu")` runs the kernels' plain versions); the cluster
-store is the in-memory one (the apiserver-backed `kubeapi` store is not
-ported).
+(`main(..., device="cpu")` runs the kernels' plain versions). The cluster
+store is `--cluster-store`: "memory" (the default), an apiserver over HTTP
+(`http://host:port` or `https://...`), or "incluster" (the pod's service
+account), each through `kubeapi.ApiServerCluster`; `--cloud-provider ec2`
+launches through `cloudprovider/ec2` (its `FakeEc2` unless an AWS API is
+wired in).
 
 Run: python -m karpenter_tpu_torch.cmd.controller --cluster-name my-cluster
 """
@@ -28,15 +31,27 @@ from karpenter_tpu_torch.utils import options as options_pkg
 
 
 def build_cluster(options) -> Cluster:
-    """Select the cluster-store backend: the in-memory store for "memory";
-    the reference's apiserver-backed store (kubeapi) is not ported, so any
-    other --cluster-store raises."""
-    if options.cluster_store == "memory":
+    """Select the cluster-store backend (ref: cmd/controller/main.go:61-99 —
+    the reference always reconciles a live apiserver; --cluster-store wires
+    the same here, with the in-memory store for standalone/dev runs)."""
+    from karpenter_tpu_torch.kubeapi import ApiServerCluster, KubeClient, RetryPolicy
+    from karpenter_tpu_torch.kubeapi.client import HttpTransport
+
+    transport = HttpTransport.for_store(options.cluster_store)
+    if transport is None:
         return Cluster()
-    raise ValueError(
-        f"--cluster-store {options.cluster_store!r}: the apiserver-backed store "
-        "(kubeapi) is not ported to karpenter_tpu_torch; use 'memory'"
+    transport.watch_idle_s = options.kube_watch_idle_timeout
+    client = KubeClient(
+        transport,
+        qps=options.kube_client_qps,
+        burst=options.kube_client_burst,
+        retry=RetryPolicy(
+            max_attempts=options.kube_retry_max_attempts,
+            backoff_base_s=options.kube_retry_backoff_base,
+            backoff_cap_s=options.kube_retry_backoff_cap,
+        ),
     )
+    return ApiServerCluster(client).start()
 
 
 def main(

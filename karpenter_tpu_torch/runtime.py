@@ -4,8 +4,10 @@ The port of karpenter_tpu/runtime.py (ref: cmd/controller/main.go +
 pkg/controllers/manager.go): wires cluster watches to reconcile loops, runs
 the per-Provisioner batch windows, serves /metrics and /healthz//readyz, and
 holds a leader lock. Everything is thread-based (the reference's goroutines)
-over the in-memory cluster store; tests keep driving controllers
-synchronously without any of this.
+over either cluster store: the in-memory `Cluster`, or `kubeapi.
+ApiServerCluster`, whose watch pumps keep its cache in step with a live
+apiserver (cmd/controller.build_cluster picks one from --cluster-store).
+Tests keep driving controllers synchronously without any of this.
 
 The device is explicit: `Manager(cluster, cloud, options, device=None)` runs
 its solver, encoder and consolidation solve on the CUDA card and raises

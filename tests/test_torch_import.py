@@ -132,6 +132,31 @@ def test_the_mesh_modules_are_checked():
         assert name in names
 
 
+def test_the_store_and_cloud_modules_are_checked():
+    """The blocked-import check below covers every module of the port; the
+    apiserver-backed cluster store, its serialization and the EC2 provider
+    with its AWS wire layer among them."""
+    names = _module_names()
+    for name in (
+        "karpenter_tpu_torch.api.serialization",
+        "karpenter_tpu_torch.kubeapi",
+        "karpenter_tpu_torch.kubeapi.client",
+        "karpenter_tpu_torch.kubeapi.convert",
+        "karpenter_tpu_torch.kubeapi.cluster",
+        "karpenter_tpu_torch.kubeapi.chaos",
+        "karpenter_tpu_torch.cloudprovider.ec2",
+        "karpenter_tpu_torch.cloudprovider.ec2.api",
+        "karpenter_tpu_torch.cloudprovider.ec2.vendor",
+        "karpenter_tpu_torch.cloudprovider.ec2.network",
+        "karpenter_tpu_torch.cloudprovider.ec2.instancetypes",
+        "karpenter_tpu_torch.cloudprovider.ec2.launchtemplates",
+        "karpenter_tpu_torch.cloudprovider.ec2.instances",
+        "karpenter_tpu_torch.cloudprovider.ec2.fake",
+        "karpenter_tpu_torch.cloudprovider.ec2.aws_http",
+    ):
+        assert name in names
+
+
 def test_every_module_imports_with_jax_blocked():
     script = textwrap.dedent(
         f"""

@@ -69,6 +69,22 @@ VERBATIM = [
     "controllers/interruption.py",
     "controllers/health.py",
     "utils/options.py",
+    "api/serialization.py",
+    "kubeapi/__init__.py",
+    "kubeapi/client.py",
+    "kubeapi/convert.py",
+    "kubeapi/cluster.py",
+    "kubeapi/chaos.py",
+    "cloudprovider/registry.py",
+    "cloudprovider/ec2/__init__.py",
+    "cloudprovider/ec2/api.py",
+    "cloudprovider/ec2/vendor.py",
+    "cloudprovider/ec2/network.py",
+    "cloudprovider/ec2/instancetypes.py",
+    "cloudprovider/ec2/launchtemplates.py",
+    "cloudprovider/ec2/instances.py",
+    "cloudprovider/ec2/fake.py",
+    "cloudprovider/ec2/aws_http.py",
 ]
 _DOCSTRING = "docstring only: names the port's files and devices"
 _NO_SPANS = "no tracing spans"
@@ -157,13 +173,9 @@ TRIMMED = {
                            "Manager (no serving from a card that cannot solve)",
     },
     "cmd/controller.py": {
-        "build_cluster": "the in-memory store only: kubeapi is not ported",
         "main": "takes the device the Manager runs on; hands the elector to a caller that "
                 "does not block; no JAX donation advisory to suppress; a Manager stopped by a "
                 "failed card warmup ends the blocking process with its error",
-    },
-    "cloudprovider/registry.py": {
-        "_register_builtins": "registers fake; asking for ec2 raises KeyError (not ported)",
     },
     "utils/backend_health.py": {
         "BackendHealth.ensure_backend": "settles HEALTHY for a CPU device without a probe, "

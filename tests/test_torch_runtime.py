@@ -582,12 +582,23 @@ def test_controller_main_binds_every_pod_exactly_once():
 
 
 def test_controller_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="kubeapi"):
-        controller.build_cluster(Options(cluster_name="x", cluster_store="incluster"))
+    """The solver sidecar is the part of the controller process not ported;
+    the stores and the EC2 provider are the reference's: --cluster-store
+    selects the in-memory store or an apiserver's transport, and the
+    registry's ec2 builds the EC2 provider."""
+    from karpenter_tpu_torch.cloudprovider.ec2 import Ec2CloudProvider
+    from karpenter_tpu_torch.kubeapi.client import HttpTransport
+
+    with pytest.raises(ValueError, match="not ported"):
+        port_runtime.make_solver("remote")
     assert isinstance(controller.build_cluster(Options(cluster_name="x")), Cluster)
-    with pytest.raises(KeyError, match="not ported"):
-        registry.new_cloud_provider("ec2")
-    assert isinstance(registry.new_cloud_provider("fake"), FakeCloudProvider)
+    assert HttpTransport.for_store("memory") is None
+    transport = HttpTransport.for_store("http://127.0.0.1:8001")
+    assert isinstance(transport, HttpTransport) and transport.base_url == "http://127.0.0.1:8001"
+    try:
+        assert isinstance(registry.new_cloud_provider("ec2"), Ec2CloudProvider)
+    finally:
+        assert isinstance(registry.new_cloud_provider("fake"), FakeCloudProvider)
 
 
 # --- calibration and the host gate --------------------------------------------
