@@ -242,6 +242,43 @@ limit, and as the last line {"ok": true, "device": {...}}:
               bound again once, the $/hr lower. The solve p50, the time
               from the last POST to the last bind, the controller's HTTP
               requests and watch events by kind, each kernel's launches
+ 10g. sidecar  the solver sidecar (solver_service) through its entry
+              point, `python -m karpenter_tpu_torch.solver_service.server`,
+              in two child processes (SidecarChild; no other child of this
+              script is live then, and the line says so): Health and
+              grpc.health.v1 polled from "warming" and NOT_SERVING to "ok"
+              and SERVING (the ready time), platform "gpu" and one device;
+              the main path's 50,000 pods x 400 types encoded once, 10 warm
+              unary RemoteSolver.solve_encoded calls, then 10 in-process
+              CostSolver solves of the same inputs: the same packings,
+              unschedulable set and $/hr within 1e-6, every answer
+              "tpu-cost" without fallback; the client's wall p50 and max,
+              the sidecar's solve_ms, the request and response bytes, the
+              in-process p50 beside them; the 8 schedules of the fast path
+              over SolveStream (solve_encoded_pipelined) equal to the
+              in-process pipelined solve, the times to the first and last
+              result; RemoteSolver(mode="ffd", quirk=True) on the Go-parity
+              cases and the main path equal to TPUSolver(quirk=True) in
+              process, every answer "tpu-ffd"; the second sidecar, with
+              KARPENTER_JAX_PROFILE_DIR set, traces 2 cost solves, each
+              launching K1, K2's pair and K3 once and no standalone
+              compaction (read from its own torch.profiler traces);
+              `chip_smoke.py --phase sidecar-controller` runs
+              cmd/controller.main with `--solver remote` against the first
+              sidecar, 10,000 pods of the storm's mix (five 2,000-pod
+              windows, the in-memory store, the storm's cloud): every pod
+              bound once, the sidecar's Health.solves up by the schedules
+              sent, solver_rpc_duration_seconds with outcome ok only, no
+              blackout and no fallback; SIGTERM ends each sidecar with exit
+              0 within 10 s. `chip_smoke.py --phase sidecar` runs it (and
+              the webhook phase) alone
+ 10h. webhook  `python -m karpenter_tpu_torch.cmd.webhook --tls-self-signed`
+              (host code): its certificate fetched with
+              ssl.get_server_certificate, then over HTTPS verified against
+              it the reference's TestAdmissionReview checks with the main
+              path's provisioner (allowed; a bad one rejected in the
+              envelope; a JSONPatch defaulting the capacity type, none for
+              a defaulted spec; a malformed envelope answered 400)
  11. timing   each kernel's device time per call (torch.profiler: the
               kernels' own time, `ms`) and its time between CUDA events
               around the wrapper (host enqueue included, `event_ms`), its
@@ -254,7 +291,8 @@ limit, and as the last line {"ok": true, "device": {...}}:
               sorted view (one launch each; device ms over every record of
               the call, copies included); K10 on the storm fleet's [T]
               column, beside
-              torch.addcmul; K2q at the main path's shape; K2 and K3 at
+              torch.addcmul (event time, and device time called in turns
+              with K10 in one profile); K2q at the main path's shape; K2 and K3 at
               padded G 2,048; the card's launch floor (an empty kernel, csrc/
               launch_floor.cu, through the same ctypes and launch_stream
               path)
@@ -1491,6 +1529,36 @@ def paired_device_ms(first, second, kernel: str, reps: int = 50) -> tuple:
             return tuple(sum(e.time_range.elapsed_us() for e in records[k::2]) / reps / 1e3 for k in (0, 1))
         print(f"  the profiler kept {len(records)} of {2 * reps} records of {kernel}; measuring again")
     check(False, f"the profiler dropped records of {kernel} in three windows")
+
+
+def k10_against_library_device_ms(k10_call, library_call, reps: int = 200) -> tuple:
+    """torch.profiler's device time per call of K10 and of the library call
+    that computes the same column (torch.addcmul), the two called in turns
+    in one profile: the records that are not K10's are the library's (it
+    launches one kernel a call). Returns (K10 ms, library ms, the library
+    kernel's name). A window that lost a record is measured again, up to
+    three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    k10_call()
+    library_call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                k10_call()
+                library_call()
+            torch.cuda.synchronize()
+        records = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        ours = [e for e in records if "penalize_kernel" in e.name]
+        theirs = [e for e in records if "penalize_kernel" not in e.name]
+        if len(ours) == len(theirs) == reps:
+            return (sum(e.time_range.elapsed_us() for e in ours) / reps / 1e3,
+                    sum(e.time_range.elapsed_us() for e in theirs) / reps / 1e3, theirs[0].name[:120])
+        print(f"  the profiler kept {len(ours)} K10 and {len(theirs)} library records of {reps}; measuring again")
+    check(False, "the profiler dropped records of K10 or torch.addcmul in three windows")
 
 
 def kernel_records(fn, copies: bool = False) -> dict:
@@ -5155,6 +5223,640 @@ def apiserver_phase(device=None, num_pods: int = APISERVER_PODS,
     }
 
 
+# --- the solver sidecar and the admission webhook -----------------------------
+
+SIDECAR_SOLVES = 10  # warm unary solves through the sidecar, and as many in process
+SIDECAR_PROFILED_SOLVES = 2  # cost solves the profiled sidecar traces
+SIDECAR_READY_S = 300.0  # a sidecar's boot: the card's probe, the build (alone: every kernel), the warmup
+SIDECAR_STOP_S = 10.0  # SIGTERM to exit 0
+SIDECAR_COST_RTOL = 1e-6
+SIDECAR_CONTROLLER_PODS = 5 * STORM_WINDOW
+SIDECAR_CONTROLLER_TIMEOUT_S = 420.0
+SIDECAR_KERNELS = {"dominance_kernel": "dominance_prices", "pack_rounds_kernel": "pack_kernel",
+                   "lp_relax_kernel": "lp_relax"}
+WEBHOOK_TIMEOUT_S = 60.0
+
+
+def packing_signature(result):
+    """Order-independent structural signature of a PackResult: the
+    reference's tests/test_solver_service._packing_signature."""
+    packings = []
+    for packing in sorted(result.packings, key=lambda p: [it.name for it in p.instance_type_options]):
+        packings.append(
+            (
+                tuple(it.name for it in packing.instance_type_options),
+                packing.node_quantity,
+                tuple(sorted(len(node) for node in packing.pods_per_node)),
+                tuple((p.instance_type.name, p.zone, round(p.price, 6)) for p in packing.pool_options)
+                if packing.pool_options else None,
+            )
+        )
+    return packings, sorted(p.name for p in result.unschedulable)
+
+
+def live_children() -> list:
+    """(pid, command line) of this process's live children, read from /proc."""
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as stat:
+                parent = int(stat.read().rsplit(")", 1)[1].split()[1])
+            if parent != os.getpid():
+                continue
+            with open(f"/proc/{entry}/cmdline", "rb") as cmdline:
+                command = cmdline.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, ValueError, IndexError):
+            continue
+        found.append((int(entry), command))
+    return found
+
+
+def torch_device_type(device) -> str:
+    import torch
+
+    return torch.device(device).type
+
+
+class SidecarChild:
+    """The solver sidecar in a process of its own, through its entry point:
+    `python -m karpenter_tpu_torch.solver_service.server` (the card), or for
+    a rehearsal on the CPU its main with device="cpu". Never a fork: this
+    process holds a CUDA context and gRPC threads. Its output goes to a log
+    file, whose tail a failed check prints."""
+
+    def __init__(self, device, env=None):
+        import tempfile
+
+        self.port = free_port()
+        self.endpoint = f"127.0.0.1:{self.port}"
+        argv = ["--host", "127.0.0.1", "--port", str(self.port)]
+        if torch_device_type(device) == "cuda":
+            command = [sys.executable, "-m", "karpenter_tpu_torch.solver_service.server", *argv]
+        else:
+            command = [sys.executable, "-c", "import sys\nfrom karpenter_tpu_torch.solver_service import server\n"
+                       f"server.main({argv!r}, device='cpu')"]
+        self.log_path = tempfile.mkstemp(prefix="sidecar-", suffix=".log")[1]
+        self._log = open(self.log_path, "w")
+        self.started = time.perf_counter()
+        self.process = subprocess.Popen(
+            command, stdout=self._log, stderr=subprocess.STDOUT, env={**os.environ, **(env or {})},
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def tail(self, chars: int = 3000) -> str:
+        with open(self.log_path, errors="replace") as log:
+            return log.read()[-chars:]
+
+    def check(self, condition: bool, message: str) -> None:
+        check(condition, f"{message}\n--- the sidecar's log:\n{self.tail()}")
+
+    def wait_ready(self, timeout_s: float = SIDECAR_READY_S) -> dict:
+        """Poll Health and grpc.health.v1.Health/Check until "ok" and
+        SERVING; returns the seconds from start to ready, the answers seen
+        on the way and the last Health."""
+        import grpc
+
+        from karpenter_tpu_torch.solver_service import solver_pb2, wire
+
+        # Reconnect within 50-200 ms: with gRPC's default backoff a channel
+        # that found nothing listening may not try again for seconds, past
+        # the warmup.
+        channel = grpc.insecure_channel(self.endpoint, options=[
+            ("grpc.initial_reconnect_backoff_ms", 50), ("grpc.min_reconnect_backoff_ms", 50),
+            ("grpc.max_reconnect_backoff_ms", 200)])
+        health_rpc = channel.unary_unary(wire.HEALTH_METHOD,
+                                         request_serializer=solver_pb2.HealthRequest.SerializeToString,
+                                         response_deserializer=solver_pb2.HealthResponse.FromString)
+        check_rpc = channel.unary_unary("/grpc.health.v1.Health/Check",
+                                        request_serializer=lambda b: b, response_deserializer=lambda b: b)
+        seen, serving = set(), set()
+        try:
+            deadline = time.perf_counter() + timeout_s
+            while True:
+                self.check(self.process.poll() is None,
+                           f"the sidecar exited (rc {self.process.returncode}) before it was ready")
+                try:
+                    health = health_rpc(solver_pb2.HealthRequest(), timeout=1.0)
+                except grpc.RpcError:
+                    health = None
+                seen.add(health.status if health is not None else "unreachable")
+                try:
+                    answer = check_rpc(b"", timeout=1.0)
+                    serving.add({b"\x08\x01": "SERVING", b"\x08\x02": "NOT_SERVING"}.get(answer, repr(answer)))
+                except grpc.RpcError:
+                    answer = None
+                if health is not None and health.status == "ok" and answer == b"\x08\x01":
+                    return {"ready_s": time.perf_counter() - self.started, "seen": sorted(seen),
+                            "serving": sorted(serving), "health": health}
+                self.check(time.perf_counter() < deadline, f"the sidecar was not ready in {timeout_s:.0f} s")
+                time.sleep(0.05)
+        finally:
+            channel.close()
+
+    def stop(self) -> float:
+        """SIGTERM; the sidecar must exit 0 within SIDECAR_STOP_S. Returns
+        the seconds it took."""
+        import signal
+
+        start = time.perf_counter()
+        self.process.send_signal(signal.SIGTERM)
+        try:
+            code = self.process.wait(timeout=SIDECAR_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            code = None
+        self._log.close()
+        self.check(code == 0, f"SIGTERM did not end the sidecar with exit 0 in {SIDECAR_STOP_S:.0f} s (rc {code})")
+        return time.perf_counter() - start
+
+    def kill(self) -> None:
+        if self.process.poll() is None:
+            self.process.kill()
+            self.process.wait()
+
+
+class RecordingRpc:
+    """A RemoteSolver's unary or stream RPC, recording each answer: the
+    request and response bytes, the wall time of the call and the
+    sidecar's own solve_ms, solver string and fallback flag."""
+
+    def __init__(self, rpc, stream: bool = False):
+        self.rpc, self.stream = rpc, stream
+        self.calls = []
+
+    def __call__(self, request, **kwargs):
+        if not self.stream:
+            start = time.perf_counter()
+            response = self.rpc(request, **kwargs)
+            self._record(request.ByteSize(), response, time.perf_counter() - start)
+            return response
+        sent = []
+
+        def requests():
+            for item in request:
+                sent.append(item.ByteSize())
+                yield item
+
+        def responses(answers):
+            for index, response in enumerate(answers):
+                self._record(sent[index] if index < len(sent) else 0, response, None)
+                yield response
+
+        return responses(self.rpc(requests(), **kwargs))
+
+    def _record(self, request_bytes, response, wall_s):
+        self.calls.append({"request_bytes": request_bytes, "response_bytes": response.ByteSize(),
+                           "wall_ms": None if wall_s is None else wall_s * 1e3,
+                           "solve_ms": response.solve_ms, "solver": response.solver,
+                           "fallback": response.fallback})
+
+
+def recording_client(endpoint: str, **kwargs):
+    """A RemoteSolver whose RPCs record their answers (RecordingRpc)."""
+    from karpenter_tpu_torch.solver_service.client import RemoteSolver
+
+    client = RemoteSolver(endpoint, **kwargs)
+    client._solve_rpc = RecordingRpc(client._solve_rpc)
+    client._stream_rpc = RecordingRpc(client._stream_rpc, stream=True)
+    return client
+
+
+def answers(client) -> list:
+    return client._solve_rpc.calls + client._stream_rpc.calls
+
+
+def trace_kernel_records(path: str) -> dict:
+    """{kernel name: records} in one torch.profiler Chrome trace: what the
+    traced solve launched on the card (copies and fills left out)."""
+    import re
+
+    with open(path) as trace:
+        events = json.load(trace).get("traceEvents", [])
+    records = {}
+    for event in events:
+        if event.get("cat") != "kernel":
+            continue
+        match = re.search(r"(\w+_kernel)", event.get("name", ""))
+        name = match.group(1) if match else event.get("name", "")
+        records[name] = records.get(name, 0) + 1
+    return records
+
+
+def metric_values(body: str, name: str) -> dict:
+    """{label text: value} of every sample of `name` on a /metrics page."""
+    import re
+
+    found = {}
+    for line in body.splitlines():
+        match = re.fullmatch(rf"karpenter_{name}(\{{[^}}]*\}})? ([0-9eE+.\-naif]+)", line)
+        if match:
+            found[match.group(1) or ""] = float(match.group(2))
+    return found
+
+
+def sidecar_controller(endpoint: str, device=None) -> dict:
+    """`chip_smoke.py --phase sidecar-controller ENDPOINT`: the controller
+    process with `--solver remote --solver-endpoint ENDPOINT`
+    (cmd/controller.main, the in-memory store, the storm's cloud and market)
+    storming SIDECAR_CONTROLLER_PODS pods of the main path's mix. Counts
+    every schedule its RemoteSolver sends, every fallback solve and every
+    bind; reads solver_rpc_duration_seconds and remote_solver_blackout_total
+    on its /metrics."""
+    import threading
+    from collections import Counter
+
+    from karpenter_tpu_torch.api import provisioner as provisioner_module
+    from karpenter_tpu_torch.api import requirements as requirements_module
+    from karpenter_tpu_torch.api import wellknown
+    from karpenter_tpu_torch.cloudprovider import registry
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.cmd import controller
+    from karpenter_tpu_torch.controllers.cluster import Cluster
+    from karpenter_tpu_torch.market.feed import MarketFeed, catalog_pools
+    from karpenter_tpu_torch.solver_service.client import RemoteSolver
+
+    pods, catalog = storm_workload(SIDECAR_CONTROLLER_PODS)
+
+    def storm_cloud():
+        cloud = FakeCloudProvider(instance_types=catalog)
+        cloud.attach_market_feed(MarketFeed(catalog_pools(catalog), seed=STORM_FEED_SEED))
+        return cloud
+
+    registry.register_factory(CONTROLLER_CLOUD, storm_cloud)
+    metrics_port, probe_port = free_port(), free_port()
+    while probe_port == metrics_port:
+        probe_port = free_port()
+    argv = [
+        "--cluster-name", "chip-smoke-sidecar", "--solver", "remote", "--solver-endpoint", endpoint,
+        "--cloud-provider", CONTROLLER_CLOUD, "--metrics-port", str(metrics_port),
+        "--health-probe-port", str(probe_port), "--market-poll-interval", str(CONTROLLER_MARKET_POLL_S),
+        "--selection-concurrency", str(CONTROLLER_SELECTION_CONCURRENCY),
+    ]
+    manager = None
+    try:
+        boot = time.perf_counter()
+        manager = controller.main(argv, cluster=Cluster(), block=False, device=device)
+        remote = manager.solver
+        check(isinstance(remote, RemoteSolver), f"--solver remote built {type(remote).__name__}")
+        check(wait_for(manager.ready.is_set, 120.0), "the controller never became ready")
+        ready_s = time.perf_counter() - boot
+        fallbacks = Counter()
+        host = remote.fallback
+
+        class CountingFallback:
+            def solve_encoded(self, groups, fleet):
+                fallbacks["solve_encoded"] += 1
+                return host.solve_encoded(groups, fleet)
+
+            def solve_encoded_many(self, items):
+                fallbacks["solve_encoded_many"] += 1
+                return host.solve_encoded_many(items)
+
+            def solve_encoded_pipelined(self, items):
+                fallbacks["solve_encoded_pipelined"] += 1
+                return host.solve_encoded_pipelined(items)
+
+        remote.fallback = CountingFallback()
+        remote._solve_rpc = RecordingRpc(remote._solve_rpc)
+        remote._stream_rpc = RecordingRpc(remote._stream_rpc, stream=True)
+        cluster = manager.cluster
+        binds = Counter()
+        lock = threading.Lock()
+
+        def on_delta(verb, kind, obj):
+            if kind == "pod" and verb == "bind":
+                with lock:
+                    binds[obj.uid] += 1
+
+        cluster.watch_deltas(on_delta)
+        cluster.apply_provisioner(spot_provisioner(provisioner_module, requirements_module, wellknown))
+        check(wait_for(lambda: manager.provisioning.worker("default") is not None, 30.0),
+              "the provisioning loop never reconciled the provisioner")
+        start = time.perf_counter()
+        for pod in pods:
+            cluster.apply_pod(pod)
+        check(wait_for(lambda: len(binds) >= len(pods), SIDECAR_CONTROLLER_TIMEOUT_S),
+              f"the controller bound {len(binds)} of {len(pods)} pods through the sidecar")
+        bound_s = time.perf_counter() - start
+        time.sleep(1.0)  # a late second bind would show here
+        status, body = http_get(f"http://127.0.0.1:{metrics_port}/metrics")
+        check(status == 200, f"/metrics answered {status}")
+        text = body.decode()
+        calls = remote._solve_rpc.calls + remote._stream_rpc.calls
+        return {
+            "pods": len(pods), "bound": len(binds), "bound_once": all(n == 1 for n in binds.values()),
+            "ready_s": ready_s, "bound_s": bound_s, "schedules": len(calls),
+            "solvers": sorted({call["solver"] for call in calls}),
+            "fallback_answers": sum(call["fallback"] for call in calls),
+            "fallbacks": dict(fallbacks),
+            "rpc_count": metric_values(text, "solver_rpc_duration_seconds_count"),
+            "blackouts": sum(metric_values(text, "remote_solver_blackout_total").values()),
+            "blackout_until": remote._blackout_until,
+        }
+    finally:
+        if manager is not None:
+            manager.stop()
+            manager.elector.release()
+
+
+def sidecar_phase(device, pods, catalog, groups, fleet, schedules, cost_solver) -> dict:
+    """The solver sidecar on the card through its entry point (SidecarChild),
+    two of them: one serves the main path, SolveStream, ffd and the
+    controller; the other, with KARPENTER_JAX_PROFILE_DIR set, traces two
+    cost solves. Returns the numbers the kernels line and PERF.md take."""
+    import glob
+    import tempfile
+
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.models import solver
+
+    on_card = torch_device_type(device) == "cuda"
+    others = live_children()
+    print(f"  sidecar: other live children of chip_smoke: {others or 'none'}")
+    profile_dir = tempfile.mkdtemp(prefix="sidecar-profile-")
+    main_child = SidecarChild(device)
+    traced_child = SidecarChild(device, env={"KARPENTER_JAX_PROFILE_DIR": profile_dir})
+    children = [main_child, traced_child]
+    try:
+        # The two boot together; the first is polled from its start, so it
+        # must answer "warming" and NOT_SERVING before "ok" and SERVING.
+        boot = main_child.wait_ready()
+        traced_boot = traced_child.wait_ready()
+        main_child.check("warming" in boot["seen"] and "NOT_SERVING" in boot["serving"],
+                         f"the sidecar never answered warming and NOT_SERVING before ok: "
+                         f"{boot['seen']} {boot['serving']}")
+        for label, ready in (("main", boot), ("traced", traced_boot)):
+            health = ready["health"]
+            main_child.check(health.platform == ("gpu" if on_card else "cpu") and health.device_count == 1,
+                             f"the {label} sidecar reports platform {health.platform!r}, "
+                             f"{health.device_count} devices")
+
+        # The main path: unary solves, then the same solve in process.
+        client = recording_client(main_child.endpoint)
+        client.solve_encoded(groups, fleet)  # warm: the first solve of this fleet uploads it
+        cost_solver.solve_encoded(groups, fleet)
+        remote_ms, local_ms, remote, local = [], [], [], []
+        for _ in range(SIDECAR_SOLVES):
+            start = time.perf_counter()
+            remote.append(client.solve_encoded(groups, fleet))
+            remote_ms.append((time.perf_counter() - start) * 1e3)
+        unary = client._solve_rpc.calls[1:]
+        for _ in range(SIDECAR_SOLVES):
+            start = time.perf_counter()
+            local.append(cost_solver.solve_encoded(groups, fleet))
+            local_ms.append((time.perf_counter() - start) * 1e3)
+        want = packing_signature(local[0])
+        local_cost = local[0].projected_cost()
+        for result in remote + local:
+            check(packing_signature(result) == want, "a sidecar solve and the in-process solve pack differently")
+            check(abs(result.projected_cost() - local_cost) <= SIDECAR_COST_RTOL * local_cost,
+                  f"$/hr through the sidecar {result.projected_cost()} against {local_cost} in process")
+        check(all_pods_placed_once(remote[0], pods), "the sidecar's plan did not place every pod once")
+        check(all(c["solver"] == "tpu-cost" and not c["fallback"] for c in answers(client)),
+              f"a sidecar answer was not tpu-cost: {sorted({c['solver'] for c in answers(client)})}")
+        check(client._blackout_until == -float("inf"), "the client armed its blackout")
+        wall = [c["wall_ms"] for c in unary]
+        served = [c["solve_ms"] for c in unary]
+        result = {
+            "ready_s": boot["ready_s"], "traced_ready_s": traced_boot["ready_s"],
+            "remote_p50_ms": float(np.percentile(remote_ms, 50)), "remote_max_ms": max(remote_ms),
+            "rpc_p50_ms": float(np.percentile(wall, 50)), "rpc_max_ms": max(wall),
+            "solve_ms_p50": float(np.percentile(served, 50)), "solve_ms_max": max(served),
+            "local_p50_ms": float(np.percentile(local_ms, 50)), "local_max_ms": max(local_ms),
+            "request_bytes": unary[0]["request_bytes"], "response_bytes": unary[0]["response_bytes"],
+            "cost_per_hr": local_cost, "others": others,
+        }
+        phase("sidecar_solve", pods=len(pods), types=len(catalog), groups=groups.num_groups,
+              ready_s=f"{boot['ready_s']:.3f}", seen=",".join(boot["seen"] + boot["serving"]),
+              platform=boot["health"].platform, device_count=boot["health"].device_count,
+              remote_p50_ms=f"{result['remote_p50_ms']:.3f}", remote_max_ms=f"{result['remote_max_ms']:.3f}",
+              rpc_p50_ms=f"{result['rpc_p50_ms']:.3f}", rpc_max_ms=f"{result['rpc_max_ms']:.3f}",
+              solve_ms_p50=f"{result['solve_ms_p50']:.3f}", solve_ms_max=f"{result['solve_ms_max']:.3f}",
+              local_p50_ms=f"{result['local_p50_ms']:.3f}", local_max_ms=f"{result['local_max_ms']:.3f}",
+              request_bytes=result["request_bytes"], response_bytes=result["response_bytes"],
+              cost_per_hr=f"{local_cost:.6f}", packings="identical", solver="tpu-cost")
+
+        # SolveStream: the schedules through the pipelined remote solve,
+        # after the same in process.
+        list(cost_solver.solve_encoded_pipelined(schedules))  # warm
+        start = time.perf_counter()
+        stream = cost_solver.solve_encoded_pipelined(schedules)
+        local_piped = [next(stream)]
+        local_first_ms = (time.perf_counter() - start) * 1e3
+        local_piped = [plan_signature(r) for r in local_piped + list(stream)]
+        local_last_ms = (time.perf_counter() - start) * 1e3
+        list(client.solve_encoded_pipelined(schedules))  # warm: these fleets' first upload
+        before = len(client._stream_rpc.calls)
+        start = time.perf_counter()
+        stream = client.solve_encoded_pipelined(schedules)
+        piped = [next(stream)]
+        first_ms = (time.perf_counter() - start) * 1e3
+        piped += list(stream)
+        last_ms = (time.perf_counter() - start) * 1e3
+        streamed = client._stream_rpc.calls[before:]
+        check([plan_signature(r) for r in piped] == local_piped,
+              "the sidecar's pipelined plans differ from the in-process pipelined solve's")
+        check(len(streamed) == len(schedules) and all(c["solver"] == "tpu-cost" for c in streamed),
+              f"the stream answered {[c['solver'] for c in streamed]}")
+        result.update(stream_first_ms=first_ms, stream_last_ms=last_ms, stream_schedules=len(schedules),
+                      local_stream_first_ms=local_first_ms, local_stream_last_ms=local_last_ms)
+        phase("sidecar_stream", schedules=len(schedules), first_result_ms=f"{first_ms:.3f}",
+              last_result_ms=f"{last_ms:.3f}", local_first_result_ms=f"{local_first_ms:.3f}",
+              local_last_result_ms=f"{local_last_ms:.3f}", plans="identical to the in-process pipelined solve",
+              request_bytes=sum(c["request_bytes"] for c in streamed),
+              response_bytes=sum(c["response_bytes"] for c in streamed))
+        client.close()
+
+        # ffd with the reference's fits() quirk (K2q).
+        ffd_client = recording_client(main_child.endpoint, mode="ffd", quirk=True)
+        ffd_solver = solver.TPUSolver(mode="ffd", quirk=True, device=device)
+        cases = go_parity_cases() + [("main", pods, catalog)]
+        for name, case_pods, case_catalog in cases:
+            got = ffd_client.solve(case_pods, case_catalog, Constraints())
+            expected = ffd_solver.solve(case_pods, case_catalog, Constraints())
+            check(go_parity_signature(got) == go_parity_signature(expected)
+                  and packing_signature(got) == packing_signature(expected),
+                  f"ffd through the sidecar differs from TPUSolver in process on {name}")
+        ffd_answers = answers(ffd_client)
+        check(len(ffd_answers) == len(cases) and all(c["solver"] == "tpu-ffd" and not c["fallback"]
+                                                     for c in ffd_answers),
+              f"the ffd answers were {[c['solver'] for c in ffd_answers]}")
+        ffd_client.close()
+        phase("sidecar_ffd", cases=",".join(name for name, _, _ in cases), solver="tpu-ffd",
+              signatures="identical to TPUSolver(quirk=True) in process",
+              main_solve_ms=f"{ffd_answers[-1]['solve_ms']:.3f}")
+
+        # The kernels one sidecar solve launches, from the traced sidecar's
+        # own torch.profiler traces (KARPENTER_JAX_PROFILE_DIR). Its first
+        # traced solve starts the profiler's CUDA tracing (seconds), so it
+        # is not counted, and the client waits for it.
+        traced_client = recording_client(traced_child.endpoint, timeout_s=SIDECAR_READY_S)
+        traced_client.solve_encoded(groups, fleet)
+        traced_before = set(glob.glob(os.path.join(profile_dir, "*.json")))
+        for _ in range(SIDECAR_PROFILED_SOLVES):
+            traced_client.solve_encoded(groups, fleet)
+        traced_answers = answers(traced_client)
+        traced_client.close()
+        traces = sorted(set(glob.glob(os.path.join(profile_dir, "*.json"))) - traced_before)
+        traced_child.check(len(traces) == SIDECAR_PROFILED_SOLVES
+                           and all(c["solver"] == "tpu-cost" for c in traced_answers),
+                           f"the traced sidecar wrote {len(traces)} traces for {SIDECAR_PROFILED_SOLVES} "
+                           f"solves; answers {[c['solver'] for c in traced_answers]}")
+        per_solve = [trace_kernel_records(path) for path in traces]
+        if on_card:
+            for records in per_solve:
+                check(all(records.get(name) == 1 for name in SIDECAR_KERNELS) and "compact_kernel" not in records,
+                      f"a sidecar solve launched {records}: not K1, K2's pair and K3 once each without "
+                      "a standalone compaction")
+        result["launches_per_solve"] = {SIDECAR_KERNELS[name]: per_solve[0].get(name, 0) for name in SIDECAR_KERNELS}
+        result["traced_records"] = per_solve
+        result["traced_stop_s"] = traced_child.stop()
+        phase("sidecar_kernels", solves=len(traces), records=json.dumps(per_solve[0], sort_keys=True),
+              launches=json.dumps(result["launches_per_solve"], sort_keys=True),
+              stop_s=f"{result['traced_stop_s']:.3f}")
+
+        # The control plane: cmd/controller with --solver remote.
+        health = main_child.wait_ready(timeout_s=10.0)["health"]
+        args = ["--phase", "sidecar-controller", main_child.endpoint] + ([] if on_card else ["cpu"])
+        controller = child_result(run_child(args, SIDECAR_CONTROLLER_TIMEOUT_S + 180.0),
+                                  "sidecar_controller_result")
+        after = main_child.wait_ready(timeout_s=10.0)["health"]
+        solves = after.solves - health.solves
+        check(controller["bound"] == controller["pods"] and controller["bound_once"],
+              f"the controller bound {controller['bound']} of {controller['pods']} pods, or one twice")
+        check(solves == controller["schedules"] > 0,
+              f"the sidecar counted {solves} solves for the {controller['schedules']} schedules sent")
+        check(controller["solvers"] == ["tpu-cost"] and controller["fallback_answers"] == 0,
+              f"the controller's answers: {controller['solvers']}, {controller['fallback_answers']} fallbacks")
+        check(not controller["fallbacks"], f"the controller's client fell back: {controller['fallbacks']}")
+        check(set(controller["rpc_count"]) == {'{outcome="ok"}'} and controller["blackouts"] == 0,
+              f"solver_rpc_duration_seconds {controller['rpc_count']}, blackouts {controller['blackouts']}")
+        result["controller"] = controller
+        phase("sidecar_controller", pods=controller["pods"], bound=controller["bound"],
+              schedules=controller["schedules"], sidecar_solves=solves,
+              rpc=json.dumps(controller["rpc_count"]), blackouts=f"{controller['blackouts']:.0f}",
+              fallbacks=0, ready_s=f"{controller['ready_s']:.3f}", bound_s=f"{controller['bound_s']:.3f}")
+        result["stop_s"] = main_child.stop()
+        phase("sidecar", stop_s=f"{result['stop_s']:.3f}", traced_stop_s=f"{result['traced_stop_s']:.3f}",
+              exits="0,0")
+        return result
+    finally:
+        for child in children:
+            child.kill()
+
+
+def webhook_phase() -> dict:
+    """The admission webhook through its entry point (`python -m
+    karpenter_tpu_torch.cmd.webhook`) with a self-signed serving
+    certificate: the certificate fetched from the socket, then the
+    reference's TestAdmissionReview checks over HTTPS verified against it,
+    with the main path's provisioner. Host code only."""
+    import base64
+    import socket
+    import ssl
+    import urllib.error
+    import urllib.request
+
+    from karpenter_tpu_torch.api import provisioner as provisioner_module
+    from karpenter_tpu_torch.api import requirements as requirements_module
+    from karpenter_tpu_torch.api import wellknown
+    from karpenter_tpu_torch.api.serialization import provisioner_to_dict
+
+    port = free_port()
+    start = time.perf_counter()
+    process = subprocess.Popen(
+        [sys.executable, "-m", "karpenter_tpu_torch.cmd.webhook", "--cluster-name", "x", "--tls-self-signed",
+         "--tls-dns-names", "127.0.0.1", "--port", str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        def listening():
+            with socket.socket() as sock:
+                return sock.connect_ex(("127.0.0.1", port)) == 0
+
+        check(wait_for(lambda: process.poll() is not None or listening(), WEBHOOK_TIMEOUT_S)
+              and process.poll() is None, "the webhook did not listen")
+        ready_s = time.perf_counter() - start
+        pem = ssl.get_server_certificate(("127.0.0.1", port))
+        context = ssl.create_default_context(cadata=pem)
+
+        def post(path, payload):
+            request = urllib.request.Request(f"https://127.0.0.1:{port}{path}", method="POST",
+                                             data=json.dumps(payload).encode())
+            try:
+                with urllib.request.urlopen(request, context=context, timeout=10) as response:
+                    return response.status, json.loads(response.read())
+            except urllib.error.HTTPError as error:
+                return error.code, None
+
+        def review(obj, uid):
+            return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+                    "request": {"uid": uid, "object": obj}}
+
+        main = provisioner_to_dict(spot_provisioner(provisioner_module, requirements_module, wellknown))
+        status, answer = post("/validate", review(main, "main-1"))
+        check(status == 200 and answer["kind"] == "AdmissionReview" and answer["response"]["uid"] == "main-1"
+              and answer["response"]["allowed"] is True, f"/validate of the main path's provisioner: {answer}")
+        bad = provisioner_to_dict(provisioner_module.Provisioner(
+            name="x" * 80, spec=provisioner_module.ProvisionerSpec()))
+        status, answer = post("/validate", review(bad, "bad-1"))
+        check(status == 200 and answer["response"]["allowed"] is False and answer["response"]["status"]["message"],
+              f"/validate of a bad provisioner: {answer}")
+        plain = provisioner_to_dict(provisioner_module.Provisioner(
+            name="default", spec=provisioner_module.ProvisionerSpec()))
+        status, answer = post("/default", review(plain, "plain-1"))
+        response = answer["response"]
+        check(status == 200 and response["allowed"] is True and response["patchType"] == "JSONPatch",
+              f"/default of a plain provisioner: {answer}")
+        ops = json.loads(base64.b64decode(response["patch"]))
+        check(ops and ops[0]["path"] == "/spec"
+              and wellknown.CAPACITY_TYPE_LABEL in {r["key"] for r in ops[0]["value"]["requirements"]},
+              f"/default's patch does not default the capacity type: {ops}")
+        defaulted = dict(plain, spec=ops[0]["value"])
+        status, answer = post("/default", review(defaulted, "plain-2"))
+        check(status == 200 and answer["response"]["allowed"] is True and "patch" not in answer["response"],
+              f"/default of a defaulted provisioner patched it again: {answer}")
+        status, main_default = post("/default", review(main, "main-2"))
+        check(status == 200 and main_default["response"]["allowed"] is True,
+              f"/default of the main path's provisioner: {main_default}")
+        status, _ = post("/validate", {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview"})
+        check(status == 400, f"a malformed AdmissionReview answered {status}, not 400")
+        phase("webhook", tls="self-signed, verified", ready_s=f"{ready_s:.3f}", validate="allowed,rejected",
+              default="patched,fixed point", main_default_patch="patch" in main_default["response"],
+              malformed=400)
+        return {"webhook_ready_s": ready_s}
+    finally:
+        process.terminate()
+        try:
+            process.wait(timeout=10.0)
+        except subprocess.TimeoutExpired:
+            process.kill()
+            process.wait()
+
+
+def sidecar_alone() -> None:
+    """`chip_smoke.py --phase sidecar`: the sidecar and webhook phases by
+    themselves, every kernel built first, on the main path's workload and
+    the batch phase's 8 schedules."""
+    import torch
+
+    from karpenter_tpu_torch.api.provisioner import Constraints
+    from karpenter_tpu_torch.models import solver
+    from karpenter_tpu_torch.ops import cuda_build
+    from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
+
+    device = torch.device("cuda", 0)
+    phase("build", seconds=f"{cuda_build.build_all(cuda_build.port_libraries()):.2f}")
+    pods, catalog = make_workload()
+    groups = group_pods(pods)
+    fleet = build_fleet(catalog, Constraints(), pods, pods_need=groups.vectors.max(axis=0))
+    schedules = solver.Solver._encode_problems([(pods[k::8], catalog, Constraints(), ()) for k in range(8)])
+    result = sidecar_phase(device, pods, catalog, groups, fleet, schedules, solver.CostSolver(device=device))
+    result.update(webhook_phase())
+    print("sidecar_result " + json.dumps(result, default=str))
+
+
 def consolidate_alone() -> None:
     """`chip_smoke.py --phase consolidate`: K7 built, the consolidation
     phase by itself, then K7's device and event times at its sweep."""
@@ -5297,13 +5999,19 @@ def main(argv=None) -> int:
     controller`, `--phase apiserver` (with its `--phase
     apiserver-controller`) and `--phase multiprocess-rank` are the parts
     the full run starts in processes of their own (`--phase apiserver` also
-    runs that phase alone); `--phase sharded`, `--phase
+    runs that phase alone, `--phase sidecar-controller` is the sidecar
+    phase's controller); `--phase sidecar` runs the sidecar and webhook
+    phases alone; `--phase sharded`, `--phase
     consolidate` and `--phase multiprocess` run the sharded, the
     consolidation and the multiprocess phase alone, and `--phase fused` the
     fused solve's records and K4's share of K2's launch."""
     import torch
 
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:2] == ["--phase", "sidecar-controller"] and argv[3:] == ["cpu"]:
+        # The sidecar phase's controller in a rehearsal on the CPU.
+        print("sidecar_controller_result " + json.dumps(sidecar_controller(argv[2], "cpu")))
+        return 0
     if argv[:2] == ["--phase", "apiserver-controller"] and argv[5:] == ["cpu"]:
         # The apiserver phase's controller in a rehearsal on the CPU
         # (apiserver_phase("cpu")).
@@ -5332,6 +6040,12 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--phase", "apiserver"]:
         print("apiserver_result " + json.dumps(apiserver_phase()))
+        return 0
+    if argv == ["--phase", "sidecar"]:
+        sidecar_alone()
+        return 0
+    if len(argv) == 3 and argv[:2] == ["--phase", "sidecar-controller"]:
+        print("sidecar_controller_result " + json.dumps(sidecar_controller(argv[2])))
         return 0
     if len(argv) == 5 and argv[:2] == ["--phase", "apiserver-controller"]:
         apiserver_controller(argv[2], int(argv[3]), int(argv[4]))
@@ -5747,6 +6461,12 @@ def smoke(children) -> int:
     multiprocess = multiprocess_phase(device, pods, groups, fleet)
     mp_launches = multiprocess["launches_per_rank"]
 
+    # 10g. the solver sidecar in processes of its own, once every other
+    # child has ended; 10h. the admission webhook.
+    sidecar = sidecar_phase(device, pods, catalog, groups, fleet, fast["encoded"], cost_solver)
+    sidecar_launches = sidecar["launches_per_solve"]
+    webhook_phase()
+
     # 11. kernel timing at the main path's shapes.
     num_types, dims = capacity.shape
     num_groups = vectors.shape[0]
@@ -5890,6 +6610,7 @@ def smoke(children) -> int:
             "launches_controller_lifecycle": lifecycle["k1"],
             "launches_apiserver": apiserver_launches["dominance_prices"],
             "launches_multiprocess_per_rank": mp_launches["dominance_prices"],
+            "launches_sidecar_per_solve": sidecar_launches["dominance_prices"],
             "ms": k1_ms, "event_ms": k1_event_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
             "bound_by": k1_by, "library_ms": None, "blocks": k1_plan.blocks, "rows_per_block": k1_plan.rows,
             "ms_t4096": k1_wide_ms, "event_ms_t4096": k1_wide_event_ms, "blocks_t4096": k1_wide_plan.blocks,
@@ -5907,6 +6628,7 @@ def smoke(children) -> int:
             "launches_controller_lifecycle": lifecycle["k2"],
             "launches_apiserver": apiserver_launches["pack_pair_payload"],
             "launches_multiprocess_per_rank": mp_launches["pack_pair_payload"],
+            "launches_sidecar_per_solve": sidecar_launches["pack_kernel"],
         },
         {
             "name": "pack_kernel_quirk", "route": "cuda",
@@ -5926,6 +6648,7 @@ def smoke(children) -> int:
             "launches_controller_lifecycle": lifecycle["k3"],
             "launches_apiserver": apiserver_launches["lp_relax"],
             "launches_multiprocess_per_rank": mp_launches["lp_relax"],
+            "launches_sidecar_per_solve": sidecar_launches["lp_relax"],
             "ms": k3_ms, "event_ms": k3_event_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
             "bound_by": k3_by, "library_ms": None,
             "us_per_step": k3_ms * 1e3 / lp_steps, "cluster": k3_rule.cluster,
@@ -5940,6 +6663,7 @@ def smoke(children) -> int:
             "fused_into": "pack_kernel", "max_abs_err": k4_err, "cases": k4_cases,
             "launches_controller": controller["storm_launches"]["pack_pair_payload"],
             "launches_apiserver": apiserver_launches["pack_pair_payload"],
+            "launches_sidecar_per_solve": sidecar_launches["pack_kernel"],
             "plain_ms": k4_plain_ms,
             "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
         },
@@ -6023,6 +6747,10 @@ def smoke(children) -> int:
         lambda: forecast_kernel._penalize_prices_ref(k10_prices, k10_risks, weight), reps=200)
     library_call = functools.partial(torch.addcmul, k10_prices, k10_prices, k10_risks, value=weight)
     k10_library_ms = time_cuda(library_call, reps=200)
+    k10_paired_ms, k10_library_device_ms, library_kernel = k10_against_library_device_ms(
+        k10_call, library_call, reps=200)
+    print(f"k10_against_addcmul device_ms={k10_paired_ms:.6f} addcmul_device_ms={k10_library_device_ms:.6f} "
+          f"addcmul_event_ms={k10_library_ms:.4f} addcmul_kernel={library_kernel!r} (in turns, one profile)")
     library_same = same_bits(library_call(), k10_call())
     k10_types = k10_prices.shape[0]
     k10_bound, k10_by = bound(3 * 4 * k10_types, 3 * k10_types)
@@ -6043,6 +6771,8 @@ def smoke(children) -> int:
         "launches": storm["k10_launches"], "max_abs_err": storm["k10_err"],
         "ms": k10_ms, "event_ms": k10_event_ms, "plain_ms": k10_plain_ms, "bound_ms": k10_bound,
         "bound_by": k10_by, "library_ms": k10_library_ms, "library_same_bits": library_same,
+        "library_device_ms": k10_library_device_ms, "ms_same_session": k10_paired_ms,
+        "floor_ms": floor_ms, "floor_event_ms": floor_event_ms,
         "cases": k10_cases, "types": k10_types,
     })
     # K2 and K3 at the many-shapes schedule's padded G 2,048: milliseconds

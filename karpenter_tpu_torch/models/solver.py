@@ -25,9 +25,16 @@ compacted shard-locally (K9b) and gathered to the first shard. A wedged
 card is quarantined and the mesh shrinks (utils/backend_health.MeshHealth);
 one card is the single-device path, as one chip is in the reference.
 
-TPUSolver runs K2 in one mode (make_solver("ffd")). Left out, against the
-reference: the multi-host lead/follower dispatch (the sidecar's) and
-tracing spans.
+On a mesh across processes (parallel/spmd.py) rank 0 replicates each
+solve to the followers first; the solver sidecar (solver_service/) calls
+these same entry points. TPUSolver runs K2 in one mode
+(make_solver("ffd")).
+
+Each device dispatch runs under device_profile(TRACER) and a span, as the
+reference's does: "solve.device" (the single solve), "solve.device.batch"
+(the batched fetch) and "solve.device.pipelined" (each pipelined fetch).
+With KARPENTER_JAX_PROFILE_DIR set, each writes a torch.profiler trace of
+the card (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from karpenter_tpu_torch.ops.score_kernel import (
 )
 from karpenter_tpu_torch.utils import logging as klog
 from karpenter_tpu_torch.utils.metrics import REGISTRY
+from karpenter_tpu_torch.utils.tracing import TRACER, device_profile
 
 # The plain LP's einsums (the CPU path, and what K3 is held against on the
 # card) must stay in full fp32: TF32 would keep about three decimal digits.
@@ -1011,6 +1019,9 @@ def cost_solve_dense(
     waits. device_pods, when given, are the schedule's pod tensors already
     on the device (device_pod_args); the host arrays still serve the gate
     and the scoring."""
+    num_groups = int(vectors.shape[0])
+    num_types = int(capacity.shape[0])
+
     # Adaptive dispatch: below the device break-even the host candidates
     # answer in milliseconds and carry the cost win.
     if host_solve_enabled(int(np.asarray(counts).sum()), device=device):
@@ -1023,18 +1034,24 @@ def cost_solve_dense(
         if dense is not None:
             return dense
 
-    pod_vectors, pod_counts = device_pods or (vectors, counts)
-    fused = cost_solve_dispatch(
-        pod_vectors, pod_counts, capacity, total, prices, lp_steps, device=device
-    )
-    # The pool matrix build and the column-LP mix candidate run in a worker
-    # thread concurrently with the fetch, which waits on the device with the
-    # interpreter lock released.
-    plan_start_fetch(fused)
-    overlap = _HostOverlap([(vectors, counts, capacity, pool_prices)])
-    overlap.start()
-    fetched = fetch_plan(fused)
-    (pool_prices,), (mix_plan,) = overlap.join()
+    # device_profile is a no-op unless KARPENTER_JAX_PROFILE_DIR is set, in
+    # which case each solve captures a torch.profiler trace whose kernels
+    # line up with the host spans through record_function.
+    with device_profile(TRACER), TRACER.span(
+        "solve.device", groups=num_groups, types=num_types
+    ):
+        pod_vectors, pod_counts = device_pods or (vectors, counts)
+        fused = cost_solve_dispatch(
+            pod_vectors, pod_counts, capacity, total, prices, lp_steps, device=device
+        )
+        # The pool matrix build and the column-LP mix candidate run in a
+        # worker thread concurrently with the fetch, which waits on the
+        # device with the interpreter lock released.
+        plan_start_fetch(fused)
+        overlap = _HostOverlap([(vectors, counts, capacity, pool_prices)])
+        overlap.start()
+        fetched = fetch_plan(fused)
+        (pool_prices,), (mix_plan,) = overlap.join()
 
     return cost_solve_finish(
         fetched, vectors, counts, capacity, total, prices, pool_prices,
@@ -2102,7 +2119,10 @@ class CostSolver(Solver):
         )
         if pending:
             _maybe_inject_device_oom()
-            plans = fetch_plans([entry[3] for entry in pending])
+            with device_profile(TRACER), TRACER.span(
+                "solve.device.batch", solves=len(pending)
+            ):
+                plans = fetch_plans([entry[3] for entry in pending])
             pool_matrices, mix_plans = overlap.join()
             for entry, zones, pool_prices, mix_plan, plan in zip(
                 pending, zones_box, pool_matrices, mix_plans, plans
@@ -2230,7 +2250,10 @@ class CostSolver(Solver):
                 overlap.wait(k)
                 try:
                     _maybe_inject_device_oom()
-                    plan = fetch_plan(entry[3])
+                    with device_profile(TRACER), TRACER.span(
+                        "solve.device.pipelined", solve=k
+                    ):
+                        plan = fetch_plan(entry[3])
                 except Exception as error:  # noqa: BLE001 — classifier gates
                     if not _is_resource_exhausted(error):
                         raise

@@ -124,11 +124,17 @@ class _Build:
 
 def build_all(libraries: Sequence[CudaLibrary]) -> float:
     """Build every library that is not built yet, one nvcc per source, all
-    started together. Returns the wall seconds the builds took."""
+    started together. Returns the wall seconds the builds took. Each
+    library's lock is held through its build, so a first launch in another
+    thread (a solve that arrives while the warmup builds) waits for this
+    build instead of starting a second nvcc on the same files."""
     start = time.perf_counter()
     builds: List[_Build] = []
+    held: List[CudaLibrary] = []
     try:
         for library in libraries:
+            library._lock.acquire()
+            held.append(library)
             build = library.start_build()
             if build is not None:
                 builds.append(build)
@@ -139,6 +145,8 @@ def build_all(libraries: Sequence[CudaLibrary]) -> float:
                 build.finish()
             except RuntimeError as error:
                 errors.append(str(error))
+        for library in held:
+            library._lock.release()
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - start

@@ -18,9 +18,10 @@ verdict at boot makes `start` raise, and a warmup that fails on the card
 stops the Manager (warmup_error): the port never pins the CPU or routes
 solves to the host behind the card's back. On the card the host solve path
 is opt-in (models/solver.host_route_open: KARPENTER_HOST_SOLVE=1 or auto).
-
-Left out, against the reference: the solver sidecar (`make_solver
-("remote")` raises).
+`--solver remote` sends the solves to the solver sidecar at
+`--solver-endpoint` (solver_service/: RemoteSolver); the Manager then needs
+the card only for its own device users, the incremental encoder and the
+consolidation solve.
 """
 
 from __future__ import annotations
@@ -546,11 +547,14 @@ class LeaderLock:
 
 def make_solver(name: str, endpoint: str = "", device: DeviceLike = None):
     """The solver a Manager runs, by its --solver name. `device` places the
-    device-backed solvers (ffd, cost): None is the card."""
+    device-backed solvers (ffd, cost): None is the card. "remote" solves on
+    the sidecar at `endpoint` and never touches the card itself."""
     if name == "remote":
-        raise ValueError(
-            "solver 'remote' (the solver sidecar, solver_service/) is not ported"
-        )
+        # The solver-sidecar plugin boundary: solve RPCs to `endpoint`, host
+        # greedy fallback + 30s blackout when it's unreachable.
+        from karpenter_tpu_torch.solver_service.client import RemoteSolver
+
+        return RemoteSolver(endpoint)
     if name == "greedy":
         return GreedySolver()
     if name == "native":

@@ -313,33 +313,49 @@ class _SpanContext:
         return False
 
 
+# One torch.profiler session at a time in a process: a block that starts
+# while another thread's capture is open (the sidecar's concurrent solves)
+# runs without one rather than fail.
+_PROFILE_LOCK = threading.Lock()
+
+
 class _ProfileSession:
     """torch.profiler capture around a block (KARPENTER_JAX_PROFILE_DIR):
-    the host and the card, exported as a Chrome trace into the directory."""
+    the host and the card, exported as a Chrome trace into the directory.
+    Captures do not nest or overlap: a block entered while one is open
+    (another thread's, or an enclosing one) records no trace of its own."""
 
     def __init__(self, tracer: Tracer):
         self.tracer = tracer
         self._profile = None
 
     def __enter__(self):
-        if self.tracer.profile_dir is not None:
+        if self.tracer.profile_dir is not None and _PROFILE_LOCK.acquire(blocking=False):
             import torch.profiler
 
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self._profile = torch.profiler.profile(activities=activities)
-            self._profile.__enter__()
+            try:
+                profile = torch.profiler.profile(activities=activities)
+                profile.__enter__()
+            except BaseException:
+                _PROFILE_LOCK.release()
+                raise
+            self._profile = profile
         return self
 
     def __exit__(self, *exc):
         if self._profile is not None:
-            self._profile.__exit__(*exc)
-            os.makedirs(self.tracer.profile_dir, exist_ok=True)
-            self._profile.export_chrome_trace(
-                os.path.join(self.tracer.profile_dir, f"device-{os.getpid()}-{time.time_ns()}.json")
-            )
-            self._profile = None
+            try:
+                self._profile.__exit__(*exc)
+                os.makedirs(self.tracer.profile_dir, exist_ok=True)
+                self._profile.export_chrome_trace(
+                    os.path.join(self.tracer.profile_dir, f"device-{os.getpid()}-{time.time_ns()}.json")
+                )
+            finally:
+                self._profile = None
+                _PROFILE_LOCK.release()
         return False
 
 

@@ -36,8 +36,9 @@ def twin_source(path: Path, package: str, prefix: str) -> str:
 
 
 class _TwinLoader(importlib.abc.Loader):
-    def __init__(self, package: str, prefix: str, path: Path | None):
+    def __init__(self, package: str, prefix: str, path: Path | None, substitutions=()):
         self.package, self.prefix, self.path = package, prefix, path
+        self.substitutions = substitutions
 
     def create_module(self, spec):
         return None
@@ -48,6 +49,8 @@ class _TwinLoader(importlib.abc.Loader):
             return
         module.__file__ = str(self.path)
         source = twin_source(self.path, self.package, self.prefix)
+        for pattern, replacement in self.substitutions:
+            source = re.sub(pattern, replacement, source)
         exec(compile(source, str(self.path), "exec"), module.__dict__)
 
 
@@ -58,13 +61,14 @@ class _TwinFinder(importlib.abc.MetaPathFinder):
 
     def find_spec(self, fullname, path=None, target=None):
         head, _, stem = fullname.partition(".")
-        package = self.prefixes.get(head)
-        if package is None or "." in stem:
+        registered = self.prefixes.get(head)
+        if registered is None or "." in stem:
             return None
+        package, substitutions = registered
         source = TESTS / f"{stem}.py" if stem else None
         if source is not None and not source.exists():
             return None
-        loader = _TwinLoader(package, head, source)
+        loader = _TwinLoader(package, head, source, substitutions)
         return importlib.machinery.ModuleSpec(fullname, loader, is_package=not stem)
 
 
@@ -72,13 +76,16 @@ _FINDER = _TwinFinder()
 
 
 class TwinPackage:
-    """The twins of tests/ over one package, under `_twin_<name>_<package>`."""
+    """The twins of tests/ over one package, under `_twin_<name>_<package>`.
+    `substitutions`, (regex, replacement) pairs, are applied to every twin's
+    source after the imports are pointed (say, a fixed port the reference's
+    file binds, which its twin in another test worker must not share)."""
 
-    def __init__(self, package: str, name: str):
+    def __init__(self, package: str, name: str, substitutions=()):
         assert package in PACKAGES, package
         self.package = package
         self.prefix = f"_twin_{name}_{package}"
-        _FINDER.prefixes[self.prefix] = package
+        _FINDER.prefixes[self.prefix] = (package, tuple(substitutions))
         if _FINDER not in sys.meta_path:
             sys.meta_path.insert(0, _FINDER)
         importlib.import_module(self.prefix)

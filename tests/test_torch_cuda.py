@@ -1100,3 +1100,76 @@ def test_wrappers_launch_on_the_current_stream(cuda_device, monkeypatch):
     side.synchronize()
     assert handles and all(handle == side.cuda_stream for handle in handles)
     assert side.cuda_stream != torch.cuda.current_stream(cuda_device).cuda_stream
+
+
+# --- the solver sidecar on the card ------------------------------------------------
+
+
+def _sidecar_problems(count, num_pods=6_000):
+    """`count` encoded problems of the main path's mix (make_workload's
+    shapes over its 400 types), each from its own seed."""
+    problems = []
+    for seed in range(count):
+        pods, catalog = chip_smoke.make_workload(num_pods, seed=seed)
+        groups = group_pods(pods)
+        problems.append((groups, build_fleet(catalog, Constraints(), pods, pods_need=groups.vectors.max(axis=0))))
+    return problems
+
+
+@pytest.fixture
+def card_sidecar(cuda_device):
+    from karpenter_tpu_torch.solver_service.server import SolverServer
+
+    server = SolverServer(port=0).start(warmup=False)
+    yield server
+    server.stop()
+
+
+def test_sidecar_on_the_card_equals_in_process(card_sidecar):
+    """The sidecar in a thread of this process on the card (K1, the K2 pair
+    and K3) answers what CostSolver in process does."""
+    from karpenter_tpu_torch.solver_service.client import RemoteSolver
+
+    client = RemoteSolver(f"127.0.0.1:{card_sidecar.port}")
+    try:
+        assert client.healthy().platform == "gpu"
+        for groups, fleet in _sidecar_problems(2):
+            before = (cuda_kernels.dominance_prices.launches, pack_kernel.pack_pair_payload.launches,
+                      score_kernel.lp_relax.launches)
+            remote = client.solve_encoded(groups, fleet)
+            after = (cuda_kernels.dominance_prices.launches, pack_kernel.pack_pair_payload.launches,
+                     score_kernel.lp_relax.launches)
+            assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+            local = solver.CostSolver().solve_encoded(groups, fleet)
+            assert chip_smoke.plan_signature(remote) == chip_smoke.plan_signature(local)
+        assert client._blackout_until == -float("inf")
+    finally:
+        client.close()
+
+
+def test_concurrent_sidecar_solves_equal_serial_ones(card_sidecar):
+    """Four Solve RPCs at once through one client (four handler threads in
+    the port's dispatch together) give what four serial RPCs give."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from karpenter_tpu_torch.solver_service.client import RemoteSolver
+
+    client = RemoteSolver(f"127.0.0.1:{card_sidecar.port}")
+    try:
+        requests = [client._build_request(groups, fleet)[0] for groups, fleet in _sidecar_problems(4)]
+
+        def answer(request):
+            response = client._solve_rpc(request, timeout=60.0)
+            return (response.solver, response.fallback, response.unschedulable.data,
+                    [(r.type_index, r.fill.data, r.replication, r.option_set) for r in response.rounds],
+                    [(list(s.type_indices), [(p.type_index, p.zone_index, p.price) for p in s.pools])
+                     for s in response.option_sets])
+
+        serial = [answer(request) for request in requests]
+        for _ in range(3):
+            with ThreadPoolExecutor(max_workers=4) as pool:
+                together = list(pool.map(answer, requests))
+            assert together == serial
+        assert all(solver_name == "tpu-cost" and not fallback for solver_name, fallback, *_ in serial)
+    finally:
+        client.close()

@@ -157,6 +157,23 @@ def test_the_store_and_cloud_modules_are_checked():
         assert name in names
 
 
+def test_the_sidecar_and_webhook_modules_are_checked():
+    """The blocked-import check below covers every module of the port; the
+    solver sidecar's (its wire schema, codecs, client and server), the
+    admission webhook and its certificates among them."""
+    names = _module_names()
+    for name in (
+        "karpenter_tpu_torch.solver_service",
+        "karpenter_tpu_torch.solver_service.solver_pb2",
+        "karpenter_tpu_torch.solver_service.wire",
+        "karpenter_tpu_torch.solver_service.client",
+        "karpenter_tpu_torch.solver_service.server",
+        "karpenter_tpu_torch.cmd.webhook",
+        "karpenter_tpu_torch.utils.certs",
+    ):
+        assert name in names
+
+
 def test_every_module_imports_with_jax_blocked():
     script = textwrap.dedent(
         f"""

@@ -85,9 +85,13 @@ VERBATIM = [
     "cloudprovider/ec2/instances.py",
     "cloudprovider/ec2/fake.py",
     "cloudprovider/ec2/aws_http.py",
+    "solver_service/__init__.py",
+    "solver_service/solver_pb2.py",
+    "solver_service/wire.py",
+    "utils/certs.py",
+    "cmd/webhook.py",
 ]
 _DOCSTRING = "docstring only: names the port's files and devices"
-_NO_SPANS = "no tracing spans"
 _MESH = "a mesh is a grid of shards in one process (parallel/mesh.py), not a jax Mesh"
 _PORT_ONLY = "the port's own helper"
 _HISTORY = "docstring only: without the reference's history of which change added what"
@@ -148,7 +152,8 @@ TRIMMED = {
         "_SpanContext": "enters torch.profiler.record_function in place of "
                         "jax.profiler.TraceAnnotation",
         "_ProfileSession": "a torch.profiler capture exported as a Chrome trace in place of "
-                           "jax.profiler.start_trace",
+                           "jax.profiler.start_trace, one at a time in a process (the sidecar "
+                           "solves in several threads)",
     },
     "utils/options.py": {},
     "market/__init__.py": {},
@@ -158,8 +163,7 @@ TRIMMED = {
                                  "its plain version on the CPU",
     },
     "runtime.py": {
-        "make_solver": "places the device solvers on a device the caller picks; the sidecar "
-                       "(remote) is not ported and raises",
+        "make_solver": "places the device solvers on a device the caller picks",
         "LeaderLock.__init__": "the lock file lies in the process's temporary directory",
         "Manager.__init__": "places the solver, encoder and consolidation solve on a device "
                             "the caller picks; keeps the error of a failed card warmup",
@@ -176,6 +180,30 @@ TRIMMED = {
         "main": "takes the device the Manager runs on; hands the elector to a caller that "
                 "does not block; no JAX donation advisory to suppress; a Manager stopped by a "
                 "failed card warmup ends the blocking process with its error",
+    },
+    "solver_service/client.py": {
+        "RemoteSolver.solve_encoded_pipelined": "records the stream's RPC histogram, span and "
+                                                "blackout before it yields the last result: the "
+                                                "provisioning pass pulls exactly one result a "
+                                                "schedule, so the reference's bookkeeping after "
+                                                "the last yield never runs",
+    },
+    "solver_service/server.py": {
+        "_Handler.__init__": "keeps the device the solves run on",
+        "_Handler._solve": "solves on the handler's device",
+        "_Handler._ingest_stream": "gates and dispatches on the handler's device",
+        "_Handler._ffd_rounds": "takes the device K2 runs on",
+        "_Handler.health": "platform and device count from torch (\"gpu\" on the card), in "
+                           "place of jax.default_backend() and jax.device_count()",
+        "SolverServer": "docstring only: names the device and the failed warmup",
+        "SolverServer.__init__": "takes the device the solves run on (None: the card, which "
+                                 "raises without one); keeps a failed warmup's error",
+        "SolverServer._warmup": "warms that device; a warmup that raises stops the server "
+                                "(no serving from a device that could not warm)",
+        "main": "takes the device; a DEGRADED card at boot raises (no CPU pin); the process "
+                "group through the port's init_distributed, followers leave it after their "
+                "loop and the lead after lead_stop; a failed warmup ends the process with its "
+                "error; no JAX donation advisory to suppress",
     },
     "utils/backend_health.py": {
         "BackendHealth.ensure_backend": "settles HEALTHY for a CPU device without a probe, "
@@ -233,7 +261,7 @@ TRIMMED = {
         "_cheapest_feasible_pools": _DOCSTRING,
         "_decode_rounds": _DOCSTRING,
         "_kernel_rounds_to_list": "annotation names a class the port imports",
-        "cost_solve_dense": "runs on a device the caller picks; " + _NO_SPANS,
+        "cost_solve_dense": "runs on a device the caller picks",
         "compute_mix_candidate": _DOCSTRING,
         "_probe_fetch_floor_ms": "one flat int32 copy from a device the caller picks",
         "host_route_open": _PORT_ONLY + ": the host route is open on the CPU by default and "
@@ -244,15 +272,15 @@ TRIMMED = {
         "cost_solve_dispatch": "K1-K4 on a torch device, the fleet resident and the rest in "
                                "one packed upload; every dispatch counts on the dispatch "
                                "metric (no count= option: boot warmup ends before ready); "
-                               + "the mesh from solve_mesh(device); " + _NO_SPANS,
+                               + "the mesh from solve_mesh(device)",
         "_collect_candidates": "takes fetched plans only (no host-tuple candidates)",
         "cost_solve_finish": _DOCSTRING,
         "_is_resource_exhausted": "also takes torch.cuda.OutOfMemoryError",
         "_hbm_budget_bytes": "the card's total memory from torch.cuda.mem_get_info",
         "_presplit_for_hbm": "reads the budget of the solver's device",
         "CostSolver": "runs on a device the caller picks and raises without a card; the "
-                      "floor answers from the host path with no backend pin; no tracing "
-                      "spans; no warmup; the host route is opt-in on the card "
+                      "floor answers from the host path with no backend pin; no warmup; "
+                      "the host route is opt-in on the card "
                       "(host_fallback_available reads host_route_open)",
         "decode_dense_result": _DOCSTRING,
         "_eager_words": _PORT_ONLY + ": the device->host copy of every eager payload, the step "

@@ -383,8 +383,11 @@ def test_make_solver_builds_each_solver():
     ffd = make_solver("ffd", device="cpu")
     assert isinstance(ffd, TPUSolver) and ffd.mode == "ffd" and ffd.device.type == "cpu"
     assert isinstance(make_solver("cost", device="cpu"), CostSolver)
-    with pytest.raises(ValueError, match="not ported"):
-        make_solver("remote", "localhost:1")
+    from karpenter_tpu_torch.solver_service.client import RemoteSolver
+
+    remote = make_solver("remote", "localhost:1")
+    assert isinstance(remote, RemoteSolver) and remote.endpoint == "localhost:1"
+    remote.close()
     with pytest.raises(ValueError, match="unknown"):
         make_solver("bogus")
 

@@ -582,15 +582,21 @@ def test_controller_main_binds_every_pod_exactly_once():
 
 
 def test_controller_refuses_what_is_not_ported():
-    """The solver sidecar is the part of the controller process not ported;
-    the stores and the EC2 provider are the reference's: --cluster-store
-    selects the in-memory store or an apiserver's transport, and the
-    registry's ec2 builds the EC2 provider."""
+    """Nothing of the controller process is left unported: --solver remote
+    builds the sidecar's client (the reference's RemoteSolver, which never
+    touches the card), --cluster-store selects the in-memory store or an
+    apiserver's transport, and the registry's ec2 builds the EC2
+    provider."""
     from karpenter_tpu_torch.cloudprovider.ec2 import Ec2CloudProvider
     from karpenter_tpu_torch.kubeapi.client import HttpTransport
+    from karpenter_tpu_torch.solver_service.client import RemoteSolver
 
-    with pytest.raises(ValueError, match="not ported"):
-        port_runtime.make_solver("remote")
+    remote = port_runtime.make_solver("remote", "127.0.0.1:1")
+    try:
+        assert isinstance(remote, RemoteSolver) and remote.endpoint == "127.0.0.1:1"
+        assert not getattr(remote, "needs_device_warmup", False)
+    finally:
+        remote.close()
     assert isinstance(controller.build_cluster(Options(cluster_name="x")), Cluster)
     assert HttpTransport.for_store("memory") is None
     transport = HttpTransport.for_store("http://127.0.0.1:8001")
