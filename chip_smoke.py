@@ -1537,13 +1537,16 @@ def k10_against_library_device_ms(k10_call, library_call, reps: int = 200) -> tu
     in one profile: the records that are not K10's are the library's (it
     launches one kernel a call). Returns (K10 ms, library ms, the library
     kernel's name). A window that lost a record is measured again, up to
-    three times."""
+    three times; then, as device_ms_per_call does, the window that kept
+    most gives each side's mean time per kept record, provided neither
+    side lost more than max(2, 1%) of its records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     k10_call()
     library_call()
     torch.cuda.synchronize()
+    best = None
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1554,11 +1557,21 @@ def k10_against_library_device_ms(k10_call, library_call, reps: int = 200) -> tu
                    and not e.name.startswith(("Memcpy", "Memset"))]
         ours = [e for e in records if "penalize_kernel" in e.name]
         theirs = [e for e in records if "penalize_kernel" not in e.name]
+        check(len(ours) <= reps and len(theirs) <= reps,
+              f"the profiler kept more records than {reps} calls make: {len(ours)} K10, {len(theirs)} library")
         if len(ours) == len(theirs) == reps:
             return (sum(e.time_range.elapsed_us() for e in ours) / reps / 1e3,
                     sum(e.time_range.elapsed_us() for e in theirs) / reps / 1e3, theirs[0].name[:120])
         print(f"  the profiler kept {len(ours)} K10 and {len(theirs)} library records of {reps}; measuring again")
-    check(False, "the profiler dropped records of K10 or torch.addcmul in three windows")
+        if best is None or len(ours) + len(theirs) > len(best[0]) + len(best[1]):
+            best = (ours, theirs)
+    ours, theirs = best
+    allowed = max(2, reps // 100)
+    check(ours and theirs and reps - len(ours) <= allowed and reps - len(theirs) <= allowed,
+          f"the profiler dropped too many records of K10 or torch.addcmul: kept {len(ours)} and "
+          f"{len(theirs)} of {reps}")
+    return (sum(e.time_range.elapsed_us() for e in ours) / len(ours) / 1e3,
+            sum(e.time_range.elapsed_us() for e in theirs) / len(theirs) / 1e3, theirs[0].name[:120])
 
 
 def kernel_records(fn, copies: bool = False) -> dict:
@@ -4868,6 +4881,11 @@ def apiserver_controller(url: str, metrics_port: int, probe_port: int, device=No
                        for sweep in probe.sweeps[mark["sweeps"]:]],
             "actions": {kind: consolidation_mod.CONSOLIDATION_ACTIONS_TOTAL.get(kind, "executed")
                         for kind in ("delete", "replace")},
+            # Since boot: pump events that arrived while a write-through of
+            # the same object was in flight, of those dropped as its echo,
+            # and applied after it.
+            "echoes": {"held": manager.cluster.echoes_held, "dropped": manager.cluster.echoes_dropped,
+                       "applied": manager.cluster.echoes_applied},
             **counted,
         }
 
@@ -5203,6 +5221,15 @@ def apiserver_phase(device=None, num_pods: int = APISERVER_PODS,
         phase("apiserver_http", controller_requests=json.dumps(final["requests"], separators=(",", ":"), sort_keys=True),
               controller_watch_events=json.dumps(final["events"], separators=(",", ":"), sort_keys=True),
               boot_requests=sum(booted["boot_requests"].values()))
+        # The watch-echo race: a count of 0 is no fault (the timing decides
+        # whether an echo overtakes its write in a run). Events of a write
+        # still in flight at the report are neither dropped nor applied yet.
+        echoes = final["echoes"]
+        check(echoes["held"] >= echoes["dropped"] + echoes["applied"],
+              f"more held pump events released than held: {echoes}")
+        phase("apiserver_echoes", during_write=echoes["held"], dropped_as_echo=echoes["dropped"],
+              applied_after_write=echoes["applied"],
+              still_held=echoes["held"] - echoes["dropped"] - echoes["applied"])
         kubelets_stop.set()
         check(child.ask("stop", APISERVER_TIMEOUT_S).get("stopped"), "the controller did not stop")
         check(child.process.wait(timeout=60) == 0, f"the controller exited with {child.process.returncode}")
@@ -5219,7 +5246,7 @@ def apiserver_phase(device=None, num_pods: int = APISERVER_PODS,
         "device_solves": all_solves, "launches": all_launches,
         "k7_launches": sum(sweep["k7"] for sweep in sweeps), "sweeps": len(sweeps),
         "requests": final["requests"], "watch_events": final["events"],
-        "cost_before": cost_before, "cost_after": cost_after,
+        "cost_before": cost_before, "cost_after": cost_after, "echoes": final["echoes"],
     }
 
 
@@ -6077,7 +6104,7 @@ def smoke(children) -> int:
     from karpenter_tpu_torch.market import forecast
     from karpenter_tpu_torch.ops import (
         consolidate_kernel, cuda_build, cuda_kernels, forecast_kernel, incremental, launch_floor,
-        native, pack_kernel, score_kernel,
+        mix_pack, native, pack_kernel, score_kernel,
     )
     from karpenter_tpu_torch.ops.encode import build_fleet, group_pods
 
@@ -6320,6 +6347,7 @@ def smoke(children) -> int:
     start = time.perf_counter()
     result = cost_solver.solve(pods, catalog, Constraints())
     first_solve_ms = (time.perf_counter() - start) * 1e3
+    solve_fetch_bytes = solver.LAST_FETCH_BYTES
     # K2's one launch is the pair with its epilogue (K4 inside it).
     launches = {
         "dominance_prices": cuda_kernels.dominance_prices.launches,
@@ -6342,7 +6370,7 @@ def smoke(children) -> int:
         cost_per_hr=f"{gpu_cost:.6f}", encode_ms=f"{encode_ms:.3f}",
         first_solve_ms=f"{first_solve_ms:.3f}",
         p50_ms=f"{np.percentile(solve_ms, 50):.3f}", p99_ms=f"{np.percentile(solve_ms, 99):.3f}",
-        launches=json.dumps(launches, separators=(",", ":")),
+        launches=json.dumps(launches, separators=(",", ":")), fetch_bytes=solve_fetch_bytes,
     )
 
     # 5. the same encoded problem through the plain versions on the CPU. The
@@ -6362,6 +6390,17 @@ def smoke(children) -> int:
     gpu_plan = solver.fetch_plan(handle)
     fetch_wait_ms = (time.perf_counter() - start) * 1e3
     check(still_running, "cost_solve_dispatch returned after the card had finished")
+    # The fetch accounting (pack_kernel.fetch_bytes): what the fetch copied
+    # from the card against the payload's shape math, as the reference's
+    # tests/test_device_residency.py holds its handle.
+    dispatch_fetch_bytes = solver.LAST_FETCH_BYTES
+    payload_bytes = 4 * pack_kernel.compact_words_sharded(handle.num_groups, handle.shards) + 4
+    check(dispatch_fetch_bytes == payload_bytes == solve_fetch_bytes,
+          f"the fused solve fetched {dispatch_fetch_bytes} bytes (the solve {solve_fetch_bytes}), "
+          f"not the payload's {payload_bytes}")
+    check(handle.shards > 1 or payload_bytes == pack_kernel.compact_bytes(handle.num_groups),
+          "compact_bytes disagrees with the single-device payload")
+    check(pack_kernel.compact_bytes(16) <= 4096, "a 16-group payload is past 4 KiB")
     cpu_plan = solver.fetch_plan(
         solver.cost_solve_dispatch(groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices, device="cpu")
     )
@@ -6380,6 +6419,45 @@ def smoke(children) -> int:
           rounds_ffd=int(gpu_plan.rounds_ffd.num_rounds), rounds_cost=int(gpu_plan.rounds_cost.num_rounds),
           gpu_cost_per_hr=f"{gpu_cost:.6f}", cpu_cost_per_hr=f"{cpu_cost:.6f}",
           dispatch_sync_free="yes", dispatch_ms=f"{dispatch_ms:.3f}", fetch_wait_ms=f"{fetch_wait_ms:.3f}")
+    phase("fetch", groups=handle.num_groups, shards=handle.shards, fetch_bytes=dispatch_fetch_bytes,
+          compact_bytes=pack_kernel.compact_bytes(handle.num_groups),
+          compact_bytes_16=pack_kernel.compact_bytes(16))
+
+    # 5b. K3's own entry on bare arrays: lp_relax_solve on the main path's
+    # dense problem, one launch of K3, against the fused solve's LP figures.
+    bare_lp = [tensor.cpu().numpy() for tensor in main_lp]
+    k3_before = score_kernel.lp_relax.launches
+    bare = score_kernel.lp_relax_solve(*bare_lp, steps=300, device="cuda")
+    torch.cuda.synchronize()
+    bare_launches = score_kernel.lp_relax.launches - k3_before
+    check(bare_launches == 1, f"lp_relax_solve launched K3 {bare_launches} times, not once")
+    bare_obj_err = abs(float(bare.objective) - gpu_plan.lp_objective) / abs(gpu_plan.lp_objective)
+    bare_assign_err = float(np.abs(bare.assignment.cpu().numpy() - gpu_plan.lp_assignment()).max())
+    check(bare_obj_err <= LP_OBJECTIVE_RTOL and bare_assign_err <= LP_ASSIGNMENT_ATOL,
+          f"lp_relax_solve differs from the fused solve's LP: objective {bare_obj_err:.3e} relative, "
+          f"assignment {bare_assign_err:.3e}")
+    phase("lp_relax_solve", launches=bare_launches, objective=f"{float(bare.objective):.6f}",
+          objective_rel_err=f"{bare_obj_err:.3e}", assignment_max_abs_err=f"{bare_assign_err:.3e}")
+
+    # 5c. the certified plan-cost floor (mix_pack.certified_lp_floor, the
+    # reference bench's lp_bound) on the main path's groups and fleet: each
+    # type's cheapest pool price as its column price, as bench.py builds it.
+    _, pool_prices = solver._pool_price_matrix(fleet)
+    pool_floor = np.where(np.isfinite(pool_prices), pool_prices, np.inf).min(axis=1)
+    start = time.perf_counter()
+    floor = mix_pack.certified_lp_floor(groups.vectors, groups.counts, fleet.capacity, pool_floor)
+    floor_s = time.perf_counter() - start
+    if floor is None:
+        phase("plan_floor", cost_per_hr=f"{gpu_cost:.6f}", floor="none (no milp, or no column)",
+              seconds=f"{floor_s:.3f}")
+    else:
+        floor_cost, certified = floor
+        # No plan costs less than a certified lower bound.
+        check(not certified or floor_cost <= gpu_cost * (1 + 1e-6),
+              f"the certified floor {floor_cost} lies above the plan's $/hr {gpu_cost}")
+        phase("plan_floor", cost_per_hr=f"{gpu_cost:.6f}", floor_per_hr=f"{floor_cost:.6f}",
+              certified=certified, plan_over_floor=f"{gpu_cost / floor_cost:.6f}",
+              seconds=f"{floor_s:.3f}")
 
     # 6. a batch of 8 schedules sharing one fetch.
     batch = [(pods[k::8], catalog, Constraints(), ()) for k in range(8)]

@@ -9,7 +9,10 @@ reconciles. This class is that architecture on our verb surface:
 - WRITES go through to the apiserver REST API first (binding and eviction
   use their subresources, exactly the RPCs the reference issues), then
   update the cache so same-thread read-after-write is consistent — the
-  watch event that follows is deduplicated by resourceVersion.
+  watch event that follows is deduplicated by resourceVersion. A watch
+  event for an object while a write-through of it is in flight is held
+  until the write has recorded its resourceVersion (_write_through), so
+  the write's own echo never replaces the cached instance.
 - The leader-election lease is a real coordination.k8s.io/v1 Lease with
   optimistic-concurrency CAS, so mutual exclusion spans every replica
   (cmd/controller/main.go:80-81).
@@ -20,6 +23,7 @@ both (tests/test_backend_parity.py).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -85,6 +89,17 @@ class ApiServerCluster(Cluster):
         # DeletedFinalStateUnknown tombstones).
         self._tombstones: Dict[Tuple[str, object], Tuple[int, float]] = {}  # vet: guarded-by(self._rv_lock)
         self._rv_lock = threading.Lock()
+        # Write-throughs in flight per (kind, key), and the watch events for
+        # those objects held back until the last of them ends: an echo of
+        # the write that the pump delivers before the write has recorded its
+        # rv must not replace the cached instance the caller holds.
+        self._in_flight: Dict[Tuple[str, object], int] = {}  # vet: guarded-by(self._rv_lock)
+        self._held: Dict[Tuple[str, object], list] = {}  # vet: guarded-by(self._rv_lock)
+        # Events held during a write of their object; of those, the ones
+        # dropped as echoes of it and the ones applied after it.
+        self.echoes_held = 0
+        self.echoes_dropped = 0
+        self.echoes_applied = 0
         # Serializes the PDB gate + displacement write (reschedule_pod):
         # the interruption and consolidation drain loops displace
         # concurrently, and two gates passing on the same budget instant
@@ -299,10 +314,72 @@ class ApiServerCluster(Cluster):
                         key, max(delete_rv, self._rv.get(key, 0))
                     )
                 self._remove_local(kind, obj)
-            elif self._newer(kind, obj):
+            elif not self._hold(kind, obj) and self._newer(kind, obj):
                 self._apply_remote(kind, obj)
         except Exception:  # noqa: BLE001 — one bad event must not kill the pump
             log.exception("applying %s %s event failed", kind, event_type)
+
+    def _hold(self, kind: str, obj: dict) -> bool:
+        """Hold back a pump event for an object a write-through has in
+        flight; _end_write applies it, or drops it as the write's echo,
+        once the write has recorded its rv. Only the pump's ADDED and
+        MODIFIED events come here: DELETED keeps its own gate above, and
+        LIST items (start, _relist) are never held."""
+        slot = (kind, self._key(kind, obj))
+        with self._rv_lock:
+            if slot not in self._in_flight:
+                return False
+            self._held.setdefault(slot, []).append(obj)
+            self.echoes_held += 1
+        return True
+
+    @contextlib.contextmanager
+    def _write_through(self, kind: str, key):
+        """Mark one write-through of (kind, key) in flight for the body: the
+        RPC, its _record_rv and the cache update. The pump's events for the
+        object wait meanwhile (_hold), and are released when the body ends,
+        whether it returned or raised. _rv_lock is held only around the
+        bookkeeping, never across the RPC."""
+        slot = (kind, key)
+        with self._rv_lock:
+            self._in_flight[slot] = self._in_flight.get(slot, 0) + 1
+        try:
+            yield
+        finally:
+            self._end_write(slot)
+
+    def _end_write(self, slot) -> None:
+        """End one write of `slot`. The last write in flight applies the
+        held events in their order through the rv gate: one at or below the
+        rv the write recorded is its echo and is dropped, one above it is an
+        external change and is applied. The slot stays in flight until no
+        event is left, so events arriving meanwhile queue behind them."""
+        kind = slot[0]
+        while True:
+            with self._rv_lock:
+                held = self._held.pop(slot, None)
+                if held is None or self._in_flight[slot] > 1:
+                    if held is not None:
+                        self._held[slot] = held  # the last write releases them
+                    left = self._in_flight[slot] - 1
+                    if left:
+                        self._in_flight[slot] = left
+                    else:
+                        del self._in_flight[slot]
+                    return
+            for obj in held:
+                try:
+                    applied = self._newer(kind, obj)
+                    if applied:
+                        self._apply_remote(kind, obj)
+                except Exception:  # noqa: BLE001 — one bad event must not fail the write
+                    log.exception("applying a held %s event failed", kind)
+                    continue
+                with self._rv_lock:
+                    if applied:
+                        self.echoes_applied += 1
+                    else:
+                        self.echoes_dropped += 1
 
     def _apply_remote(self, kind: str, obj: dict) -> None:
         self._newer(kind, obj)  # record rv on initial LIST too
@@ -373,13 +450,14 @@ class ApiServerCluster(Cluster):
 
     def apply_pod(self, pod: PodSpec) -> PodSpec:
         self.fence.check("apply_pod")
-        created = self._create_or_update(
-            _pod_path(pod.namespace),
-            _pod_path(pod.namespace, pod.name),
-            convert.pod_to_kube(pod),
-        )
-        self._record_rv("pod", created)
-        return super().apply_pod(pod)
+        with self._write_through("pod", (pod.namespace, pod.name)):
+            created = self._create_or_update(
+                _pod_path(pod.namespace),
+                _pod_path(pod.namespace, pod.name),
+                convert.pod_to_kube(pod),
+            )
+            self._record_rv("pod", created)
+            return super().apply_pod(pod)
 
     def bind_pod(self, pod: PodSpec, node: NodeSpec) -> None:
         self.fence.check("bind_pod")
@@ -532,34 +610,35 @@ class ApiServerCluster(Cluster):
         (_pdb_allows above; PDBs write through both sides)."""
         from karpenter_tpu_torch.controllers.cluster import reschedule_epoch
 
-        pod = self.try_get_pod(namespace, name)
-        epoch = reschedule_epoch(pod) + 1 if pod is not None else 1
-        try:
-            updated = self.api.patch(
-                _pod_path(namespace, name),
-                {
-                    "metadata": {
-                        "annotations": {
-                            wellknown.RESCHEDULE_EPOCH_ANNOTATION: str(epoch)
-                        }
-                    },
-                    "spec": {"nodeName": None},
-                    "status": {
-                        "conditions": [
-                            {
-                                "type": "PodScheduled",
-                                "status": "False",
-                                "reason": "Unschedulable",
+        with self._write_through("pod", (namespace, name)):
+            pod = self.try_get_pod(namespace, name)
+            epoch = reschedule_epoch(pod) + 1 if pod is not None else 1
+            try:
+                updated = self.api.patch(
+                    _pod_path(namespace, name),
+                    {
+                        "metadata": {
+                            "annotations": {
+                                wellknown.RESCHEDULE_EPOCH_ANNOTATION: str(epoch)
                             }
-                        ]
+                        },
+                        "spec": {"nodeName": None},
+                        "status": {
+                            "conditions": [
+                                {
+                                    "type": "PodScheduled",
+                                    "status": "False",
+                                    "reason": "Unschedulable",
+                                }
+                            ]
+                        },
                     },
-                },
-            )
-            self._record_rv("pod", updated)
-        except ApiError as error:
-            if error.status != 404:
-                raise
-        return super()._reschedule_local(namespace, name)
+                )
+                self._record_rv("pod", updated)
+            except ApiError as error:
+                if error.status != 404:
+                    raise
+            return super()._reschedule_local(namespace, name)
 
     def apply_pdb(self, name: str, match_labels, min_available: int):
         self.fence.check("apply_pdb")
@@ -580,53 +659,55 @@ class ApiServerCluster(Cluster):
 
     def create_node(self, node: NodeSpec) -> NodeSpec:
         self.fence.check("create_node")
-        if not node.created_at:
-            node.created_at = self.clock.now()
-        # The apiserver is the strictness authority here (duplicate names
-        # come back as ApiError 409 from the create); the local cache update
-        # is an upsert so a watch event racing our own write can't trip the
-        # in-memory duplicate check.
-        try:
-            created = self.api.create(NODES, convert.node_to_kube(node))
-        except ApiError as error:
-            if error.status != 409:
-                raise
-            # Verify the conflict before letting it become the adoption
-            # signal upstream: a 409 for a node a GET cannot find is either
-            # a conflict-storm artifact or a delete racing our create —
-            # adopting a ghost would bind pods to a node that doesn't
-            # exist. Retry the create once; a REAL AlreadyExists re-raises.
-            if self.api.try_get(f"{NODES}/{node.name}") is not None:
-                raise
-            created = self.api.create(NODES, convert.node_to_kube(node))
-        self._record_rv("node", created)
-        return super().apply_node(node)
+        with self._write_through("node", node.name):
+            if not node.created_at:
+                node.created_at = self.clock.now()
+            # The apiserver is the strictness authority here (duplicate names
+            # come back as ApiError 409 from the create); the local cache update
+            # is an upsert so a watch event racing our own write can't trip the
+            # in-memory duplicate check.
+            try:
+                created = self.api.create(NODES, convert.node_to_kube(node))
+            except ApiError as error:
+                if error.status != 409:
+                    raise
+                # Verify the conflict before letting it become the adoption
+                # signal upstream: a 409 for a node a GET cannot find is either
+                # a conflict-storm artifact or a delete racing our create —
+                # adopting a ghost would bind pods to a node that doesn't
+                # exist. Retry the create once; a REAL AlreadyExists re-raises.
+                if self.api.try_get(f"{NODES}/{node.name}") is not None:
+                    raise
+                created = self.api.create(NODES, convert.node_to_kube(node))
+            self._record_rv("node", created)
+            return super().apply_node(node)
 
     def update_node(self, node: NodeSpec) -> None:
         self.fence.check("update_node")
-        # PATCH (merge) only the fields controllers own; a full PUT would
-        # clobber concurrent kubelet status updates.
-        patch = {
-            "metadata": {
-                "labels": dict(node.labels),
-                "annotations": dict(node.annotations),
-                "finalizers": list(node.finalizers),
-            },
-            "spec": {
-                "unschedulable": node.unschedulable,
-                "taints": [
-                    {"key": t.key, "value": t.value, "effect": t.effect}
-                    for t in node.taints
-                ],
-            },
-        }
-        try:
-            updated = self.api.patch(f"{NODES}/{node.name}", patch)
-            self._record_rv("node", updated)
-        except ApiError as error:
-            if error.status != 404:
-                raise
-        super().update_node(node)
+        with self._write_through("node", node.name):
+            # PATCH (merge) only the fields controllers own; a full PUT would
+            # clobber concurrent kubelet status updates.
+            patch = {
+                "metadata": {
+                    "labels": dict(node.labels),
+                    "annotations": dict(node.annotations),
+                    "finalizers": list(node.finalizers),
+                },
+                "spec": {
+                    "unschedulable": node.unschedulable,
+                    "taints": [
+                        {"key": t.key, "value": t.value, "effect": t.effect}
+                        for t in node.taints
+                    ],
+                },
+            }
+            try:
+                updated = self.api.patch(f"{NODES}/{node.name}", patch)
+                self._record_rv("node", updated)
+            except ApiError as error:
+                if error.status != 404:
+                    raise
+            super().update_node(node)
 
     def heartbeat_node(self, name: str, ready: bool = True):
         # Status-only merge-patch — the write a real kubelet's status loop
@@ -635,45 +716,47 @@ class ApiServerCluster(Cluster):
         # the reporter is the node, not the controller leader. Critical
         # lane: a heartbeat parked behind a bulk bind storm reads as a
         # gone-dark node and trips the health ladder for no reason.
-        try:
-            with critical_lane():
-                updated = self.api.patch(
-                    f"{NODES}/{name}",
-                    {
-                        "status": {
-                            "conditions": [
-                                {
-                                    "type": "Ready",
-                                    "status": "True" if ready else "False",
-                                    "lastHeartbeatTime": convert.rfc3339(
-                                        self.clock.now()
-                                    ),
-                                }
-                            ]
-                        }
-                    },
-                )
-            self._record_rv("node", updated)
-        except ApiError as error:
-            if error.status != 404:
-                raise
-            return None
-        return super().heartbeat_node(name, ready)
+        with self._write_through("node", name):
+            try:
+                with critical_lane():
+                    updated = self.api.patch(
+                        f"{NODES}/{name}",
+                        {
+                            "status": {
+                                "conditions": [
+                                    {
+                                        "type": "Ready",
+                                        "status": "True" if ready else "False",
+                                        "lastHeartbeatTime": convert.rfc3339(
+                                            self.clock.now()
+                                        ),
+                                    }
+                                ]
+                            }
+                        },
+                    )
+                self._record_rv("node", updated)
+            except ApiError as error:
+                if error.status != 404:
+                    raise
+                return None
+            return super().heartbeat_node(name, ready)
 
     def remove_node_annotation(self, node: NodeSpec, key: str) -> None:
         self.fence.check("remove_node_annotation")
-        # Merge-patch null is the only way to DELETE a key server-side
-        # (RFC 7386); sending the remaining map would leave it in place and
-        # the watch pump would resurrect it into the cache.
-        try:
-            updated = self.api.patch(
-                f"{NODES}/{node.name}", {"metadata": {"annotations": {key: None}}}
-            )
-            self._record_rv("node", updated)
-        except ApiError as error:
-            if error.status != 404:
-                raise
-        super().remove_node_annotation(node, key)
+        with self._write_through("node", node.name):
+            # Merge-patch null is the only way to DELETE a key server-side
+            # (RFC 7386); sending the remaining map would leave it in place and
+            # the watch pump would resurrect it into the cache.
+            try:
+                updated = self.api.patch(
+                    f"{NODES}/{node.name}", {"metadata": {"annotations": {key: None}}}
+                )
+                self._record_rv("node", updated)
+            except ApiError as error:
+                if error.status != 404:
+                    raise
+            super().remove_node_annotation(node, key)
 
     def delete_node(self, name: str) -> None:
         self.fence.check("delete_node")
@@ -690,43 +773,46 @@ class ApiServerCluster(Cluster):
 
     def remove_finalizer(self, node: NodeSpec, finalizer: str) -> None:
         self.fence.check("remove_finalizer")
-        remaining = [f for f in node.finalizers if f != finalizer]
-        try:
-            with critical_lane():
-                updated = self.api.patch(
-                    f"{NODES}/{node.name}",
-                    {"metadata": {"finalizers": remaining}},
-                )
-            self._record_rv("node", updated)
-        except ApiError as error:
-            if error.status != 404:
-                raise
-        super().remove_finalizer(node, finalizer)
+        with self._write_through("node", node.name):
+            remaining = [f for f in node.finalizers if f != finalizer]
+            try:
+                with critical_lane():
+                    updated = self.api.patch(
+                        f"{NODES}/{node.name}",
+                        {"metadata": {"finalizers": remaining}},
+                    )
+                self._record_rv("node", updated)
+            except ApiError as error:
+                if error.status != 404:
+                    raise
+            super().remove_finalizer(node, finalizer)
 
     # --- provisioners --------------------------------------------------------
 
     def apply_provisioner(self, provisioner: Provisioner) -> Provisioner:
         self.fence.check("apply_provisioner")
-        created = self._create_or_update(
-            PROVISIONERS,
-            f"{PROVISIONERS}/{provisioner.name}",
-            convert.provisioner_to_kube(provisioner),
-        )
-        self._record_rv("provisioner", created)
-        return super().apply_provisioner(provisioner)
+        with self._write_through("provisioner", provisioner.name):
+            created = self._create_or_update(
+                PROVISIONERS,
+                f"{PROVISIONERS}/{provisioner.name}",
+                convert.provisioner_to_kube(provisioner),
+            )
+            self._record_rv("provisioner", created)
+            return super().apply_provisioner(provisioner)
 
     def update_provisioner_status(self, provisioner: Provisioner) -> None:
         self.fence.check("update_provisioner_status")
-        status = convert.provisioner_to_kube(provisioner).get("status", {})
-        try:
-            updated = self.api.patch(
-                f"{PROVISIONERS}/{provisioner.name}/status", {"status": status}
-            )
-            self._record_rv("provisioner", updated)
-        except ApiError as error:
-            if error.status != 404:
-                raise
-        super().update_provisioner_status(provisioner)
+        with self._write_through("provisioner", provisioner.name):
+            status = convert.provisioner_to_kube(provisioner).get("status", {})
+            try:
+                updated = self.api.patch(
+                    f"{PROVISIONERS}/{provisioner.name}/status", {"status": status}
+                )
+                self._record_rv("provisioner", updated)
+            except ApiError as error:
+                if error.status != 404:
+                    raise
+            super().update_provisioner_status(provisioner)
 
     def delete_provisioner(self, name: str) -> None:
         self.fence.check("delete_provisioner")

@@ -59,11 +59,12 @@ from karpenter_tpu_torch.ops import ffd
 from karpenter_tpu_torch.ops import mix_pack
 from karpenter_tpu_torch.ops.cuda_kernels import dominance_prices
 from karpenter_tpu_torch.ops.encode import InstanceFleet, PodGroups, build_fleet, group_pods
-from karpenter_tpu_torch.ops.pack_kernel import (
+from karpenter_tpu_torch.ops.pack_kernel import (  # noqa: F401 — fetch_bytes re-exported
     PackRounds,
     bucket_size,
     compact_plan_sharded,
     decompact_plan_sharded,
+    fetch_bytes,
     max_rounds,
     pack_kernel,
     pack_pair_payload,
@@ -386,11 +387,21 @@ def plan_start_fetch(handle: FusedHandle) -> None:
     handle.staged.append((host, done))
 
 
+# Eager fetch payload (bytes) of the most recent fetch_plans call: what its
+# device->host copies moved, staged or not, by fetch_bytes. Plain module
+# state, like ops/consolidate.LAST_FETCH_BYTES.
+LAST_FETCH_BYTES = 0
+
+
 def _eager_words(handles: Sequence[FusedHandle]) -> List[np.ndarray]:
     """Every handle's eager payload (compact words, then the objective's
     bits) on the host. A handle whose copy plan_start_fetch queued waits on
     its event; the others' payloads are concatenated on the device and
     copied to the host in one transfer — one sync for the whole batch."""
+    global LAST_FETCH_BYTES
+    LAST_FETCH_BYTES = fetch_bytes(
+        [tensor for handle in handles for tensor in (handle.compact, handle.objective)]
+    )
     unstaged = [handle for handle in handles if not handle.staged]
     payload = (
         torch.cat([_eager_payload(handle) for handle in unstaged]).cpu().numpy()
@@ -816,6 +827,23 @@ def _cheapest_feasible_pools(
     _, sel_first = np.unique(sel_types, return_index=True)
     chosen_types = [int(sel_types[i]) for i in np.sort(sel_first)]
     return chosen_types, pool_rows
+
+
+def _cheapest_feasible_options(
+    fill: np.ndarray,
+    t: int,
+    groups: PodGroups,
+    fleet: InstanceFleet,
+    zones: Optional[List[str]] = None,
+    pool_prices: Optional[np.ndarray] = None,
+) -> Tuple[List[int], Optional[List[ffd.PoolOption]]]:
+    """Object-level shell over _cheapest_feasible_pools."""
+    if zones is None or pool_prices is None:
+        zones, pool_prices = _pool_price_matrix(fleet)
+    type_indices, rows = _cheapest_feasible_pools(
+        fill, t, groups.vectors, fleet.capacity, pool_prices
+    )
+    return type_indices, pool_rows_to_options(rows, fleet, zones)
 
 
 def pool_rows_to_options(

@@ -44,7 +44,7 @@ from karpenter_tpu_torch.ops.consolidate_kernel import (
     solve_counterfactuals,
     split_eager,
 )
-from karpenter_tpu_torch.ops.pack_kernel import bucket_size, device_resident, pad_to
+from karpenter_tpu_torch.ops.pack_kernel import bucket_size, device_resident, fetch_bytes, pad_to
 
 ACTION_NONE = 0
 ACTION_DELETE = 1
@@ -191,7 +191,7 @@ def solve_candidates(problem: ConsolidationProblem, device: DeviceLike = None) -
         *device_resident(padded, _RESIDENT, resolve_device(device)),
         axes=requested_axes(padded[0]),
     )
-    LAST_FETCH_BYTES = eager.numel() * eager.element_size()
+    LAST_FETCH_BYTES = fetch_bytes([eager])
     c_pad, g_pad = padded[1].shape
     n_pad = padded[2].shape[0]
     delete_ok, replace_type, replace_price, device_best, best_take = split_eager(

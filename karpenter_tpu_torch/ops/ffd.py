@@ -33,8 +33,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from karpenter_tpu_torch.api.pods import PodSpec
+from karpenter_tpu_torch.api.provisioner import Constraints
 from karpenter_tpu_torch.cloudprovider import InstanceType
-from karpenter_tpu_torch.ops.encode import InstanceFleet, PodGroups
+from karpenter_tpu_torch.ops.encode import InstanceFleet, PodGroups, build_fleet, group_pods
 
 # Number of instance-type options offered to the cloud provider per node
 # (ref: packer.go:38-39 — EC2 Fleet request-size bound).
@@ -265,3 +266,54 @@ def pack_groups(fleet: InstanceFleet, groups: PodGroups) -> PackResult:
             packings.append(packing)
     return PackResult(packings=packings, unschedulable=unschedulable)
 
+
+def pack_rounds_dense(
+    vectors: np.ndarray,
+    counts: np.ndarray,
+    capacity: np.ndarray,
+    total: np.ndarray,
+    quirk: bool = True,
+) -> Tuple[List[Tuple[int, np.ndarray, int]], np.ndarray]:
+    """pack_groups' round loop on bare arrays — (rounds, unschedulable counts)
+    in the decode format the TPU kernel and native packer emit. This is the
+    object-free last-resort path for the solver sidecar, which holds tensors
+    off the wire and no PodSpec/InstanceType objects."""
+    counts = counts.astype(np.int64).copy()
+    num_groups, num_types = int(vectors.shape[0]), int(capacity.shape[0])
+    rounds: List[Tuple[int, np.ndarray, int]] = []
+    unschedulable = np.zeros(num_groups, dtype=np.int64)
+    if num_types == 0:
+        unschedulable += counts
+        return rounds, unschedulable
+    last = num_types - 1
+    while counts.sum() > 0:
+        upper = fill_node(capacity[last], total[last], vectors, counts, quirk=quirk)
+        max_packed = int(upper.sum())
+        if max_packed == 0:
+            g = int(np.nonzero(counts > 0)[0][0])
+            unschedulable[g] += 1
+            counts[g] -= 1
+            continue
+        for t in range(num_types):
+            packed = (
+                upper
+                if t == last
+                else fill_node(capacity[t], total[t], vectors, counts, quirk=quirk)
+            )
+            if int(packed.sum()) == max_packed:
+                rounds.append((t, packed.astype(np.int64), 1))
+                counts -= packed
+                break
+    return rounds, unschedulable
+
+
+def pack(
+    pods: Sequence[PodSpec],
+    instance_types: Sequence[InstanceType],
+    constraints: Constraints,
+    daemons: Sequence[PodSpec] = (),
+) -> PackResult:
+    """The full greedy path: filter/densify the fleet, group + sort pods, pack."""
+    groups = group_pods(list(pods))
+    fleet = build_fleet(instance_types, constraints, pods, daemons)
+    return pack_groups(fleet, groups)

@@ -28,8 +28,9 @@ kernel's dispatch is async and its fetch pays a full device round trip
 that otherwise-idle window and adds nothing to the solve's latency
 (models/solver.cost_solve_dense overlaps it with the device).
 
-This is the port's copy of the reference module, trimmed to the production
-candidate: the bench-only certified cutting-stock floor is not carried.
+certified_lp_floor is the analysis half: the cutting-stock LP optimum over
+every single-node fill, certified by exact MILP pricing, the yardstick a
+plan's $/hr is held against. It runs off the solve path.
 """
 
 from __future__ import annotations
@@ -255,7 +256,7 @@ def aggregate_lp_bound(
     cost_ratio_lowest_price_lp_bound — one formulation, one meaning."""
     try:
         from scipy.optimize import linprog
-    except Exception:  # pragma: no cover — scipy ships with jax
+    except Exception:  # pragma: no cover — scipy without milp
         return None
     result = linprog(
         np.where(np.isfinite(pool_floor), pool_floor, 1e9),
@@ -267,6 +268,163 @@ def aggregate_lp_bound(
     if not result.success or result.ineqlin is None:
         return None
     return float(result.fun), -np.asarray(result.ineqlin.marginals)
+
+
+def certified_lp_floor(
+    vectors: np.ndarray,  # [G, R]
+    counts: np.ndarray,  # [G]
+    capacity: np.ndarray,  # [T, R]
+    pool_floor: np.ndarray,  # [T]
+    max_rounds: int = 10,
+    time_budget_s: float = 30.0,
+) -> Optional[Tuple[float, bool]]:
+    """The cutting-stock LP optimum with an exact-pricing certificate:
+    (objective, certified).
+
+    The aggregate LP (aggregate_lp_bound) lets fractional capacity cover
+    total demand and therefore ignores per-node dimensional fragmentation —
+    at mid-ladder scale it sits several points below anything buildable
+    from real node fills. THIS floor is over actual columns: solve the
+    covering LP on the enumeration, then column-generate with the exact
+    pricing problem (per type t: max y·n s.t. n·V ≤ cap_t, n ≤ counts,
+    integer — a ≤G-variable MILP via scipy HiGHS) until no column prices
+    below the duals. certified=True means the LP duals admit NO improving
+    feasible column anywhere in the (type, fill) space, i.e. the objective
+    is the exact fractional optimum over ALL single-node fills — a valid
+    lower bound on every integral plan, and an attainable one up to
+    integrality (bench publishes it per ladder config as lp_bound).
+    certified=False means the objective is only the LP optimum over the
+    columns examined so far — an ESTIMATE that real plans can legitimately
+    beat, NOT a bound (bench falls back to the aggregate bound then).
+    Pricing iterates only dominance-undominated types: a type whose
+    capacity is covered by a cheaper type can never price a new column.
+
+    Runs in bench/analysis only — the ~0.1pp it adds over the enumeration
+    (observed at the 10k and 50k shapes) is not worth seconds of MILP on
+    the production solve path. Returns None when scipy's MILP is
+    unavailable."""
+    try:
+        from scipy.optimize import linprog, milp  # noqa: F401 — milp gates
+    except Exception:  # pragma: no cover — scipy without milp
+        return None
+    import time as _time
+
+    counts = counts.astype(np.int64)
+    fills, _ = enumerate_pair_columns(vectors, counts, capacity, pool_floor)
+    if fills.shape[0] == 0:
+        return None
+    prices = price_columns(fills, vectors, capacity, pool_floor)
+    usable = np.isfinite(prices)
+    fills, prices = fills[usable], prices[usable]
+    if fills.shape[0] == 0:
+        return None
+
+    # Pricing candidates: finite-priced, dominance-undominated types. A
+    # type i is prunable when some OTHER finite type j has capacity >= i's
+    # in every dimension at a price <= i's (ties broken by index so mutual
+    # equals keep exactly one survivor): every fill feasible on i is then
+    # feasible on j with reduced cost no worse, so pricing j covers i —
+    # the pruning is sound for the optimality certificate.
+    finite = np.isfinite(pool_floor)
+    # dominates[i, j]: type j's capacity covers type i's (the convention
+    # mix_candidate uses for the same matrix).
+    dominates = (capacity[None, :, :] >= capacity[:, None, :] - 1e-6).all(axis=2)
+    strictly_cheaper = pool_floor[None, :] < pool_floor[:, None]
+    index = np.arange(len(pool_floor))
+    price_tie_lower_index = (
+        pool_floor[None, :] == pool_floor[:, None]
+    ) & (index[None, :] < index[:, None])
+    prunable = (
+        dominates & finite[None, :] & (strictly_cheaper | price_tie_lower_index)
+    ).any(axis=1)
+    price_types = np.nonzero(finite & ~prunable)[0]
+
+    deadline = _time.monotonic() + time_budget_s
+    certified = False
+    objective = None
+    for _ in range(max_rounds):
+        result = linprog(
+            prices,
+            A_ub=-fills.T.astype(np.float64),
+            b_ub=-counts.astype(np.float64),
+            bounds=(0, None),
+            method="highs",
+        )
+        if not result.success or result.ineqlin is None:
+            return None
+        objective = float(result.fun)
+        if _time.monotonic() > deadline:
+            break  # uncertified: objective is an ESTIMATE, not a bound
+        duals = -np.asarray(result.ineqlin.marginals)
+        new_fills, exhaustive = _price_new_columns(
+            duals, vectors, counts, capacity, pool_floor, price_types, deadline
+        )
+        if not new_fills:
+            # No improving column found. That is a certificate only when
+            # every pricing subproblem was solved to proven optimality
+            # within the deadline.
+            certified = exhaustive
+            break
+        stacked = np.stack(new_fills)
+        new_prices = price_columns(stacked, vectors, capacity, pool_floor)
+        priced = np.isfinite(new_prices)
+        fills = np.concatenate([fills, stacked[priced]])
+        prices = np.concatenate([prices, new_prices[priced]])
+    if objective is None:
+        return None
+    return objective, certified
+
+
+def _price_new_columns(
+    duals: np.ndarray,
+    vectors: np.ndarray,
+    counts: np.ndarray,
+    capacity: np.ndarray,
+    pool_floor: np.ndarray,
+    price_types: np.ndarray,
+    deadline: float,
+) -> Tuple[List[np.ndarray], bool]:
+    """Exact pricing step of certified_lp_floor: per candidate type, solve
+    max duals·n s.t. n·V ≤ cap_t, n ≤ counts, integer (≤G-variable MILP)
+    and return (improving fills, exhaustive). exhaustive=True means every
+    pricing subproblem was solved to PROVEN optimality before the deadline
+    — only then does an empty fill list certify the LP optimal over the
+    complete column space. Each MILP gets the remaining wall budget as its
+    time_limit; a time-limited incumbent can still contribute a column but
+    voids exhaustiveness."""
+    import time as _time
+
+    from scipy.optimize import Bounds, LinearConstraint, milp
+
+    active = np.nonzero((duals > 1e-12) & (counts > 0))[0]
+    if active.size == 0:
+        return [], True
+    new_fills: List[np.ndarray] = []
+    exhaustive = True
+    for t in price_types:
+        remaining = deadline - _time.monotonic()
+        if remaining <= 0:
+            exhaustive = False
+            break
+        pricing = milp(
+            c=-duals[active],
+            constraints=LinearConstraint(
+                vectors[active].T, ub=capacity[t].astype(np.float64)
+            ),
+            bounds=Bounds(0, counts[active].astype(np.float64)),
+            integrality=np.ones(active.size),
+            options={"time_limit": max(remaining, 0.1)},
+        )
+        if pricing.status == 1:  # hit the iteration/time limit: not proven
+            exhaustive = False
+        if pricing.x is None:
+            continue
+        value = float(duals[active] @ pricing.x)
+        if pool_floor[t] - value < -1e-7:
+            fill = np.zeros(vectors.shape[0], np.int64)
+            fill[active] = np.round(pricing.x).astype(np.int64)
+            new_fills.append(fill)
+    return new_fills, exhaustive
 
 
 def _prune_columns(
@@ -308,7 +466,7 @@ def solve_cover_lp(
     integerization from x=0."""
     try:
         from scipy.optimize import linprog
-    except Exception:  # pragma: no cover — scipy ships with jax
+    except Exception:  # pragma: no cover — scipy without milp
         return None
     result = linprog(
         prices,

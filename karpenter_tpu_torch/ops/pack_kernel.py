@@ -1146,6 +1146,20 @@ def compact_words(num_groups: int) -> int:
     return 2 * per_candidate + num_groups
 
 
+def compact_bytes(num_groups: int) -> int:
+    """Total eager fetch payload in bytes: the compact int32 words plus the
+    one float32 LP objective."""
+    return 4 * compact_words(num_groups) + 4
+
+
+def fetch_bytes(tensors: Sequence[torch.Tensor]) -> int:
+    """Total bytes of the tensors one fetch copies to the host, the
+    per-solve device->host payload. THE byte accounting, shared by the
+    fused solve's fetch and the consolidation eager fetch so the two can't
+    drift from the real layouts."""
+    return sum(tensor.numel() * tensor.element_size() for tensor in tensors)
+
+
 def _compact_rounds(rounds: PackRounds):
     """Device-side compaction of one PackRounds: fixed-size int32 segments
     [round_type, round_repl, num_rounds, unschedulable, overflow, nnz,

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.device import DeviceLike, resolve_device
 from karpenter_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, launch_stream
 
 # optax.adam defaults, with the reference's learning rate.
@@ -307,11 +308,14 @@ def lp_relax_body(
     )
 
 
+# The dtypes of lp_relax's arguments: vectors, counts, capacity, valid_types, prices.
+_ARG_DTYPES = (torch.float32, torch.int32, torch.float32, torch.bool, torch.float32)
+
+
 def _check_args(vectors, counts, capacity, valid_types, prices, steps) -> None:
     tensors = (vectors, counts, capacity, valid_types, prices)
-    dtypes = (torch.float32, torch.int32, torch.float32, torch.bool, torch.float32)
     for name, tensor, dtype in zip(
-        ("vectors", "counts", "capacity", "valid_types", "prices"), tensors, dtypes
+        ("vectors", "counts", "capacity", "valid_types", "prices"), tensors, _ARG_DTYPES
     ):
         if tensor.dtype != dtype:
             raise TypeError(f"lp_relax: {name} must be {dtype}, got {tensor.dtype}")
@@ -398,6 +402,27 @@ def _launch(vectors, counts, capacity, valid_types, prices, steps: int, plan: LP
 
 
 lp_relax.launches = 0
+
+
+def lp_relax_solve(
+    vectors,  # [G, R] f32
+    counts,  # [G] i32
+    capacity,  # [T, R] f32
+    valid_types,  # [T] bool
+    prices,  # [T] f32
+    steps: int = 300,
+    device: DeviceLike = None,
+) -> LPResult:
+    """The LP relaxation on bare arrays (numpy or tensors), K3's own entry:
+    the arguments go to `device` in lp_relax's dtypes, then one launch of K3
+    on the card, or its plain version with device="cpu". None means the
+    card, and raises without one."""
+    device = resolve_device(device)
+    args = [
+        torch.as_tensor(array, dtype=dtype, device=device).contiguous()
+        for array, dtype in zip((vectors, counts, capacity, valid_types, prices), _ARG_DTYPES)
+    ]
+    return lp_relax(*args, steps=steps)
 
 
 def round_assignment(assignment: np.ndarray, counts: np.ndarray) -> np.ndarray:

@@ -140,7 +140,9 @@ def reset_port_state() -> None:
 
 # The port's modules that bind resolve_device at import; the others look it
 # up in karpenter_tpu_torch.device at the call.
-_RESOLVERS = ("device", "models.solver", "models.cluster_state", "ops.consolidate")
+_RESOLVERS = (
+    "device", "models.solver", "models.cluster_state", "ops.consolidate", "ops.score_kernel",
+)
 
 
 def cpu_by_default(monkeypatch) -> None:

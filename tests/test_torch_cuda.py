@@ -337,6 +337,21 @@ def test_lp_kernel_equals_plain_version(seed, shape, cuda_device):
     _assert_lp_close(got, want)
 
 
+@pytest.mark.parametrize("seed", chip_smoke.LP_SEEDS[:3])
+def test_lp_relax_solve_launches_k3_once_and_equals_its_cpu_result(seed, cuda_device):
+    """K3's entry on bare arrays: numpy in, one launch on the card, the
+    plain version's figures with device="cpu"."""
+    bare = [tensor.cpu().numpy() for tensor in chip_smoke.lp_inputs(seed, (16, 512), "cpu")]
+    before = score_kernel.lp_relax.launches
+    got = score_kernel.lp_relax_solve(*bare, steps=300)
+    torch.cuda.synchronize()
+    assert score_kernel.lp_relax.launches == before + 1
+    assert got.assignment.device.type == "cuda"
+    want = score_kernel.lp_relax_solve(*bare, steps=300, device="cpu")
+    assert score_kernel.lp_relax.launches == before + 1
+    _assert_lp_close(got, want)
+
+
 @pytest.mark.parametrize("cluster", [2, 4, 8, 16])
 @pytest.mark.parametrize("seed", chip_smoke.LP_SEEDS[:3])
 def test_lp_kernel_at_every_cluster_size(seed, cluster, cuda_device):

@@ -7,7 +7,14 @@ by definition: every top-level function, class and public constant the port
 keeps must equal the reference's of the same name, except the few the port
 adapted, which are listed with the reason. A class named in an adapted
 entry as "Class.method" is compared method by method: the class's other
-methods, and the class without its methods, must equal the reference's."""
+methods, and the class without its methods, must equal the reference's.
+
+No definition goes missing without a word: every top-level definition,
+method and public constant of a reference module that is not a verbatim
+copy must be in the port's module (defined or imported there), or listed in
+DROPPED with what replaces it or why the port has none. A reference module
+the port has no file for is listed in COUNTERPARTS (its port module) or
+NO_COUNTERPART."""
 
 import ast
 from pathlib import Path
@@ -73,7 +80,6 @@ VERBATIM = [
     "kubeapi/__init__.py",
     "kubeapi/client.py",
     "kubeapi/convert.py",
-    "kubeapi/cluster.py",
     "kubeapi/chaos.py",
     "cloudprovider/registry.py",
     "cloudprovider/ec2/__init__.py",
@@ -95,6 +101,7 @@ _DOCSTRING = "docstring only: names the port's files and devices"
 _MESH = "a mesh is a grid of shards in one process (parallel/mesh.py), not a jax Mesh"
 _PORT_ONLY = "the port's own helper"
 _HISTORY = "docstring only: without the reference's history of which change added what"
+_ECHO = "keeps the cached instance on the echo of an in-flight write (ROADMAP Queue 3 item 1)"
 # Trimmed copies: {module: {adapted definition: why}}.
 TRIMMED = {
     "controllers/cluster.py": {
@@ -104,6 +111,25 @@ TRIMMED = {
                             "raced to bind one pod twice on the card)",
         "Cluster._reschedule_local": "re-checks under the lock that the pod is still bound, "
                                      "so two displacements of one pod notify once",
+    },
+    "kubeapi/cluster.py": {
+        name: _ECHO
+        for name in (
+            "ApiServerCluster.__init__",
+            "ApiServerCluster._on_watch",
+            "ApiServerCluster._hold",
+            "ApiServerCluster._write_through",
+            "ApiServerCluster._end_write",
+            "ApiServerCluster.apply_pod",
+            "ApiServerCluster._reschedule_local",
+            "ApiServerCluster.create_node",
+            "ApiServerCluster.update_node",
+            "ApiServerCluster.heartbeat_node",
+            "ApiServerCluster.remove_node_annotation",
+            "ApiServerCluster.remove_finalizer",
+            "ApiServerCluster.apply_provisioner",
+            "ApiServerCluster.update_provisioner_status",
+        )
     },
     "ops/ffd.py": {},
     "ops/mix_pack.py": {},
@@ -284,7 +310,9 @@ TRIMMED = {
                       "(host_fallback_available reads host_route_open)",
         "decode_dense_result": _DOCSTRING,
         "_eager_words": _PORT_ONLY + ": the device->host copy of every eager payload, the step "
-                        "the fetch quarantine wraps",
+                        "the fetch quarantine wraps; counts its bytes (LAST_FETCH_BYTES)",
+        "LAST_FETCH_BYTES": _PORT_ONLY + ": the eager payload's bytes of the last fetch, by "
+                            "fetch_bytes",
         "_quarantine_after_fetch_failure": "quarantines the mesh ids of the handles' device type",
         "quarantine_devices": "takes the device type whose mesh ids it quarantines",
         "ShardedAssignment": _PORT_ONLY + ": the deferred LP assignment in shard blocks",
@@ -442,3 +470,146 @@ def test_verbatim_definition_matches_reference(relative, name):
     assert port[name] == reference[name], (
         f"karpenter_tpu_torch/{relative}: {name} drifted from the reference's"
     )
+
+
+_K8 = "K8 (csrc/incremental.cu): scatter, gather, scatter_flush and gather_view"
+_NO_CPU_PIN = "pins JAX to its CPU backend; the port has no CPU fallback to pin"
+# Reference definitions the port's module does not have: {module: {name: why}}.
+# Each is JAX machinery; the reason names what replaces it or why the port
+# has none.
+DROPPED = {
+    "ops/consolidate.py": {
+        "_counterfactual_body": "K7: ops/consolidate_kernel.solve_counterfactuals "
+                                "(csrc/consolidate.cu), its plain version _counterfactual_ref",
+    },
+    "ops/incremental.py": {
+        "_scatter_rows": _K8,
+        "_scatter_vals": _K8,
+        "_gather_rows": _K8,
+        "scatter_rows": "K8's scatter",
+        "scatter_vals": "K8's scatter",
+        "gather_rows": "K8's gather",
+        "device_slots": "the jit cache's slot count; K8 takes any slot count",
+    },
+    "ops/pack_kernel.py": {
+        "_LoopState": "the lax.while_loop carry of the JAX pack kernel; K2 (csrc/pack_rounds.cu) "
+                      "keeps it in registers, its plain version _pack_kernel_ref in locals",
+        "_pack_one_level": "one level of the JAX constrained pack; K6 (csrc/pack_levels.cu) "
+                           "packs every level in one launch, its plain version _pack_levels_ref",
+        "_compact_rounds_sharded": "K9b: compact_shards and compact_sharded_payload "
+                                   "(csrc/compact_shard.cu)",
+        "suppress_donation_advisory": "silences JAX's buffer-donation warning; torch donates "
+                                      "no buffers",
+    },
+    "ops/pallas_kernels.py": {
+        "_dominance_kernel": "K1's Pallas body; K1 is csrc/dominance.cu",
+        "_dominance_prices_pallas": "K1's pallas_call; the port's dominance_prices launches "
+                                    "csrc/dominance.cu",
+        "_in_active_trace": "asks whether JAX is tracing; the port does not trace",
+        "ensure_probed": "probes whether Pallas lowers on the backend; the port's K1 is "
+                         "built with the other kernels (ops/cuda_build)",
+    },
+    "models/solver.py": {
+        "_sharded_fused_kernel": "_sharded_fused_solve",
+        "_start_fetch": "plan_start_fetch",
+        "FusedHandle.eager": "_eager_payload(handle); fetch_bytes counts its tensors",
+    },
+    "parallel/mesh.py": {
+        "solver_shardings": "a mesh is a grid of shards in one process; block lays the "
+                            "operands out in shard blocks",
+    },
+    "parallel/sharded_solver.py": {
+        "_state_shardings": "LPTrainState holds its shard blocks; there is no sharding to annotate",
+        "lp_train_step": "sharded_lp_train_step",
+    },
+    "parallel/spmd.py": {
+        "COLLECTIVES_UNSUPPORTED_MSG": "XLA:CPU's refusal of multi-process programs; the port "
+                                       "recognises torch.distributed's refusals "
+                                       "(COLLECTIVES_UNSUPPORTED_SIGNATURES)",
+    },
+    "utils/backend_health.py": {
+        "pin_cpu": _NO_CPU_PIN,
+        "force_cpu_backend": _NO_CPU_PIN,
+        "BackendHealth.pin_cpu": _NO_CPU_PIN,
+        "device_alive": "utils/jaxenv's one-shot JAX probe; the port probes the card with "
+                        "run_chip_probe and BackendHealth.probe",
+    },
+    "market/forecast.py": {
+        "penalize_prices_jnp": "penalize_prices_torch: K10 (csrc/forecast.cu) on the card, "
+                               "its plain version on the CPU",
+    },
+}
+# Reference modules whose port module has another name.
+COUNTERPARTS = {"ops/pallas_kernels.py": "ops/cuda_kernels.py"}
+# Reference modules the port has no module for.
+NO_COUNTERPART = {
+    "utils/jaxenv.py": "sets up JAX's platforms and re-exports the CPU pin; the port has no JAX",
+}
+
+
+def _defined(path: Path):
+    """Every top-level definition, method ("Class.method") and public
+    constant of a module."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.ClassDef):
+            names.add(node.name)
+            names.update(
+                f"{node.name}.{item.name}"
+                for item in node.body
+                if isinstance(item, (ast.FunctionDef, ast.AsyncFunctionDef))
+            )
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1:
+            target = node.targets[0]
+            if isinstance(target, ast.Name) and target.id.isupper() and target.id[0] != "_":
+                names.add(target.id)
+    return names
+
+
+def _imported(path: Path):
+    """Every name a module's top-level imports bind."""
+    return {
+        (alias.asname or alias.name).split(".")[0]
+        for node in ast.parse(path.read_text()).body
+        if isinstance(node, (ast.Import, ast.ImportFrom))
+        for alias in node.names
+    }
+
+
+def _non_verbatim_modules():
+    reference = REPO / "karpenter_tpu"
+    return sorted(
+        str(path.relative_to(reference))
+        for path in reference.rglob("*.py")
+        if str(path.relative_to(reference)) not in VERBATIM
+    )
+
+
+def test_every_reference_module_has_a_port_module():
+    missing = [
+        relative
+        for relative in _non_verbatim_modules()
+        if relative not in NO_COUNTERPART
+        and not (REPO / "karpenter_tpu_torch" / COUNTERPARTS.get(relative, relative)).exists()
+    ]
+    assert missing == [], f"reference modules with no port module and no reason: {missing}"
+
+
+@pytest.mark.parametrize(
+    "relative", [m for m in _non_verbatim_modules() if m not in NO_COUNTERPART]
+)
+def test_no_reference_definition_dropped_silently(relative):
+    port_path = REPO / "karpenter_tpu_torch" / COUNTERPARTS.get(relative, relative)
+    port = _defined(port_path) | _imported(port_path)
+    reference = _defined(REPO / "karpenter_tpu" / relative)
+    dropped = DROPPED.get(relative, {})
+    assert all(reason for reason in dropped.values())
+    assert sorted(set(dropped) & port) == [], f"{relative}: stale DROPPED entries"
+    silent = sorted(reference - port - set(dropped))
+    assert silent == [], (
+        f"karpenter_tpu_torch/{relative} lacks {silent}: port them, or list them in DROPPED "
+        "with what replaces them"
+    )
+
