@@ -1292,52 +1292,29 @@ def time_cuda(fn, reps: int, warmup: int = 3) -> float:
     return float(np.median(samples))
 
 
-def layer_breakdown(groups, fleet, device, reps: int = 5) -> dict:
-    """Median wall milliseconds of each layer of one warm solve, each layer
-    bracketed by device synchronizations so its own launches and device work
-    are inside its bracket (the solve itself syncs once, at the fetch)."""
-    import torch
-
-    from karpenter_tpu_torch.convert import fused_args_from_numpy
-    from karpenter_tpu_torch.models import solver
-    from karpenter_tpu_torch.ops import cuda_kernels, pack_kernel, score_kernel
+def span_layers(solve, reps: int = 5) -> dict:
+    """Median wall milliseconds of each of the program's spans (utils/
+    tracing.SPAN_NAMES, summed by name within a solve) over `reps` warm
+    solves, read from TRACER with KARPENTER_TRACE on. No synchronize: each
+    span sees the solve as it runs, its overlap of the host scoring with the
+    card included."""
+    from karpenter_tpu_torch.utils.tracing import TRACER
 
     samples: dict = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        samples.setdefault(name, []).append((time.perf_counter() - start) * 1e3)
-        return out
-
-    for _ in range(reps):
-        padded = timed("pad", lambda: solver.pad_kernel_args(
-            groups.vectors, groups.counts, fleet.capacity, fleet.total, fleet.prices))
-        vectors, counts, capacity, total, valid, prices = timed(
-            "h2d", lambda: fused_args_from_numpy(*padded, device=device))
-        effective = timed("k1_dominance", lambda: cuda_kernels.dominance_prices(
-            capacity, torch.where(valid, prices, torch.inf)))
-        # K2's pair with its epilogue: the rounds, feasible_any, the LP's
-        # counts, the dense spill and the compacted payload (K4).
-        pair = timed("k2_pack", lambda: pack_kernel.pack_pair_payload(
-            vectors, counts, capacity, total, valid, effective))
-        lp = timed("k3_lp", lambda: score_kernel.lp_relax(
-            vectors, pair.solvable, capacity, valid, effective))
-        handle = solver.FusedHandle(
-            compact=pair.payload, objective=lp.objective.reshape(1), dense=pair.dense,
-            lp=lp.assignment.reshape(-1), num_groups=padded[0].shape[0],
-            num_types=padded[2].shape[0],
-        )
-        (plan,) = timed("fetch", lambda: solver.fetch_plans([handle]))
-        zones, matrix = timed("pool_matrix", lambda: solver._pool_price_matrix(fleet))
-        mix = timed("mix_candidate", lambda: solver.compute_mix_candidate(
-            groups.vectors, groups.counts, fleet.capacity, matrix))
-        dense = timed("scoring", lambda: solver.cost_solve_finish(
-            plan, groups.vectors, groups.counts, fleet.capacity, fleet.total,
-            fleet.prices, matrix, mix_plan=mix))
-        timed("decode", lambda: solver.decode_dense_result(dense, groups, fleet, zones))
+    enabled = TRACER.enabled
+    TRACER.enabled = True  # what KARPENTER_TRACE=1 sets
+    try:
+        for _ in range(reps):
+            TRACER.clear()
+            solve()
+            per_solve: dict = {}
+            for span in TRACER.spans():
+                per_solve[span.name] = per_solve.get(span.name, 0.0) + span.duration_s * 1e3
+            for name, ms in per_solve.items():
+                samples.setdefault(name, []).append(ms)
+    finally:
+        TRACER.enabled = enabled
+        TRACER.clear()
     return {name: float(np.median(values)) for name, values in samples.items()}
 
 
@@ -6942,7 +6919,7 @@ def smoke(children) -> int:
 
     # 12. where one warm solve's time goes, layer by layer, and the device's
     # busy share of a solve.
-    layers = layer_breakdown(groups, fleet, device)
+    layers = span_layers(lambda: cost_solver.solve(pods, catalog, Constraints()))
     phase("layers", **{name: f"{ms:.3f}" for name, ms in layers.items()})
     busy = profile_call(lambda: cost_solver.solve_encoded(groups, fleet))
     phase("profile", wall_ms=f"{busy['wall_ms']:.3f}", device_ms=f"{busy['device_ms']:.3f}",

@@ -35,6 +35,16 @@ reference's does: "solve.device" (the single solve), "solve.device.batch"
 (the batched fetch) and "solve.device.pipelined" (each pipelined fetch).
 With KARPENTER_JAX_PROFILE_DIR set, each writes a torch.profiler trace of
 the card (utils/tracing.py).
+
+Inside the cost solve, spans mark the layer boundaries (recorded while
+TRACER.recording(): KARPENTER_TRACE, or a torch.profiler session): a bare
+solve's root "solve", "encode.group_pods", "encode.build_fleet",
+"dispatch", "fetch", "host.wait" (the caller waiting for the overlap
+thread), the overlap thread's "host.pool_matrix" and "host.mix" (ops/
+mix_pack's phases inside it), "host.finish" with its
+"host.finish.lp_realize", and "decode". "host.mix" carries the overlap
+thread's CPU seconds (cpu_s) and "host.finish" the winning candidate's
+label (winner); the benchmark's per-layer metrics read both.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import abc
 import functools
 import os
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -77,7 +88,7 @@ from karpenter_tpu_torch.ops.score_kernel import (
 )
 from karpenter_tpu_torch.utils import logging as klog
 from karpenter_tpu_torch.utils.metrics import REGISTRY
-from karpenter_tpu_torch.utils.tracing import TRACER, device_profile
+from karpenter_tpu_torch.utils.tracing import TRACER, device_profile, new_trace_id
 
 # The plain LP's einsums (the CPU path, and what K3 is held against on the
 # card) must stay in full fp32: TF32 would keep about three decimal digits.
@@ -135,12 +146,16 @@ class Solver(abc.ABC):
         constraints: Constraints,
         daemons: Sequence[PodSpec] = (),
     ) -> ffd.PackResult:
-        groups = group_pods(list(pods))
-        fleet = build_fleet(
-            instance_types, constraints, pods, daemons,
-            pods_need=_groups_need(groups),
+        # A bare solve's spans share a trace id of their own; a solve inside
+        # a provisioning batch keeps the batch's.
+        minted = (
+            new_trace_id()
+            if TRACER.recording() and TRACER.current_trace() is None
+            else None
         )
-        return self.solve_encoded(groups, fleet)
+        with TRACER.trace(minted), TRACER.span("solve"):
+            groups, fleet = _encode(pods, instance_types, constraints, daemons)
+            return self.solve_encoded(groups, fleet)
 
     @staticmethod
     def _encode_problems(
@@ -164,17 +179,7 @@ class Solver(abc.ABC):
             if len(item) == 2 and isinstance(item[0], PodGroups):
                 encoded.append((item[0], item[1]))
                 continue
-            pods, instance_types, constraints, daemons = item
-            groups = group_pods(list(pods))
-            encoded.append(
-                (
-                    groups,
-                    build_fleet(
-                        instance_types, constraints, pods, daemons,
-                        pods_need=_groups_need(groups),
-                    ),
-                )
-            )
+            encoded.append(_encode(*item))
         return encoded
 
     def solve_many(
@@ -225,6 +230,20 @@ class Solver(abc.ABC):
     @abc.abstractmethod
     def solve_encoded(self, groups: PodGroups, fleet: InstanceFleet) -> ffd.PackResult:
         ...
+
+
+def _encode(pods, instance_types, constraints, daemons) -> Tuple[PodGroups, InstanceFleet]:
+    """One problem's spec->tensor encoding, each half under its span (the
+    copy of the pod list is outside them, in the caller's)."""
+    pod_list = list(pods)
+    with TRACER.span("encode.group_pods"):
+        groups = group_pods(pod_list)
+    with TRACER.span("encode.build_fleet"):
+        fleet = build_fleet(
+            instance_types, constraints, pods, daemons,
+            pods_need=_groups_need(groups),
+        )
+    return groups, fleet
 
 
 def _groups_need(groups: PodGroups) -> Optional[np.ndarray]:
@@ -425,35 +444,37 @@ def _eager_words(handles: Sequence[FusedHandle]) -> List[np.ndarray]:
 def fetch_plans(handles: Sequence[FusedHandle]) -> List[FetchedPlan]:
     """THE compacted fetch, then host-side decode (a sharded handle's
     segments at their shards' block offsets). A plan that overflowed the
-    entry budget falls back to its dense spill."""
-    try:
-        eager = _eager_words(handles)
-    except Exception as error:  # noqa: BLE001 — quarantine, then re-raise
-        # The dispatch is asynchronous, so a card that dies DURING the
-        # solve surfaces here, not at cost_solve_dispatch: without this hook
-        # the mesh would never shrink and every later solve would fail on
-        # the dead card again. This solve still fails; the quarantine makes
-        # the NEXT one run on the survivors.
-        _quarantine_after_fetch_failure(handles, error)
-        raise
-    plans: List[FetchedPlan] = []
-    for handle, words in zip(handles, eager):
-        size = int(handle.compact.shape[0])
-        compact = words[:size]
-        objective = words[size : size + 1].view(np.float32)
-        rounds_ffd, rounds_cost, feasible_any, ok = decompact_plan_sharded(
-            compact, handle.num_groups, handle.shards
-        )
-        if not ok:  # pragma: no cover — entry budget sized to never trip
-            rounds_ffd, rounds_cost, feasible_any = unpack_dense(
-                handle.dense.cpu().numpy(), handle.num_groups
+    entry budget falls back to its dense spill. Runs under the "fetch"
+    span."""
+    with TRACER.span("fetch"):
+        try:
+            eager = _eager_words(handles)
+        except Exception as error:  # noqa: BLE001 — quarantine, then re-raise
+            # The dispatch is asynchronous, so a card that dies DURING the
+            # solve surfaces here, not at cost_solve_dispatch: without this hook
+            # the mesh would never shrink and every later solve would fail on
+            # the dead card again. This solve still fails; the quarantine makes
+            # the NEXT one run on the survivors.
+            _quarantine_after_fetch_failure(handles, error)
+            raise
+        plans: List[FetchedPlan] = []
+        for handle, words in zip(handles, eager):
+            size = int(handle.compact.shape[0])
+            compact = words[:size]
+            objective = words[size : size + 1].view(np.float32)
+            rounds_ffd, rounds_cost, feasible_any, ok = decompact_plan_sharded(
+                compact, handle.num_groups, handle.shards
             )
-        plans.append(
-            FetchedPlan(
-                rounds_ffd, rounds_cost, feasible_any, float(objective[0]), handle
+            if not ok:  # pragma: no cover — entry budget sized to never trip
+                rounds_ffd, rounds_cost, feasible_any = unpack_dense(
+                    handle.dense.cpu().numpy(), handle.num_groups
+                )
+            plans.append(
+                FetchedPlan(
+                    rounds_ffd, rounds_cost, feasible_any, float(objective[0]), handle
+                )
             )
-        )
-    return plans
+        return plans
 
 
 def fetch_plan(handle: FusedHandle) -> FetchedPlan:
@@ -1069,13 +1090,12 @@ def cost_solve_dense(
         "solve.device", groups=num_groups, types=num_types
     ):
         pod_vectors, pod_counts = device_pods or (vectors, counts)
-        fused = cost_solve_dispatch(
-            pod_vectors, pod_counts, capacity, total, prices, lp_steps, device=device
-        )
         # The pool matrix build and the column-LP mix candidate run in a
         # worker thread concurrently with the fetch, which waits on the
         # device with the interpreter lock released.
-        plan_start_fetch(fused)
+        fused = dispatch_staged(
+            pod_vectors, pod_counts, capacity, total, prices, lp_steps, device=device
+        )
         overlap = _HostOverlap([(vectors, counts, capacity, pool_prices)])
         overlap.start()
         fetched = fetch_plan(fused)
@@ -1101,10 +1121,17 @@ class _HostOverlap:
     the pipelined consumer (solve_encoded_pipelined) can wait(k) for just
     its item instead of joining the whole batch — the hand-off that lets
     schedule k's decode start while later schedules' host work is still
-    running."""
+    running.
+
+    The worker joins the creating thread's trace and names its innermost
+    open span as the parent of "host.pool_matrix" and "host.mix" (with the
+    worker's CPU seconds in the candidate, cpu_s); the caller's join() and
+    wait(k) are "host.wait"."""
 
     def __init__(self, items: Sequence[Tuple]):
         self._items = list(items)
+        self._trace = TRACER.current_trace()
+        self._parent = TRACER.current_parent()
         self.pool_prices: List = [None] * len(self._items)
         self.mix_plans: List = [None] * len(self._items)
         self._error: Optional[BaseException] = None
@@ -1119,39 +1146,47 @@ class _HostOverlap:
         return self
 
     def _run(self):
-        for index, (vectors, counts, capacity, pool_prices) in enumerate(
-            self._items
-        ):
-            try:
-                if callable(pool_prices):
-                    pool_prices = pool_prices()
-                self.pool_prices[index] = pool_prices
-            except BaseException as error:  # noqa: BLE001 — re-raised on join
-                self._error = error
-                self._error_index = index
-                for event in self._done[index:]:
-                    event.set()
-                return
-            try:
-                self.mix_plans[index] = compute_mix_candidate(
-                    vectors, counts, capacity, pool_prices
-                )
-            except Exception:  # noqa: BLE001 — optional candidate, not fatal
-                klog.named("solver").warning(
-                    "mix candidate failed; solving without it", exc_info=True
-                )
-            self._done[index].set()
+        with TRACER.trace(self._trace, parent=self._parent):
+            for index, (vectors, counts, capacity, pool_prices) in enumerate(
+                self._items
+            ):
+                try:
+                    with TRACER.span("host.pool_matrix"):
+                        if callable(pool_prices):
+                            pool_prices = pool_prices()
+                    self.pool_prices[index] = pool_prices
+                except BaseException as error:  # noqa: BLE001 — re-raised on join
+                    self._error = error
+                    self._error_index = index
+                    for event in self._done[index:]:
+                        event.set()
+                    return
+                try:
+                    with TRACER.span("host.mix") as span:
+                        cpu_start = time.thread_time() if span.recording else 0.0
+                        self.mix_plans[index] = compute_mix_candidate(
+                            vectors, counts, capacity, pool_prices
+                        )
+                        if span.recording:
+                            span.set(cpu_s=time.thread_time() - cpu_start)
+                except Exception:  # noqa: BLE001 — optional candidate, not fatal
+                    klog.named("solver").warning(
+                        "mix candidate failed; solving without it", exc_info=True
+                    )
+                self._done[index].set()
 
     def wait(self, index: int) -> None:
         """Block until item `index` is finished; re-raise the pool-matrix
         error iff it poisoned this item (items before the failure stay
         usable — their slots were already filled in order)."""
-        self._done[index].wait()
+        with TRACER.span("host.wait"):
+            self._done[index].wait()
         if self._error is not None and index >= self._error_index:
             raise self._error
 
     def join(self) -> Tuple[List, List]:
-        self._thread.join()
+        with TRACER.span("host.wait"):
+            self._thread.join()
         if self._error is not None:
             raise self._error
         return self.pool_prices, self.mix_plans
@@ -1521,6 +1556,19 @@ def cost_solve_dispatch(
     )
 
 
+def dispatch_staged(
+    vectors, counts, capacity, total, prices, lp_steps: int = 300, device=None,
+) -> FusedHandle:
+    """cost_solve_dispatch, then plan_start_fetch: a solve's dispatch with
+    its eager payload's copy queued behind it, under the "dispatch" span."""
+    with TRACER.span("dispatch"):
+        fused = cost_solve_dispatch(
+            vectors, counts, capacity, total, prices, lp_steps, device=device
+        )
+        plan_start_fetch(fused)
+    return fused
+
+
 def _dispatch_sharded(vectors, counts, capacity, total, prices, lp_steps, mesh, device):
     """Dispatch the sharded fused solve, surviving a wedged card: a
     dispatch-time failure quarantines the mesh through MeshHealth (a
@@ -1627,99 +1675,106 @@ def cost_solve_finish(
     """Host-side candidate scoring + LP realization over a fetched plan.
     fetched may be None (the cost_solve_host path): scoring then runs over
     host_candidates + mix_plan only. An `explain` dict, when passed, is
-    filled with every scored candidate under "candidates"."""
-    num_groups = int(vectors.shape[0])
-    candidates, labels, lp_supplier, feasible_any, lp_objective = (
-        _collect_candidates(fetched, num_groups, host_candidates, mix_plan)
-    )
+    filled with every scored candidate under "candidates".
 
-    # Score from rounds: a node's realized price is the cheapest of its
-    # offered options. A candidate that leaves more pods unschedulable never
-    # wins on price. Option sets are memoized per fill; the whole
-    # distinct-fill set is selected in ONE native batch call up front.
-    options_memo: Dict[bytes, Tuple[List[int], Optional[List[PoolRow]]]] = {}
-    pool_order = sort_pool_rows(pool_prices)
-    _batch_pool_options(candidates, vectors, capacity, pool_order, options_memo)
+    The LP's realization runs under "host.finish.lp_realize", and the
+    span "host.finish" names the winner's label, as `explain` does."""
+    with TRACER.span("host.finish") as span:
+        num_groups = int(vectors.shape[0])
+        candidates, labels, lp_supplier, feasible_any, lp_objective = (
+            _collect_candidates(fetched, num_groups, host_candidates, mix_plan)
+        )
 
-    def options_for(t: int, fill: np.ndarray):
-        key = fill.tobytes()
-        options = options_memo.get(key)
-        if options is None:
-            options = _cheapest_feasible_pools(
-                fill, t, vectors, capacity, pool_prices, pool_order
-            )
-            options_memo[key] = options
-        return options
+        # Score from rounds: a node's realized price is the cheapest of its
+        # offered options. A candidate that leaves more pods unschedulable never
+        # wins on price. Option sets are memoized per fill; the whole
+        # distinct-fill set is selected in ONE native batch call up front.
+        options_memo: Dict[bytes, Tuple[List[int], Optional[List[PoolRow]]]] = {}
+        pool_order = sort_pool_rows(pool_prices)
+        _batch_pool_options(candidates, vectors, capacity, pool_order, options_memo)
 
-    price_memo: Dict[bytes, float] = {}
-
-    def round_price(t: int, fill: np.ndarray) -> float:
-        """Expected realized price of one node: a geometric-decay weighted
-        mean over the offered rows (PRIORITY_DECAY). Memoized per fill."""
-        key = fill.tobytes()
-        price = price_memo.get(key)
-        if price is None:
-            type_indices, pool_rows = options_for(t, fill)
-            if pool_rows:
-                row_prices = np.array([p for _, _, p in pool_rows])
-                weights = PRIORITY_DECAY ** np.arange(len(row_prices))
-                price = float((weights / weights.sum()) @ row_prices)
-            else:
-                # Degenerate: no pool anywhere can host this fill, and the
-                # anchor t may be a padded phantom type index. Price it
-                # unhostable — never cheap, never an IndexError.
-                in_range = [i for i in type_indices if i < prices.shape[0]]
-                price = (
-                    float(prices[in_range].min()) if in_range else float("inf")
+        def options_for(t: int, fill: np.ndarray):
+            key = fill.tobytes()
+            options = options_memo.get(key)
+            if options is None:
+                options = _cheapest_feasible_pools(
+                    fill, t, vectors, capacity, pool_prices, pool_order
                 )
-            price_memo[key] = price
-        return price
+                options_memo[key] = options
+            return options
 
-    def score(candidate):
-        round_list, unschedulable_counts = candidate
-        nodes = sum(repl for _, _, repl in round_list)
-        cost = sum(
-            repl * round_price(t, fill) for t, fill, repl in round_list
+        price_memo: Dict[bytes, float] = {}
+
+        def round_price(t: int, fill: np.ndarray) -> float:
+            """Expected realized price of one node: a geometric-decay weighted
+            mean over the offered rows (PRIORITY_DECAY). Memoized per fill."""
+            key = fill.tobytes()
+            price = price_memo.get(key)
+            if price is None:
+                type_indices, pool_rows = options_for(t, fill)
+                if pool_rows:
+                    row_prices = np.array([p for _, _, p in pool_rows])
+                    weights = PRIORITY_DECAY ** np.arange(len(row_prices))
+                    price = float((weights / weights.sum()) @ row_prices)
+                else:
+                    # Degenerate: no pool anywhere can host this fill, and the
+                    # anchor t may be a padded phantom type index. Price it
+                    # unhostable — never cheap, never an IndexError.
+                    in_range = [i for i in type_indices if i < prices.shape[0]]
+                    price = (
+                        float(prices[in_range].min()) if in_range else float("inf")
+                    )
+                price_memo[key] = price
+            return price
+
+        def score(candidate):
+            round_list, unschedulable_counts = candidate
+            nodes = sum(repl for _, _, repl in round_list)
+            cost = sum(
+                repl * round_price(t, fill) for t, fill, repl in round_list
+            )
+            return (int(unschedulable_counts.sum()), cost, nodes)
+
+        # The LP realization only adds fragmentation on top of the LP's relaxed
+        # cost, so a kernel candidate clearly under the LP's fractional objective
+        # skips it; only then is the deferred [G, T] assignment fetched.
+        scores = {id(c): score(c) for c in candidates}
+        best_kernel_cost = min(
+            (s[1] for s in scores.values() if s[0] == 0), default=np.inf
         )
-        return (int(unschedulable_counts.sum()), cost, nodes)
+        if lp_supplier is not None and (
+            not candidates
+            or best_kernel_cost > float(lp_objective) * LP_REALIZE_SLACK
+        ):
+            with TRACER.span("host.finish.lp_realize"):
+                lp_candidate = _realize_lp_dense(
+                    lp_supplier(), feasible_any, vectors, counts, capacity, total
+                )
+            if lp_candidate is not None:
+                candidates.append(lp_candidate)
+                labels.append("lp_realized")
+                scores[id(lp_candidate)] = score(lp_candidate)
+        if not candidates:
+            return None
 
-    # The LP realization only adds fragmentation on top of the LP's relaxed
-    # cost, so a kernel candidate clearly under the LP's fractional objective
-    # skips it; only then is the deferred [G, T] assignment fetched.
-    scores = {id(c): score(c) for c in candidates}
-    best_kernel_cost = min(
-        (s[1] for s in scores.values() if s[0] == 0), default=np.inf
-    )
-    if lp_supplier is not None and (
-        not candidates
-        or best_kernel_cost > float(lp_objective) * LP_REALIZE_SLACK
-    ):
-        lp_candidate = _realize_lp_dense(
-            lp_supplier(), feasible_any, vectors, counts, capacity, total
-        )
-        if lp_candidate is not None:
-            candidates.append(lp_candidate)
-            labels.append("lp_realized")
-            scores[id(lp_candidate)] = score(lp_candidate)
-    if not candidates:
-        return None
+        def materialize(candidate) -> DenseSolveResult:
+            rounds, unschedulable = candidate
+            options: Dict[bytes, Tuple[List[int], Optional[List[PoolRow]]]] = {}
+            for t, fill, _ in rounds:
+                options[fill.tobytes()] = options_for(t, fill)
+            return DenseSolveResult(
+                rounds=rounds, unschedulable=unschedulable, options=options
+            )
 
-    def materialize(candidate) -> DenseSolveResult:
-        rounds, unschedulable = candidate
-        options: Dict[bytes, Tuple[List[int], Optional[List[PoolRow]]]] = {}
-        for t, fill, _ in rounds:
-            options[fill.tobytes()] = options_for(t, fill)
-        return DenseSolveResult(
-            rounds=rounds, unschedulable=unschedulable, options=options
-        )
-
-    if explain is not None:
-        explain["candidates"] = [
-            (label, materialize(candidate), scores[id(candidate)])
-            for label, candidate in zip(labels, candidates)
-        ]
-    best = min(candidates, key=lambda c: scores[id(c)])
-    return materialize(best)
+        if explain is not None:
+            explain["candidates"] = [
+                (label, materialize(candidate), scores[id(candidate)])
+                for label, candidate in zip(labels, candidates)
+            ]
+        best = min(candidates, key=lambda c: scores[id(c)])
+        if span.recording:
+            span.set(winner=next(label for label, c in zip(labels, candidates) if c is best))
+        return materialize(best)
 
 
 def _batch_pool_options(
@@ -2021,7 +2076,8 @@ class CostSolver(Solver):
             raise AssertionError(
                 "cost_solve_dense returned a plan without evaluating pool_prices"
             )
-        return decode_dense_result(dense, groups, fleet, pool_zones)
+        with TRACER.span("decode"):
+            return decode_dense_result(dense, groups, fleet, pool_zones)
 
     def _dispatch_batch(self, items, batched: Optional[bool] = None):
         """Shared first stage of the batched and pipelined paths: host-solve
@@ -2058,15 +2114,16 @@ class CostSolver(Solver):
                     prebuilt_pool[1],
                 )
                 if dense is not None:
-                    results[i] = decode_dense_result(
-                        dense, groups, fleet, prebuilt_pool[0]
-                    )
+                    with TRACER.span("decode"):
+                        results[i] = decode_dense_result(
+                            dense, groups, fleet, prebuilt_pool[0]
+                        )
                     continue
             pod_vectors, pod_counts = device_pod_args(groups) or (
                 groups.vectors,
                 groups.counts,
             )
-            fused = cost_solve_dispatch(
+            fused = dispatch_staged(
                 pod_vectors,
                 pod_counts,
                 fleet.capacity,
@@ -2075,7 +2132,6 @@ class CostSolver(Solver):
                 self.lp_steps,
                 device=self.device,
             )
-            plan_start_fetch(fused)
             pending.append((i, groups, fleet, fused, prebuilt_pool))
 
         overlap = None
@@ -2120,11 +2176,10 @@ class CostSolver(Solver):
             pool_prices,
             mix_plan=mix_plan,
         )
-        return (
-            ffd.pack_groups(fleet, groups)
-            if dense is None
-            else decode_dense_result(dense, groups, fleet, zones)
-        )
+        if dense is None:
+            return ffd.pack_groups(fleet, groups)
+        with TRACER.span("decode"):
+            return decode_dense_result(dense, groups, fleet, zones)
 
     def solve_encoded_many(
         self, items: Sequence[Tuple[PodGroups, InstanceFleet]]
@@ -2155,7 +2210,7 @@ class CostSolver(Solver):
                 "solve.device.batch", solves=len(pending)
             ):
                 plans = fetch_plans([entry[3] for entry in pending])
-            pool_matrices, mix_plans = overlap.join()
+                pool_matrices, mix_plans = overlap.join()
             for entry, zones, pool_prices, mix_plan, plan in zip(
                 pending, zones_box, pool_matrices, mix_plans, plans
             ):
@@ -2241,7 +2296,8 @@ class CostSolver(Solver):
         )
         if dense is None:
             return ffd.pack_groups(fleet, groups)
-        return decode_dense_result(dense, groups, fleet, zones)
+        with TRACER.span("decode"):
+            return decode_dense_result(dense, groups, fleet, zones)
 
     def solve_encoded_pipelined(
         self, items: Sequence[Tuple[PodGroups, InstanceFleet]]

@@ -28,6 +28,10 @@ kernel's dispatch is async and its fetch pays a full device round trip
 that otherwise-idle window and adds nothing to the solve's latency
 (models/solver.cost_solve_dense overlaps it with the device).
 
+The candidate's phases run under spans (utils/tracing.py): the columns
+("host.mix.columns"), the covering LP ("host.mix.cover_lp"), and the
+integerization with the rounds' emission ("host.mix.integerize").
+
 certified_lp_floor is the analysis half: the cutting-stock LP optimum over
 every single-node fill, certified by exact MILP pricing, the yardstick a
 plan's $/hr is held against. It runs off the solve path.
@@ -38,6 +42,8 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from karpenter_tpu_torch.utils.tracing import TRACER
 
 # Enumeration budget: types kept after price-efficiency pruning, seed-group
 # cap, and the ka sweep fractions. J = TYPES_BUDGET * min(G, GROUPS_CAP)^2 *
@@ -556,118 +562,120 @@ def mix_candidate(
     counts = counts.astype(np.int64)
     if counts.sum() == 0 or capacity.shape[0] == 0:
         return None
-    fills, types = enumerate_pair_columns(vectors, counts, capacity, pool_floor)
-    if fills.shape[0]:
-        # Prune on COARSE prices first (type-capacity dominance, one [T, T]
-        # reduction), then exact-price only the survivors — exact
-        # demand-dominance pricing over the full enumeration would dominate
-        # the pipeline's runtime.
-        dominates = (
-            capacity[None, :, :] >= capacity[:, None, :] - 1e-6
-        ).all(axis=2)
-        effective = np.where(dominates, pool_floor[None, :], np.inf).min(axis=1)
-        coarse = effective[types]
-        usable = np.isfinite(coarse)
-        fills, types, coarse = fills[usable], types[usable], coarse[usable]
-        fills, types, _ = _prune_columns(
-            fills, types, coarse, vectors, counts, capacity, pool_floor
-        )
-        prices = price_columns(fills, vectors, capacity, pool_floor)
-        usable = np.isfinite(prices)
-        fills, types, prices = fills[usable], types[usable], prices[usable]
-    else:
-        prices = np.zeros((0,))
-    # Rescue columns: one single-group max-fill per group on its cheapest
-    # feasible type — guarantees every solvable group is coverable even when
-    # its only feasible types fell outside the pruned enumeration set.
-    # Appended AFTER pruning (with caller seeds) so they always survive.
-    rescue: List[Tuple[int, np.ndarray]] = []
-    for g in range(vectors.shape[0]):
-        if counts[g] <= 0:
-            continue
-        vec = vectors[g]
-        feasible = (capacity >= vec[None, :] - 1e-6).all(axis=1)
-        priced = np.where(feasible, pool_floor, np.inf)
-        t = int(np.argmin(priced))
-        if not np.isfinite(priced[t]):
-            # Feasible but unpriced type (no offering): still usable as a
-            # coverage column — fall back to any feasible type.
-            feasible_idx = np.nonzero(feasible)[0]
-            if feasible_idx.size == 0:
-                continue
-            t = int(feasible_idx[0])
-        with np.errstate(divide="ignore", invalid="ignore"):
-            ratio = np.where(
-                vec > 0, capacity[t] / np.where(vec > 0, vec, 1.0), np.inf
+    with TRACER.span("host.mix.columns"):
+        fills, types = enumerate_pair_columns(vectors, counts, capacity, pool_floor)
+        if fills.shape[0]:
+            # Prune on COARSE prices first (type-capacity dominance, one [T, T]
+            # reduction), then exact-price only the survivors — exact
+            # demand-dominance pricing over the full enumeration would dominate
+            # the pipeline's runtime.
+            dominates = (
+                capacity[None, :, :] >= capacity[:, None, :] - 1e-6
+            ).all(axis=2)
+            effective = np.where(dominates, pool_floor[None, :], np.inf).min(axis=1)
+            coarse = effective[types]
+            usable = np.isfinite(coarse)
+            fills, types, coarse = fills[usable], types[usable], coarse[usable]
+            fills, types, _ = _prune_columns(
+                fills, types, coarse, vectors, counts, capacity, pool_floor
             )
-        k = int(
-            min(max(np.floor(ratio.min() + _EPS), 1.0), float(counts[g]))
-        )
-        fill = np.zeros(vectors.shape[0], np.int64)
-        fill[g] = k
-        rescue.append((t, fill))
-    extras = list(extra_columns or []) + rescue
-    if extras:
-        seed_fills = np.stack([np.asarray(f, np.int64) for _, f in extras])
-        seed_types = np.asarray([t for t, _ in extras], np.int32)
-        seed_prices = price_columns(seed_fills, vectors, capacity, pool_floor)
-        usable = np.isfinite(seed_prices)
-        fills = (
-            np.concatenate([fills, seed_fills[usable]])
-            if fills.size
-            else seed_fills[usable]
-        )
-        types = (
-            np.concatenate([types, seed_types[usable]])
-            if types.size
-            else seed_types[usable]
-        )
-        prices = (
-            np.concatenate([prices, seed_prices[usable]])
-            if prices.size
-            else seed_prices[usable]
-        )
+            prices = price_columns(fills, vectors, capacity, pool_floor)
+            usable = np.isfinite(prices)
+            fills, types, prices = fills[usable], types[usable], prices[usable]
+        else:
+            prices = np.zeros((0,))
+        # Rescue columns: one single-group max-fill per group on its cheapest
+        # feasible type — guarantees every solvable group is coverable even when
+        # its only feasible types fell outside the pruned enumeration set.
+        # Appended AFTER pruning (with caller seeds) so they always survive.
+        rescue: List[Tuple[int, np.ndarray]] = []
+        for g in range(vectors.shape[0]):
+            if counts[g] <= 0:
+                continue
+            vec = vectors[g]
+            feasible = (capacity >= vec[None, :] - 1e-6).all(axis=1)
+            priced = np.where(feasible, pool_floor, np.inf)
+            t = int(np.argmin(priced))
+            if not np.isfinite(priced[t]):
+                # Feasible but unpriced type (no offering): still usable as a
+                # coverage column — fall back to any feasible type.
+                feasible_idx = np.nonzero(feasible)[0]
+                if feasible_idx.size == 0:
+                    continue
+                t = int(feasible_idx[0])
+            with np.errstate(divide="ignore", invalid="ignore"):
+                ratio = np.where(
+                    vec > 0, capacity[t] / np.where(vec > 0, vec, 1.0), np.inf
+                )
+            k = int(
+                min(max(np.floor(ratio.min() + _EPS), 1.0), float(counts[g]))
+            )
+            fill = np.zeros(vectors.shape[0], np.int64)
+            fill[g] = k
+            rescue.append((t, fill))
+        extras = list(extra_columns or []) + rescue
+        if extras:
+            seed_fills = np.stack([np.asarray(f, np.int64) for _, f in extras])
+            seed_types = np.asarray([t for t, _ in extras], np.int32)
+            seed_prices = price_columns(seed_fills, vectors, capacity, pool_floor)
+            usable = np.isfinite(seed_prices)
+            fills = (
+                np.concatenate([fills, seed_fills[usable]])
+                if fills.size
+                else seed_fills[usable]
+            )
+            types = (
+                np.concatenate([types, seed_types[usable]])
+                if types.size
+                else seed_types[usable]
+            )
+            prices = (
+                np.concatenate([prices, seed_prices[usable]])
+                if prices.size
+                else seed_prices[usable]
+            )
     if fills.shape[0] == 0:
         return None
-    x = integerize_cover(
-        fills, prices, solve_cover_lp(fills, prices, counts), counts
-    )
-    if x is None:
-        return None
+    with TRACER.span("host.mix.cover_lp"):
+        x_frac = solve_cover_lp(fills, prices, counts)
+    with TRACER.span("host.mix.integerize"):
+        x = integerize_cover(fills, prices, x_frac, counts)
+        if x is None:
+            return None
 
-    # Emit rounds cheapest-first, clamping to remaining pods: expensive
-    # columns absorb the trim, and coverage comes out exact (the integral x
-    # covers counts per group, and clamping only drops pods a group no
-    # longer needs, so the walk always drains `remaining` to zero).
-    remaining = counts.copy()
-    rounds: List[Tuple[int, np.ndarray, int]] = []
-    used = np.nonzero(x)[0]
-    for j in used[np.argsort(prices[used], kind="stable")]:
-        budget = int(x[j])
-        fill = fills[j]
-        while budget > 0 and remaining.sum() > 0:
-            clamped = np.minimum(fill, remaining)
-            if clamped.sum() == 0:
-                break
-            if np.array_equal(clamped, fill):
-                with np.errstate(divide="ignore"):
-                    full = int(
-                        np.min(
-                            np.where(
-                                fill > 0,
-                                remaining // np.maximum(fill, 1),
-                                np.iinfo(np.int64).max,
+        # Emit rounds cheapest-first, clamping to remaining pods: expensive
+        # columns absorb the trim, and coverage comes out exact (the integral x
+        # covers counts per group, and clamping only drops pods a group no
+        # longer needs, so the walk always drains `remaining` to zero).
+        remaining = counts.copy()
+        rounds: List[Tuple[int, np.ndarray, int]] = []
+        used = np.nonzero(x)[0]
+        for j in used[np.argsort(prices[used], kind="stable")]:
+            budget = int(x[j])
+            fill = fills[j]
+            while budget > 0 and remaining.sum() > 0:
+                clamped = np.minimum(fill, remaining)
+                if clamped.sum() == 0:
+                    break
+                if np.array_equal(clamped, fill):
+                    with np.errstate(divide="ignore"):
+                        full = int(
+                            np.min(
+                                np.where(
+                                    fill > 0,
+                                    remaining // np.maximum(fill, 1),
+                                    np.iinfo(np.int64).max,
+                                )
                             )
                         )
-                    )
-                take = min(budget, max(full, 1))
-                rounds.append((int(types[j]), fill.copy(), take))
-                remaining -= take * fill
-                budget -= take
-            else:
-                rounds.append((int(types[j]), clamped.copy(), 1))
-                remaining -= clamped
-                budget -= 1
-    if remaining.sum() != 0:
-        return None  # defensive: exact cover failed
-    return rounds
+                    take = min(budget, max(full, 1))
+                    rounds.append((int(types[j]), fill.copy(), take))
+                    remaining -= take * fill
+                    budget -= take
+                else:
+                    rounds.append((int(types[j]), clamped.copy(), 1))
+                    remaining -= clamped
+                    budget -= 1
+        if remaining.sum() != 0:
+            return None  # defensive: exact cover failed
+        return rounds

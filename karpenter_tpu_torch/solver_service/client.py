@@ -342,7 +342,7 @@ class RemoteSolver(Solver):
         wire-time stamps instead (the same reason the RPC histogram does).
         Trace/parent were captured before the first yield, while the
         caller's batch trace context and span stack were still current."""
-        if not TRACER.enabled:
+        if not TRACER.recording():
             return
         TRACER.record(
             Span(

@@ -261,7 +261,7 @@ class _Handler:
                     total = wire.decode_tensor(request.total)
                     prices = wire.decode_tensor(request.prices)
                     pool_prices = wire.decode_tensor(request.pool_prices)
-                    fused = solver_models.cost_solve_dispatch(
+                    fused = solver_models.dispatch_staged(
                         vectors,
                         counts,
                         capacity,
@@ -270,7 +270,6 @@ class _Handler:
                         int(request.lp_steps) or 300,
                         device=self.device,
                     )
-                    solver_models.plan_start_fetch(fused)
                     pending.append(
                         (order, start, fused, vectors, counts, capacity, total,
                          prices, pool_prices)

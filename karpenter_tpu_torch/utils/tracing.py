@@ -8,28 +8,41 @@ aggregate histograms can't show *which* hop ate the latency budget.
 Design: an in-process tracer with explicit context-manager spans. Spans
 nest via a thread-local stack, live in a bounded ring buffer, and export as
 Chrome trace events (chrome://tracing / Perfetto load them directly).
-Enablement is environment-driven so production runs pay one branch per span
-when disabled:
+Spans record while `Tracer.recording()` holds, and production runs pay one
+check per span when it does not:
 
   KARPENTER_TRACE=1                 enable span collection
+  (a torch.profiler session)        collect spans while it records in the
+                                    process, so whoever takes a device
+                                    trace of the process gets the
+                                    program's spans with it
   KARPENTER_TRACE_FILE=/path.json   flush Chrome trace events there on exit
-  KARPENTER_JAX_PROFILE_DIR=/path   capture a torch.profiler device trace
-                                    around each solve (the card's timeline;
-                                    the reference's variable, kept so both
-                                    packages read one setting)
+  KARPENTER_JAX_PROFILE_DIR=/path   capture a torch.profiler trace of the
+                                    card around each device solve, and
+                                    mirror each recorded span there as a
+                                    record_function range (the reference's
+                                    variable, kept so both packages read
+                                    one setting)
 
-The card's side rides torch.profiler: when a profile dir is set, spans also
-enter a torch.profiler.record_function range, so host spans and CUDA
-kernels line up in the same Perfetto view.
+Spans enter record_function only under KARPENTER_JAX_PROFILE_DIR: a range
+mirrored on the card's timeline becomes a device annotation record, which
+a reader counting the card's records would count as work.
 
-Cross-process stitching: span timestamps are `perf_counter` readings, which
-are incomparable across processes, so the exporter anchors every `ts` to the
-wall clock via a per-tracer epoch offset (recorded in the export metadata)
-— traces from the controller, the sidecar, and SPMD followers concatenate
-into one aligned timeline. A trace id minted per provisioning batch
-(new_trace_id / Tracer.trace) is stamped on every span recorded while it is
-current and rides the solver RPC metadata and the SPMD broadcast header, so
-one batch's spans correlate across all three processes.
+Clock: spans are stamped with `perf_counter_ns`, which is incomparable
+across processes, so the exporter rebases every `ts` onto the Unix epoch,
+as torch.profiler's export does (its `ts` plus `baseTimeNanoseconds`). The
+anchor is read at each export (and recorded in its metadata), so a
+long-running process's wall-clock slew cannot move the spans off a device
+trace taken beside them. Traces from the controller, the sidecar, and SPMD
+followers concatenate into one aligned timeline.
+
+Trace ids: one minted per provisioning batch (new_trace_id / Tracer.trace),
+or per bare solve around its root span "solve", is stamped on every
+span recorded while it is current and rides the solver RPC metadata and the
+SPMD broadcast header, so one batch's spans correlate across all three
+processes. A worker thread joins its creator's trace and names the
+creator's innermost open span as its spans' parent (Tracer.trace(id,
+parent)).
 """
 
 from __future__ import annotations
@@ -38,13 +51,12 @@ import atexit
 import json
 import os
 import random
+import sys
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
-
-from karpenter_tpu_torch.utils.clock import SYSTEM_CLOCK
 
 _MAX_SPANS = 65536
 
@@ -67,6 +79,22 @@ SPAN_NAMES = (
     "solver.serve",
     "solver.serve.stream",
     "spmd.follower.step",
+    # Inside the cost solve (models/solver, ops/mix_pack): a bare solve's
+    # root, its layer boundaries, and the overlap thread's host work.
+    "solve",
+    "encode.group_pods",
+    "encode.build_fleet",
+    "dispatch",
+    "fetch",
+    "host.wait",
+    "host.pool_matrix",
+    "host.mix",
+    "host.mix.columns",
+    "host.mix.cover_lp",
+    "host.mix.integerize",
+    "host.finish",
+    "host.finish.lp_realize",
+    "decode",
 )
 
 # gRPC metadata key carrying the batch trace id across the sidecar boundary.
@@ -110,22 +138,35 @@ class Span:
     trace: str = ""
 
 
-class _TraceContext:
-    __slots__ = ("tracer", "trace_id", "_previous")
+def _torch_profiler_recording() -> bool:
+    """True while a torch.profiler session records in this process (any
+    thread's). torch keeps the flag in a module global; a process that
+    never imported the profiler has none running."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    return profiler is not None and getattr(profiler, "_is_profiler_enabled", False)
 
-    def __init__(self, tracer: "Tracer", trace_id: Optional[str]):
+
+class _TraceContext:
+    __slots__ = ("tracer", "trace_id", "parent", "_previous")
+
+    def __init__(self, tracer: "Tracer", trace_id: Optional[str], parent: Optional[str] = None):
         self.tracer = tracer
         self.trace_id = trace_id
+        self.parent = parent
 
     def __enter__(self):
         local = self.tracer._local
         self._previous = getattr(local, "trace", None)
         if self.trace_id is not None:
             local.trace = self.trace_id
+        if self.parent is not None:
+            self.tracer._stack().append(self.parent)
         return self
 
     def __exit__(self, *exc):
         self.tracer._local.trace = self._previous
+        if self.parent is not None:
+            self.tracer._stack().pop()
         return False
 
 
@@ -137,21 +178,29 @@ class Tracer:
             else os.environ.get("KARPENTER_TRACE", "") not in ("", "0", "false")
         )
         self.profile_dir = os.environ.get("KARPENTER_JAX_PROFILE_DIR") or None
-        # Wall-clock anchor for Chrome export: start_s values are
-        # perf_counter readings (monotonic, process-local); adding this
+        # Wall-clock anchor of the most recent Chrome export: start_s values
+        # are perf_counter readings (monotonic, process-local); adding this
         # offset rebases them onto the epoch so `ts` values from different
-        # processes align in one merged timeline.
-        self.epoch_offset_s = SYSTEM_CLOCK.now() - time.perf_counter()
+        # processes align in one merged timeline. Read anew at each export.
+        self.epoch_offset_s = _epoch_offset_ns() * 1e-9
         self._spans: deque = deque(maxlen=_MAX_SPANS)  # vet: guarded-by(self._lock)
         self._local = threading.local()
         self._lock = threading.Lock()
 
+    def recording(self) -> bool:
+        """THE predicate every span and every span attribute checks:
+        KARPENTER_TRACE, or a torch.profiler session recording in the
+        process."""
+        return self.enabled or _torch_profiler_recording()
+
     # -- trace context -------------------------------------------------------
 
-    def trace(self, trace_id: Optional[str]) -> _TraceContext:
+    def trace(self, trace_id: Optional[str], parent: Optional[str] = None) -> _TraceContext:
         """Context manager making `trace_id` current for this thread; spans
-        recorded inside carry it. None is a no-op (keeps any outer trace)."""
-        return _TraceContext(self, trace_id)
+        recorded inside carry it. None is a no-op (keeps any outer trace).
+        `parent`, a span name, is the parent of the outermost spans opened
+        inside: a worker thread names its creator's open span so."""
+        return _TraceContext(self, trace_id, parent)
 
     def current_trace(self) -> Optional[str]:
         return getattr(self._local, "trace", None)
@@ -166,7 +215,12 @@ class Tracer:
     # -- spans ---------------------------------------------------------------
 
     def span(self, name: str, **attributes):
-        """Context manager: times the block, records nesting."""
+        """Context manager: times the block, records nesting. While the
+        tracer is not recording it is a shared no-op whose `recording` is
+        False: attributes that cost anything are set inside
+        `if span.recording:`."""
+        if not self.recording():
+            return _NOOP_SPAN
         return _SpanContext(self, name, attributes)
 
     def record(self, span: Span) -> None:
@@ -188,13 +242,14 @@ class Tracer:
 
     def chrome_trace_events(self) -> List[dict]:
         """Complete ('X') events in the Chrome trace event format, with `ts`
-        rebased onto the wall clock (see epoch_offset_s)."""
+        rebased onto the wall clock (see epoch_offset_s, read anew here)."""
+        offset_s = self.epoch_offset_s = _epoch_offset_ns() * 1e-9
         pid = os.getpid()
         return [
             {
                 "name": span.name,
                 "ph": "X",
-                "ts": (self.epoch_offset_s + span.start_s) * 1e6,
+                "ts": (offset_s + span.start_s) * 1e6,
                 "dur": span.duration_s * 1e6,
                 "pid": pid,
                 "tid": span.thread_id,
@@ -262,8 +317,33 @@ class Tracer:
         return stack
 
 
+def _epoch_offset_ns() -> int:
+    """Unix-epoch nanoseconds less perf_counter nanoseconds, now."""
+    return time.time_ns() - time.perf_counter_ns()
+
+
+class _NoopSpan:
+    """What span() hands out while the tracer is not recording."""
+
+    __slots__ = ()
+    recording = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attributes) -> None:
+        pass
+
+
+_NOOP_SPAN = _NoopSpan()
+
+
 class _SpanContext:
-    __slots__ = ("tracer", "name", "attributes", "_start", "_profiler_ctx")
+    __slots__ = ("tracer", "name", "attributes", "_start_ns", "_profiler_ctx")
+    recording = True
 
     def __init__(self, tracer: Tracer, name: str, attributes: dict):
         self.tracer = tracer
@@ -272,42 +352,40 @@ class _SpanContext:
         self._profiler_ctx = None
 
     def __enter__(self):
-        if not self.tracer.enabled:
-            return self
-        self._start = time.perf_counter()
-        stack = self.tracer._stack()
-        stack.append(self.name)
-        if self.tracer.profile_dir is not None:
+        tracer = self.tracer
+        tracer._stack().append(self.name)
+        if tracer.profile_dir is not None:
             # Line this host span up with the card's kernels in the profile.
             import torch.profiler
 
             self._profiler_ctx = torch.profiler.record_function(self.name)
             self._profiler_ctx.__enter__()
+        self._start_ns = time.perf_counter_ns()
         return self
 
     def set(self, **attributes) -> None:
         self.attributes.update(attributes)
 
     def __exit__(self, *exc):
-        if not self.tracer.enabled:
-            return False
+        end_ns = time.perf_counter_ns()
+        tracer = self.tracer
         if self._profiler_ctx is not None:
             self._profiler_ctx.__exit__(*exc)
-        stack = self.tracer._stack()
+        stack = tracer._stack()
         stack.pop()
         current = threading.current_thread()
-        self.tracer.record(
+        tracer.record(
             Span(
                 name=self.name,
-                start_s=self._start,
-                duration_s=time.perf_counter() - self._start,
+                start_s=self._start_ns * 1e-9,
+                duration_s=(end_ns - self._start_ns) * 1e-9,
                 attributes=dict(self.attributes),
                 parent=stack[-1] if stack else None,
                 # Full idents: the old `& 0xFFFF` truncation collided thread
                 # lanes in big pools, merging unrelated spans in the viewer.
                 thread_id=threading.get_ident(),
                 thread_name=current.name,
-                trace=self.tracer.current_trace() or "",
+                trace=tracer.current_trace() or "",
             )
         )
         return False
@@ -367,5 +445,5 @@ def device_profile(tracer: Optional[Tracer] = None) -> _ProfileSession:
 # configured, collected spans flush there at interpreter exit (the documented
 # KARPENTER_TRACE_FILE contract); flush() can also be called any time.
 TRACER = Tracer()
-if TRACER.enabled and os.environ.get("KARPENTER_TRACE_FILE"):
+if TRACER.recording() and os.environ.get("KARPENTER_TRACE_FILE"):
     atexit.register(TRACER.flush)

@@ -102,6 +102,7 @@ VERBATIM = [
 _DOCSTRING = "docstring only: names the port's files and devices"
 _MESH = "a mesh is a grid of shards in one process (parallel/mesh.py), not a jax Mesh"
 _PORT_ONLY = "the port's own helper"
+_SPANS = "records the span(s) of the cost solve's layer boundaries (utils/tracing.SPAN_NAMES)"
 _HISTORY = "docstring only: without the reference's history of which change added what"
 _ECHO = "keeps the cached instance on the echo of an in-flight write (ROADMAP Queue 3 item 1)"
 # Trimmed copies: {module: {adapted definition: why}}.
@@ -134,7 +135,10 @@ TRIMMED = {
         )
     },
     "ops/ffd.py": {},
-    "ops/mix_pack.py": {},
+    "ops/mix_pack.py": {
+        "mix_candidate": _SPANS + ": \"host.mix.columns\", \"host.mix.cover_lp\" and "
+                         "\"host.mix.integerize\" (with the emission of rounds)",
+    },
     "ops/native.py": {
         "_library_path": "the port builds csrc/host/ffd.cc into its own build directory",
         "_build": "g++ directly, without the reference's Makefile",
@@ -177,8 +181,16 @@ TRIMMED = {
         "DeviceClusterState.encode_fleet": _HISTORY,
     },
     "utils/tracing.py": {
+        "SPAN_NAMES": "adds the spans inside the cost solve",
+        "Tracer": "records while recording(): KARPENTER_TRACE or a torch.profiler session; "
+                  "span() is a shared no-op when not recording; trace() takes a parent for "
+                  "a worker thread; the export's epoch anchor is read at each export",
+        "_TraceContext": "pushes the parent a worker thread's spans name",
+        "_torch_profiler_recording": _PORT_ONLY + ": whether a torch.profiler session records",
+        "_epoch_offset_ns": _PORT_ONLY + ": the epoch anchor, read at export",
+        "_NoopSpan": _PORT_ONLY + ": the span handed out while not recording",
         "_SpanContext": "enters torch.profiler.record_function in place of "
-                        "jax.profiler.TraceAnnotation",
+                        "jax.profiler.TraceAnnotation; stamped with perf_counter_ns",
         "_ProfileSession": "a torch.profiler capture exported as a Chrome trace in place of "
                            "jax.profiler.start_trace, one at a time in a process (the sidecar "
                            "solves in several threads)",
@@ -210,6 +222,7 @@ TRIMMED = {
                 "failed card warmup ends the blocking process with its error",
     },
     "solver_service/client.py": {
+        "RemoteSolver._record_stream_span": "records while TRACER.recording()",
         "RemoteSolver.solve_encoded_pipelined": "records the stream's RPC histogram, span and "
                                                 "blackout before it yields the last result: the "
                                                 "provisioning pass pulls exactly one result a "
@@ -219,7 +232,8 @@ TRIMMED = {
     "solver_service/server.py": {
         "_Handler.__init__": "keeps the device the solves run on",
         "_Handler._solve": "solves on the handler's device",
-        "_Handler._ingest_stream": "gates and dispatches on the handler's device",
+        "_Handler._ingest_stream": "gates and dispatches on the handler's device; "
+                                   "dispatches through dispatch_staged",
         "_Handler._ffd_rounds": "takes the device K2 runs on",
         "_Handler.health": "platform and device count from torch (\"gpu\" on the card), in "
                            "place of jax.default_backend() and jax.device_count()",
@@ -261,6 +275,12 @@ TRIMMED = {
                       "padding can be timed on its own",
     },
     "models/solver.py": {
+        "Solver.solve": _SPANS + ": the root span \"solve\", in a trace of its own for a "
+                        "bare solve; encodes through _encode",
+        "Solver._encode_problems": "encodes through _encode (the encode spans)",
+        "_encode": _PORT_ONLY + ": group_pods and build_fleet, each under its span",
+        "dispatch_staged": _PORT_ONLY + ": cost_solve_dispatch and plan_start_fetch under the "
+                           "\"dispatch\" span",
         "NativeSolver": _DOCSTRING,
         "_cost_fused_body": "K1-K4 on a torch device in one launch stream, the K2 pair's "
                             "epilogue writing feasible_any, the LP's counts, the dense spill "
@@ -274,10 +294,13 @@ TRIMMED = {
                             "in place of copy_to_host_async",
         "fetch_plans": "waits on a staged copy's event, else one cat and one device->host "
                        "copy, in place of device_get (_eager_words), quarantine around it; "
-                       "decodes with decompact_plan_sharded at every shard count",
+                       "decodes with decompact_plan_sharded at every shard count; "
+                       "under the \"fetch\" span",
         "fetch_plan": "annotation names a class defined above it",
         "device_pod_args": _DOCSTRING,
-        "_HostOverlap": _DOCSTRING,
+        "_HostOverlap": _SPANS + ": the worker joins its creator's trace and parent span, "
+                        "\"host.pool_matrix\" and \"host.mix\" (its CPU seconds); join and "
+                        "wait are \"host.wait\"",
         "pad_kernel_args": "pads pod tensors already on the device with torch, to the mesh's "
                            "multiples too",
         "run_kernel_dense": "uploads the padded inputs to a device the caller picks",
@@ -289,7 +312,8 @@ TRIMMED = {
         "_cheapest_feasible_pools": _DOCSTRING,
         "_decode_rounds": _DOCSTRING,
         "_kernel_rounds_to_list": "annotation names a class the port imports",
-        "cost_solve_dense": "runs on a device the caller picks",
+        "cost_solve_dense": "runs on a device the caller picks; dispatches through "
+                            "dispatch_staged",
         "compute_mix_candidate": _DOCSTRING,
         "_probe_fetch_floor_ms": "one flat int32 copy from a device the caller picks",
         "host_route_open": _PORT_ONLY + ": the host route is open on the CPU by default and "
@@ -302,14 +326,17 @@ TRIMMED = {
                                "metric (no count= option: boot warmup ends before ready); "
                                + "the mesh from solve_mesh(device)",
         "_collect_candidates": "takes fetched plans only (no host-tuple candidates)",
-        "cost_solve_finish": _DOCSTRING,
+        "cost_solve_finish": _SPANS + ": \"host.finish\" (the winner's label) and "
+                             "\"host.finish.lp_realize\"",
         "_is_resource_exhausted": "also takes torch.cuda.OutOfMemoryError",
         "_hbm_budget_bytes": "the card's total memory from torch.cuda.mem_get_info",
         "_presplit_for_hbm": "reads the budget of the solver's device",
         "CostSolver": "runs on a device the caller picks and raises without a card; the "
                       "floor answers from the host path with no backend pin; no warmup; "
                       "the host route is opt-in on the card "
-                      "(host_fallback_available reads host_route_open)",
+                      "(host_fallback_available reads host_route_open); dispatches through "
+                      "dispatch_staged, joins the overlap inside \"solve.device.batch\" and "
+                      "decodes under \"decode\"",
         "decode_dense_result": _DOCSTRING,
         "_eager_words": _PORT_ONLY + ": the device->host copy of every eager payload, the step "
                         "the fetch quarantine wraps; counts its bytes (LAST_FETCH_BYTES)",
